@@ -1,0 +1,178 @@
+"""Paged attention: online-softmax attention THROUGH the page table.
+
+Counterpart: ``ray_tpu/ops/paged_attention.py``. Each layer's KV cache is a
+pool ``[num_pages, page_tokens, Hkv, D]`` plus per-slot page tables; this op
+attends directly against the pool, reading only the pages that cover a
+slot's live tokens. No contiguous per-slot view is ever built.
+
+  * On a CUDA tensor, ``paged_attention`` launches the hand-written Hopper
+    kernel in ``ray_tpu_torch/csrc/paged_attention.cu`` (built by
+    ``ops/_build.py``), or raises. ``paged_attention.launches`` counts its
+    launches.
+  * On a CPU tensor it runs ``paged_attention_reference``, the plain PyTorch
+    version with the same math: the same page order, the same -1e30 mask
+    and the same online-softmax update, in float32.
+
+Mask: query row ``i`` of slot ``s`` sits at logical position
+``lengths[s] + i`` and may attend position ``j`` iff ``j <= lengths[s] + i``.
+Table entries past a slot's allocation point at the garbage page 0; every
+position they cover is masked, and exp(-1e30 - m) is exactly 0.0, so their
+content can never reach an output. Each query row reduces over pages in
+ascending order under that mask, so row ``i`` of a K-token window is the
+same as a K=1 call at ``lengths[s] + i``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import torch
+
+from ray_tpu_torch.ops import _build
+
+NEG_INF = -1e30
+MAX_HEAD_DIM = 256
+MAX_PAGE_VECTORS = 4 * 256  # 16-byte vectors a block stages per tensor
+
+_ENTRY = {torch.float32: "paged_attention_f32",
+          torch.bfloat16: "paged_attention_bf16"}
+_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+             + [ctypes.c_float, ctypes.c_void_p])
+
+
+def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                    v_pool: torch.Tensor, tables: torch.Tensor,
+                    lengths: torch.Tensor,
+                    sm_scale: Optional[float] = None) -> torch.Tensor:
+    """Attention for q at positions [lengths[s], lengths[s] + K) of each slot.
+
+    q: [S, K, H, D] queries (K = 1 decode, K > 1 a prefill window).
+    k_pool/v_pool: [N, T, Hkv, D] page pools (page 0 = garbage page).
+    tables: [S, P] int32 page tables; lengths: [S] int32 slot cursors.
+    Returns [S, K, H, D] in q's dtype.
+
+    The new tokens' k/v must already be WRITTEN into their pages (write
+    before attend); this op only reads.
+    """
+    if q.shape[0] != tables.shape[0] or q.shape[0] != lengths.shape[0]:
+        raise ValueError(
+            f"slot axis mismatch: q {tuple(q.shape)}, tables "
+            f"{tuple(tables.shape)}, lengths {tuple(lengths.shape)}")
+    if q.shape[3] != k_pool.shape[3] or q.shape[2] % k_pool.shape[2] != 0:
+        raise ValueError(
+            f"head mismatch: q {tuple(q.shape)} vs pool "
+            f"{tuple(k_pool.shape)} (H must be a multiple of Hkv, D must "
+            "match)")
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    if q.device.type == "cpu":
+        return paged_attention_reference(q, k_pool, v_pool, tables, lengths,
+                                         sm_scale)
+    return _paged_attention_cuda(q, k_pool, v_pool, tables, lengths,
+                                 sm_scale)
+
+
+paged_attention.launches = 0
+
+
+def paged_attention_reference(q, k_pool, v_pool, tables, lengths,
+                              sm_scale: Optional[float] = None):
+    """Plain PyTorch twin of the kernel: one loop over pages, all slots
+    batched per iteration. The trip count is the BATCH MAX of pages any slot
+    needs; pages past a slot's own need hit its garbage-page table tail and
+    contribute exact zeros."""
+    S, K, H, D = q.shape
+    _, T, Hkv, _ = k_pool.shape
+    P = tables.shape[1]
+    G = H // Hkv
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(D)
+    dev = q.device
+    qf = q.reshape(S, K, Hkv, G, D).float()
+    qpos = lengths.long()[:, None] + torch.arange(K, device=dev)[None, :]
+    n_pages = min((int(lengths.max()) + K + T - 1) // T, P)
+    m = torch.full((S, K, Hkv, G), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((S, K, Hkv, G), dtype=torch.float32, device=dev)
+    acc = torch.zeros((S, K, Hkv, G, D), dtype=torch.float32, device=dev)
+    for p in range(n_pages):
+        pids = tables[:, p].long()
+        kpg = k_pool[pids].float()                       # [S, T, Hkv, D]
+        vpg = v_pool[pids].float()
+        s_ = torch.einsum("skhgd,sthd->skhgt", qf, kpg) * sm_scale
+        kpos = p * T + torch.arange(T, device=dev)         # [T]
+        allowed = kpos[None, None, :] <= qpos[:, :, None]  # [S, K, T]
+        s_ = torch.where(allowed[:, :, None, None, :], s_,
+                         torch.tensor(NEG_INF, device=dev))
+        m_new = torch.maximum(m, s_.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        pr = torch.exp(s_ - m_new[..., None])
+        l = l * alpha + pr.sum(dim=-1)
+        acc = (acc * alpha[..., None]
+               + torch.einsum("skhgt,sthd->skhgd", pr, vpg))
+        m = m_new
+    l = torch.where(l == 0.0, torch.ones_like(l), l)  # masked row -> 0
+    return (acc / l[..., None]).reshape(S, K, H, D).to(q.dtype)
+
+
+def _kernel_entry(dtype: torch.dtype):
+    lib = _build.load("paged_attention")
+    fn = getattr(lib, _ENTRY[dtype])
+    if fn.argtypes is None:
+        fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
+        lib.paged_attention_error_string.argtypes = [ctypes.c_int]
+        lib.paged_attention_error_string.restype = ctypes.c_char_p
+    return lib, fn
+
+
+def _paged_attention_cuda(q, k_pool, v_pool, tables, lengths, sm_scale):
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_attention runs on CPU or CUDA tensors, "
+                         f"got {q.device}")
+    if q.dtype not in _ENTRY or k_pool.dtype != q.dtype \
+            or v_pool.dtype != q.dtype:
+        raise TypeError(
+            f"paged_attention kernel takes float32 or bfloat16 q and pools "
+            f"of one dtype, got q {q.dtype}, k {k_pool.dtype}, "
+            f"v {v_pool.dtype}")
+    if tables.dtype != torch.int32 or lengths.dtype != torch.int32:
+        raise TypeError(f"tables and lengths must be int32, got "
+                        f"{tables.dtype} and {lengths.dtype}")
+    for name, t in (("k_pool", k_pool), ("v_pool", v_pool),
+                    ("tables", tables), ("lengths", lengths)):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+    if k_pool.shape != v_pool.shape:
+        raise ValueError(f"k_pool {tuple(k_pool.shape)} and v_pool "
+                         f"{tuple(v_pool.shape)} differ")
+    if not (k_pool.is_contiguous() and v_pool.is_contiguous()):
+        raise ValueError("page pools must be contiguous")
+    S, K, H, D = q.shape
+    N, T, Hkv, _ = k_pool.shape
+    P = tables.shape[1]
+    vec = 16 // q.element_size()  # the kernel moves 16-byte vectors
+    if D > MAX_HEAD_DIM or D % 8 or T * D > MAX_PAGE_VECTORS * vec:
+        raise ValueError(
+            f"the kernel takes head_dim <= {MAX_HEAD_DIM}, a multiple of 8, "
+            f"and pages of at most {MAX_PAGE_VECTORS * vec} elements per "
+            f"head; got head_dim {D}, page_tokens {T}")
+    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
+        raise ValueError("page pools must be 16-byte aligned")
+    q = q.contiguous()
+    tables = tables.contiguous()
+    lengths = lengths.contiguous()
+    out = torch.empty_like(q)
+    lib, fn = _kernel_entry(q.dtype)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                 tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+                 S, K, H, Hkv, D, N, T, P, float(sm_scale), stream)
+    if err != 0:
+        msg = lib.paged_attention_error_string(err).decode()
+        raise RuntimeError(f"paged_attention kernel launch failed: {msg} "
+                           f"(cuda error {err})")
+    paged_attention.launches += 1
+    return out

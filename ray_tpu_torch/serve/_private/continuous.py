@@ -1,0 +1,552 @@
+"""Continuous (iteration-level) batching scheduler over the paged KV arena.
+
+Counterpart: the paged path of ``ray_tpu/serve/_private/continuous.py``.
+The scheduler owns a pool of KV pages shared by ``slots`` sequence slots
+and, per iteration, runs at most ONE prefill chunk and ONE decode step over
+every slot:
+
+  * new requests are admitted into free slots between iterations and
+    prefilled in ``prefill_chunk``-token chunks, one chunk per iteration,
+    so a long prompt never stalls the decodes in flight;
+  * a radix prefix cache turns a prompt that shares a cached prefix into a
+    page-table splice plus a cursor jump instead of a re-prefill;
+  * finished or cancelled sequences retire their slot and pages at once;
+  * every sampled token streams to its request's asyncio queue in the
+    iteration that produced it.
+
+All torch work runs on the scheduler's own thread (on CUDA, on that
+thread's current stream); the replica's event loop only touches queues.
+Logits go to the host for sampling, which is numpy, so equal logits draw
+equal tokens from equal seeds on the CPU and on the card.
+
+Not carried by this slice: the drafter (speculative decoding), cross-replica
+page migration, the contiguous arena, EOS handling, flight spans and
+metrics.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from collections import deque
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ray_tpu_torch.models.decode import (init_paged_caches,
+                                         paged_decode_step,
+                                         paged_prefill_into_slot,
+                                         paged_reset_slot)
+from ray_tpu_torch.ops.paged_attention import paged_attention
+from ray_tpu_torch.ops.rotary import rope_frequencies
+from ray_tpu_torch.serve._private.paging import (OutOfPagesError, PageArena,
+                                                 RadixCache)
+
+# sequence states
+_QUEUED = "queued"
+_PREFILL = "prefill"
+_DECODE = "decode"
+_DONE = "done"
+
+
+class SchedulerClosedError(RuntimeError):
+    pass
+
+
+class _Seq:
+    """One in-flight generation request and its consumer-side queue."""
+
+    __slots__ = ("prompt", "remaining_prompt", "max_new", "temperature",
+                 "seed", "slot", "state", "n_generated", "next_token",
+                 "queue", "loop", "cancelled", "rng", "cached_len", "cursor", "owned_pages", "radix_node",
+                 "table_fill")
+
+    def __init__(self, prompt: List[int], max_new: int, temperature: float,
+                 seed: int, loop, queue):
+        self.prompt = prompt
+        self.remaining_prompt = list(prompt)
+        self.max_new = max_new
+        self.temperature = temperature
+        self.seed = seed
+        self.slot: Optional[int] = None
+        self.state = _QUEUED
+        self.n_generated = 0
+        self.next_token: Optional[int] = None
+        self.queue = queue
+        self.loop = loop
+        self.cancelled = False
+        self.rng = None  # numpy Generator, made at first use (temperature > 0)
+        # ---- paged-arena bookkeeping (host mirrors of device state) ----
+        self.cached_len = 0            # spliced prefix tokens (page-aligned)
+        self.cursor = 0                # mirrors the slot's device cursor
+        self.owned_pages: List[int] = []  # pages this slot must free
+        self.radix_node = None         # ref-counted prefix-cache node
+        self.table_fill = 0            # logical pages present in the table
+
+
+class ContinuousScheduler:
+    """Paged-arena continuous-batching scheduler.
+
+    ``params`` are the model's parameters on ``device``, shared by both
+    programs. The scheduler owns the KV page pools, updated in place."""
+
+    def __init__(self, cfg, params, *, device: torch.device,
+                 slots: int = 8, prefill_chunk: int = 32,
+                 arena_len: Optional[int] = None, page_tokens: int = 16):
+        self.cfg = cfg
+        self.params = params
+        self.device = torch.device(device)
+        self.slots = int(slots)
+        self.prefill_chunk = int(prefill_chunk)
+        self.arena_len = int(cfg.max_seq_len if arena_len is None
+                             else arena_len)
+        self.page_tokens = int(page_tokens)
+        if self.slots < 1:
+            raise ValueError(f"slots must be >= 1, got {self.slots}")
+        if self.prefill_chunk < 1:
+            raise ValueError(
+                f"prefill_chunk must be >= 1, got {self.prefill_chunk}")
+        if self.prefill_chunk > self.arena_len:
+            raise ValueError(
+                f"prefill_chunk ({self.prefill_chunk}) exceeds the arena "
+                f"length ({self.arena_len})")
+        if self.page_tokens < 1:
+            raise ValueError(
+                f"page_tokens must be >= 1, got {self.page_tokens}")
+        if self.arena_len % self.page_tokens != 0:
+            raise ValueError(
+                f"arena_len ({self.arena_len}) must be a multiple of "
+                f"page_tokens ({self.page_tokens})")
+        self._pages_per_slot = self.arena_len // self.page_tokens
+        # every slot could fill its whole logical range, plus the reserved
+        # garbage page; prefix-cache pages beyond that are evicted LRU
+        self.num_pages = self.slots * self._pages_per_slot + 1
+        self._arena = PageArena(self.num_pages, self.page_tokens)
+        self._radix = RadixCache(self._arena)
+        # host-side page tables: logical page j of slot s lives at physical
+        # page read_tables[s, j]; 0 = the garbage page
+        self._read_tables = np.zeros(
+            (self.slots, self._pages_per_slot), np.int32)
+        self._write_tables = np.zeros(
+            (self.slots, self._pages_per_slot), np.int32)
+        # the attention lane follows the device: the CUDA kernel on the
+        # card, its plain PyTorch version on the CPU
+        self.attn_lane = "cuda" if self.device.type == "cuda" \
+            else "reference"
+        self._rope = None
+        if cfg.pos == "rope":
+            # built once per scheduler, on the CPU, then moved
+            self._rope = tuple(t.to(self.device) for t in rope_frequencies(
+                cfg.head_dim, cfg.max_seq_len, cfg.rope_theta))
+        self._caches = init_paged_caches(
+            cfg, self.slots, self.num_pages, self.page_tokens,
+            self._pages_per_slot, self.device)
+        self._slot_seqs: List[Optional[_Seq]] = [None] * self.slots
+        self._prefill_rr = 0  # round-robin cursor over prefilling slots
+        self._pending: deque = deque()
+        self._lock = threading.Lock()
+        self._wake = threading.Event()
+        self._closed = False
+        self._error: Optional[BaseException] = None
+        self._n_steps = 0
+        self._n_prefill_chunks = 0
+        self._n_admitted = 0
+        self._n_retired = 0
+        self._n_tokens = 0
+        self._n_prefix_hit_tokens = 0
+        self._n_kernel_launches = 0
+        self._decode_seconds = 0.0
+        self._admitted_mid_flight = 0
+        self._max_active_slots = 0
+        self._peak_queue_depth = 0
+        self._thread = threading.Thread(
+            target=self._run, name="serve-continuous-scheduler", daemon=True)
+        self._thread.start()
+
+    # ------------------------------------------------------------- submit
+
+    def max_prompt_len(self, max_new: int) -> int:
+        """Longest admissible prompt for a generation budget: the padded
+        prefill chunks AND prompt + new tokens must fit the arena, and the
+        whole pool's pages cap one sequence."""
+        c = self.prefill_chunk
+        effective = min(self.arena_len,
+                        self._arena.usable_pages * self.page_tokens)
+        return min((effective // c) * c, effective - max_new)
+
+    def submit(self, prompt_ids: List[int], *, max_new_tokens: int,
+               temperature: float = 0.0, seed: int = 0,
+               loop=None, queue=None) -> _Seq:
+        """Enqueue a generation. ``("tok", id)``, ``("end", reason)`` or
+        ``("err", message)`` events arrive on ``queue`` through
+        ``loop.call_soon_threadsafe``. Thread-safe."""
+        if not prompt_ids:
+            raise ValueError("prompt must be non-empty")
+        if max_new_tokens < 1:
+            raise ValueError("max_new_tokens must be >= 1")
+        if len(prompt_ids) > self.max_prompt_len(max_new_tokens):
+            raise ValueError(
+                f"prompt of {len(prompt_ids)} tokens + {max_new_tokens} new "
+                f"tokens does not fit a {self.arena_len}-token arena slot "
+                f"(prefill pads prompts to {self.prefill_chunk}-token "
+                f"chunks)")
+        seq = _Seq(list(prompt_ids), max_new_tokens, temperature, seed,
+                   loop, queue)
+        with self._lock:
+            if self._closed:
+                raise SchedulerClosedError(
+                    "scheduler is shut down" if self._error is None
+                    else f"scheduler failed: {self._error!r}")
+            self._pending.append(seq)
+            self._peak_queue_depth = max(self._peak_queue_depth,
+                                         len(self._pending))
+        self._wake.set()
+        return seq
+
+    def cancel(self, seq: _Seq) -> None:
+        """Mark a sequence cancelled; its slot retires on the next
+        iteration (pending sequences are dropped at admission)."""
+        seq.cancelled = True
+        self._wake.set()
+
+    # -------------------------------------------------------------- loop
+
+    def _emit(self, seq: _Seq, item) -> None:
+        if seq.loop is None or seq.queue is None:
+            return
+        try:
+            seq.loop.call_soon_threadsafe(seq.queue.put_nowait, item)
+        except RuntimeError:
+            # the consumer's loop is gone: nobody is listening
+            seq.cancelled = True
+
+    def _release_slot_resources(self, seq: _Seq) -> None:
+        """Drop the prefix-cache ref, free owned pages and zero the
+        page-table rows (an inactive slot then touches only page 0)."""
+        if seq.slot is None:
+            return
+        if seq.radix_node is not None:
+            self._radix.release(seq.radix_node)
+            seq.radix_node = None
+        if seq.owned_pages:
+            self._arena.free(seq.owned_pages)
+            seq.owned_pages = []
+        seq.table_fill = 0
+        self._read_tables[seq.slot, :] = 0
+        self._write_tables[seq.slot, :] = 0
+
+    def _finish(self, seq: _Seq, item) -> None:
+        self._release_slot_resources(seq)
+        if seq.slot is not None:
+            self._slot_seqs[seq.slot] = None
+            seq.slot = None
+        seq.state = _DONE
+        self._n_retired += 1
+        self._emit(seq, item)
+
+    def _retire(self, seq: _Seq, reason: str) -> None:
+        self._finish(seq, ("end", reason))
+
+    def _fail(self, seq: _Seq, msg: str) -> None:
+        self._finish(seq, ("err", msg))
+
+    def _ensure_pages(self, seq: _Seq, upto: int) -> bool:
+        """Grow the slot's page table to cover [0, upto) tokens, evicting
+        LRU unreferenced prefix-cache nodes under pressure. On exhaustion
+        the SEQUENCE fails; the scheduler and other slots keep running."""
+        need = -(-upto // self.page_tokens)
+        missing = need - seq.table_fill
+        if missing <= 0:
+            return True
+        try:
+            pages = self._arena.alloc(missing)
+        except OutOfPagesError:
+            self._radix.evict(missing - self._arena.free_pages)
+            try:
+                pages = self._arena.alloc(missing)
+            except OutOfPagesError:
+                self._fail(seq, f"kv arena out of pages (need {missing} "
+                                f"more, {self._arena.free_pages} free of "
+                                f"{self._arena.usable_pages}; nothing "
+                                f"evictable)")
+                return False
+        slot = seq.slot
+        for j, p in enumerate(pages, start=seq.table_fill):
+            self._read_tables[slot, j] = p
+            self._write_tables[slot, j] = p
+        seq.owned_pages.extend(pages)
+        seq.table_fill = need
+        return True
+
+    def _sample(self, seq: _Seq, logits_row: np.ndarray) -> int:
+        if seq.temperature <= 0.0:
+            return int(logits_row.argmax())
+        if seq.rng is None:
+            seq.rng = np.random.default_rng(seq.seed)
+        x = np.asarray(logits_row, np.float64) / seq.temperature
+        x -= x.max()
+        p = np.exp(x)
+        p /= p.sum()
+        return int(seq.rng.choice(len(p), p=p))
+
+    def _emit_token(self, seq: _Seq, tok: int) -> bool:
+        """Record and stream one sampled token; True if the sequence has
+        used its budget."""
+        seq.n_generated += 1
+        self._n_tokens += 1
+        self._emit(seq, ("tok", tok))
+        return seq.n_generated >= seq.max_new
+
+    def _splice_prefix(self, seq: _Seq) -> None:
+        """Prefix-cache lookup at admission: splice the longest cached
+        page-aligned prefix of the prompt into the slot's read table (write
+        entries stay on the garbage page: shared pages are immutable) and
+        jump the cursor past it. The last prompt token is never matched: it
+        re-prefills to give the first sampled token's logits. The splice is
+        clamped so the remaining tail's padded chunks still fit."""
+        pages, matched, node = self._radix.match(seq.prompt[:-1])
+        if matched == 0:
+            self._radix.note_miss()
+            return
+        T, C = self.page_tokens, self.prefill_chunk
+        keep = matched
+        while keep > 0:
+            rem = len(seq.prompt) - keep
+            if keep + (-(-rem // C)) * C <= self.arena_len:
+                break
+            keep -= T
+        if keep <= 0:
+            self._radix.release(node)
+            self._radix.note_miss()
+            return
+        self._radix.note_hit()
+        n = keep // T
+        self._read_tables[seq.slot, :n] = pages[:n]
+        seq.cached_len = keep
+        seq.table_fill = n
+        seq.radix_node = node
+        self._n_prefix_hit_tokens += keep
+
+    def _admit(self) -> None:
+        while True:
+            with self._lock:
+                if not self._pending:
+                    break
+                free = next((i for i, s in enumerate(self._slot_seqs)
+                             if s is None), None)
+                if free is None:
+                    break
+                seq = self._pending.popleft()
+            if seq.cancelled:
+                self._retire(seq, "cancelled")
+                continue
+            in_flight = any(s is not None for s in self._slot_seqs)
+            seq.slot = free
+            seq.state = _PREFILL
+            self._slot_seqs[free] = seq
+            self._read_tables[free, :] = 0
+            self._write_tables[free, :] = 0
+            self._splice_prefix(seq)
+            seq.cursor = seq.cached_len
+            seq.remaining_prompt = seq.prompt[seq.cached_len:]
+            paged_reset_slot(self._caches, free, seq.cached_len)
+            self._n_admitted += 1
+            if in_flight:
+                self._admitted_mid_flight += 1
+
+    def _upload(self, a: np.ndarray) -> torch.Tensor:
+        return torch.tensor(a, dtype=torch.int32, device=self.device)
+
+    def _prefill_one(self) -> bool:
+        """Advance ONE prefilling sequence by one chunk, round-robin over
+        slots. Returns True if a chunk ran."""
+        start = self._prefill_rr
+        for off in range(self.slots):
+            i = (start + off) % self.slots
+            seq = self._slot_seqs[i]
+            if seq is None or seq.state != _PREFILL:
+                continue
+            self._prefill_rr = (i + 1) % self.slots
+            if seq.cancelled:
+                self._retire(seq, "cancelled")
+                continue
+            # pages only up to the REAL tokens of this chunk: pad positions
+            # past them land on unallocated entries, i.e. page 0
+            if not self._ensure_pages(
+                    seq, seq.cursor + min(len(seq.remaining_prompt),
+                                          self.prefill_chunk)):
+                continue
+            chunk = seq.remaining_prompt[:self.prefill_chunk]
+            seq.remaining_prompt = seq.remaining_prompt[self.prefill_chunk:]
+            real = len(chunk)
+            padded = chunk + [0] * (self.prefill_chunk - real)
+            n0 = paged_attention.launches
+            logits = paged_prefill_into_slot(
+                self.cfg, self.params, self._upload(np.asarray([padded])),
+                real, seq.slot, self._upload(self._read_tables[seq.slot]),
+                self._upload(self._write_tables[seq.slot]), self._caches,
+                self._rope)
+            row = logits.float().cpu().numpy()
+            self._n_kernel_launches += paged_attention.launches - n0
+            seq.cursor += real
+            self._n_prefill_chunks += 1
+            if not seq.remaining_prompt:
+                self._offer_prompt_pages(seq)
+                # prompt resident: sample the first token now (TTFT)
+                tok = self._sample(seq, row)
+                seq.state = _DECODE
+                if self._emit_token(seq, tok):
+                    self._retire(seq, "length")
+                else:
+                    seq.next_token = tok
+            return True
+        return False
+
+    def _offer_prompt_pages(self, seq: _Seq) -> None:
+        """Offer the resident prompt's full pages to the radix cache. Pages
+        the tree adopts become shared and read-only (their write-table
+        entries go to the garbage page; pads and decode tokens land in
+        later pages anyway); spans cached first by another sequence stay
+        slot-owned duplicates. The slot swaps its admission-time node ref
+        for the deeper inserted node."""
+        T = self.page_tokens
+        ins_len = (len(seq.prompt) // T) * T
+        if ins_len <= seq.cached_len:
+            return
+        n = ins_len // T
+        slot = seq.slot
+        offered = [int(x) for x in self._read_tables[slot, :n]]
+        dups, node = self._radix.insert(seq.prompt[:ins_len], offered)
+        adopted = set(offered) - set(dups)
+        if adopted:
+            seq.owned_pages = [p for p in seq.owned_pages
+                               if p not in adopted]
+            for j in range(n):
+                if int(self._write_tables[slot, j]) in adopted:
+                    self._write_tables[slot, j] = 0
+        if node is not None:
+            if seq.radix_node is not None:
+                self._radix.release(seq.radix_node)
+            seq.radix_node = node
+
+    def _decode_once(self) -> bool:
+        """One batched decode iteration over every DECODE slot."""
+        toks = np.zeros(self.slots, np.int32)
+        active = np.zeros(self.slots, np.int32)
+        live: List[_Seq] = []
+        for i, seq in enumerate(self._slot_seqs):
+            if seq is None or seq.state != _DECODE:
+                continue
+            if seq.cancelled:
+                self._retire(seq, "cancelled")
+                continue
+            if not self._ensure_pages(seq, seq.cursor + 1):
+                continue
+            toks[i] = seq.next_token
+            active[i] = 1
+            live.append(seq)
+        if not live:
+            return False
+        t0 = time.perf_counter()
+        n0 = paged_attention.launches
+        logits = paged_decode_step(
+            self.cfg, self.params, self._upload(toks), self._upload(active),
+            self._upload(self._read_tables), self._upload(self._write_tables),
+            self._caches, self._rope)
+        la = logits.float().cpu().numpy()  # waits for the step to finish
+        self._n_kernel_launches += paged_attention.launches - n0
+        self._decode_seconds += time.perf_counter() - t0
+        self._n_steps += 1
+        self._max_active_slots = max(self._max_active_slots, len(live))
+        for seq in live:
+            seq.cursor += 1
+            tok = self._sample(seq, la[seq.slot])
+            if self._emit_token(seq, tok):
+                self._retire(seq, "length")
+            else:
+                seq.next_token = tok
+        return True
+
+    def _run(self) -> None:
+        try:
+            if self.device.type == "cuda":
+                torch.cuda.set_device(self.device)
+            with torch.no_grad():
+                while True:
+                    with self._lock:
+                        if self._closed:
+                            break
+                    self._admit()
+                    did = self._prefill_one()
+                    did = self._decode_once() or did
+                    if not did:
+                        with self._lock:
+                            idle = not self._pending and all(
+                                s is None or s.cancelled
+                                for s in self._slot_seqs)
+                            if idle:
+                                self._wake.clear()
+                        self._wake.wait(timeout=1.0)
+        except BaseException as e:  # noqa: BLE001 — crosses to consumers
+            self._error = e
+            with self._lock:
+                self._closed = True
+                pending = list(self._pending)
+                self._pending.clear()
+            for seq in list(self._slot_seqs) + pending:
+                if seq is not None:
+                    self._fail(seq, f"{type(e).__name__}: {e}")
+        finally:
+            with self._lock:
+                self._closed = True
+
+    # --------------------------------------------------------- lifecycle
+
+    def shutdown(self, timeout_s: float = 5.0) -> None:
+        with self._lock:
+            if self._closed:
+                return
+            self._closed = True
+            pending = list(self._pending)
+            self._pending.clear()
+        self._wake.set()
+        self._thread.join(timeout=timeout_s)
+        for seq in pending + list(self._slot_seqs):
+            if seq is not None:
+                self._fail(seq, "scheduler shut down")
+        self._radix.clear()
+
+    @property
+    def closed(self) -> bool:
+        return self._closed
+
+    def stats(self) -> Dict[str, Any]:
+        with self._lock:
+            q = len(self._pending)
+        out = {
+            "mode": "continuous",
+            "kv_layout": "paged",
+            "slots": self.slots,
+            "prefill_chunk": self.prefill_chunk,
+            "arena_len": self.arena_len,
+            "decode_steps": self._n_steps,
+            "decode_seconds": self._decode_seconds,
+            "prefill_chunks": self._n_prefill_chunks,
+            "admitted": self._n_admitted,
+            "retired": self._n_retired,
+            "tokens_generated": self._n_tokens,
+            "admitted_mid_flight": self._admitted_mid_flight,
+            "max_active_slots": self._max_active_slots,
+            "peak_queue_depth": self._peak_queue_depth,
+            "queue_depth": q,
+            "active_slots": sum(1 for s in self._slot_seqs if s is not None),
+            "page_tokens": self.page_tokens,
+            "pages_per_slot": self._pages_per_slot,
+            "attn_lane": self.attn_lane,
+            "kernel_launches": self._n_kernel_launches,
+        }
+        out.update(self._arena.stats())
+        out.update(self._radix.stats())
+        out["prefix_hit_tokens"] = self._n_prefix_hit_tokens
+        return out

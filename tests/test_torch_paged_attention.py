@@ -1,0 +1,152 @@
+"""The port's paged attention (``ray_tpu_torch.ops.paged_attention``) on the
+CPU, against the JAX package's ``paged_attention(impl="reference")`` and a
+full-softmax oracle over the gathered view, on the same numpy inputs.
+
+Float32 throughout; atol = rtol = 1e-5: both sides do the same online
+softmax in float32, but their sums run in different orders. The CUDA kernel
+itself runs only on the card (``chip_smoke.py`` holds it against
+``paged_attention_reference`` there).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from ray_tpu.ops.paged_attention import paged_attention as jax_paged_attention
+from ray_tpu_torch.ops.paged_attention import (paged_attention,
+                                               paged_attention_reference)
+
+TOL = dict(atol=1e-5, rtol=1e-5)
+
+
+def _mk_pools(rng, S, K, H, Hkv, D, T, P, lengths, garbage_fill=0.0,
+              shared_prefix=0):
+    """Random pools and per-slot tables covering ``lengths[s] + K`` tokens;
+    table entries past a slot's need point at the garbage page 0, filled
+    with ``garbage_fill``. The first ``shared_prefix`` logical pages of
+    every slot point at the SAME physical pages (a prefix-cache hit)."""
+    need = [min(P, -(-(int(L) + K) // T)) for L in lengths]
+    N = sum(need) + 1
+    kp = rng.standard_normal((N, T, Hkv, D)).astype(np.float32)
+    vp = rng.standard_normal((N, T, Hkv, D)).astype(np.float32)
+    kp[0] = garbage_fill
+    vp[0] = garbage_fill
+    tables = np.zeros((S, P), np.int32)
+    pid = 1
+    for s in range(S):
+        for j in range(need[s]):
+            tables[s, j] = pid
+            pid += 1
+    for s in range(1, S):
+        n = min(shared_prefix, need[s], need[0])
+        tables[s, :n] = tables[0, :n]
+    q = rng.standard_normal((S, K, H, D)).astype(np.float32)
+    return q, kp, vp, tables, np.asarray(lengths, np.int32)
+
+
+def _full_softmax_oracle(q, kp, vp, tables, lengths):
+    """Materialize each slot's contiguous view and run a plain masked
+    softmax (the pattern of tests/test_paged_attention.py)."""
+    S, K, H, D = q.shape
+    N, T, Hkv, _ = kp.shape
+    P = tables.shape[1]
+    G = H // Hkv
+    sm = 1.0 / np.sqrt(D)
+    out = np.zeros_like(q)
+    for s in range(S):
+        kv = kp[tables[s]].reshape(P * T, Hkv, D)
+        vv = vp[tables[s]].reshape(P * T, Hkv, D)
+        for i in range(K):
+            qpos = lengths[s] + i
+            for h in range(H):
+                scores = kv[:, h // G] @ q[s, i, h] * sm
+                scores[np.arange(P * T) > qpos] = -np.inf
+                w = np.exp(scores - scores.max())
+                w /= w.sum()
+                out[s, i, h] = w @ vv[:, h // G]
+    return out
+
+
+def _port(args):
+    return paged_attention(*[torch.from_numpy(a) for a in args]).numpy()
+
+
+def _jax(args):
+    return np.asarray(jax_paged_attention(*[jnp.asarray(a) for a in args],
+                                          impl="reference"))
+
+
+@pytest.mark.parametrize("K", [1, 3])
+@pytest.mark.parametrize("shared_prefix", [0, 2])
+def test_matches_jax_reference_and_oracle(K, shared_prefix):
+    """Lengths include 0 and an exact page boundary (8 = two full pages of
+    T=4); G = 2; the garbage page holds 1e4."""
+    rng = np.random.default_rng(10 * K + shared_prefix)
+    args = _mk_pools(rng, S=4, K=K, H=4, Hkv=2, D=8, T=4, P=6,
+                     lengths=[0, 5, 8, 13], garbage_fill=1e4,
+                     shared_prefix=shared_prefix)
+    got = _port(args)
+    np.testing.assert_allclose(got, _jax(args), **TOL)
+    np.testing.assert_allclose(got, _full_softmax_oracle(*args), **TOL)
+
+
+def test_garbage_page_content_never_leaks():
+    """Masked pages add exact zeros: the garbage page's content cannot
+    change a single output bit."""
+    outs = []
+    for fill in (0.0, 1e4):
+        args = _mk_pools(np.random.default_rng(3), S=3, K=2, H=4, Hkv=2,
+                         D=8, T=4, P=8, lengths=[2, 6, 11],
+                         garbage_fill=fill)
+        outs.append(_port(args))
+    assert np.array_equal(outs[0], outs[1])
+
+
+def test_window_row_equals_single_token_call():
+    """Row i of a K-token window equals a K=1 call at lengths + i, which
+    the verify and prefill windows rely on."""
+    rng = np.random.default_rng(7)
+    q, kp, vp, tables, lengths = _mk_pools(
+        rng, S=3, K=4, H=4, Hkv=2, D=8, T=4, P=8, lengths=[0, 3, 8])
+    win = _port((q, kp, vp, tables, lengths))
+    for i in range(4):
+        one = _port((q[:, i:i + 1].copy(), kp, vp, tables, lengths + i))
+        np.testing.assert_allclose(win[:, i:i + 1], one, **TOL)
+
+
+def test_bf16_inputs_keep_dtype():
+    args = _mk_pools(np.random.default_rng(4), S=2, K=1, H=4, Hkv=2, D=8,
+                     T=4, P=4, lengths=[3, 6])
+    t = [torch.from_numpy(a) for a in args]
+    for i in range(3):
+        t[i] = t[i].to(torch.bfloat16)
+    out = paged_attention(*t)
+    assert out.dtype == torch.bfloat16 and out.shape == t[0].shape
+    ref = paged_attention_reference(*[x.float() if x.is_floating_point()
+                                      else x for x in t])
+    # bf16 keeps 8 mantissa bits: one rounding of values of size ~1
+    np.testing.assert_allclose(out.float().numpy(), ref.numpy(), atol=1e-2)
+
+
+def test_shape_and_head_mismatches_rejected():
+    q, kp, vp, tables, lengths = [torch.from_numpy(a) for a in _mk_pools(
+        np.random.default_rng(5), S=2, K=1, H=4, Hkv=2, D=8, T=4, P=4,
+        lengths=[3, 3])]
+    with pytest.raises(ValueError, match="slot axis"):
+        paged_attention(q[:1], kp, vp, tables, lengths)
+    with pytest.raises(ValueError, match="slot axis"):
+        paged_attention(q, kp, vp, tables, lengths[:1])
+    with pytest.raises(ValueError, match="head"):
+        paged_attention(q[:, :, :3], kp, vp, tables, lengths)
+    with pytest.raises(ValueError, match="head"):
+        paged_attention(q[..., :4], kp, vp, tables, lengths)
+
+
+def test_cpu_tensors_never_count_as_kernel_launches():
+    args = _mk_pools(np.random.default_rng(6), S=1, K=1, H=4, Hkv=2, D=8,
+                     T=4, P=4, lengths=[2])
+    n0 = paged_attention.launches
+    _port(args)
+    assert paged_attention.launches == n0
