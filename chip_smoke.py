@@ -8,23 +8,49 @@ Phases, each of which fails the run (non-zero exit, no result line) if any
 of its checks fails:
 
   1. card: the card's name and power limit, as nvidia-smi gives them.
-  2. build: nvcc builds the paged-attention kernel from
-     ``ray_tpu_torch/csrc/`` for sm_90a into ``build/kernels/``.
-  3. kernel: the kernel against ``paged_attention_reference`` on the card,
-     at llama3_8b shapes (H=32, Hkv=8, D=128, 16-token pages), bf16 and
-     float32, for decode (8 slots, 1 token) and prefill (1 slot, a
-     32-token chunk); row i of a 32-token window against a 1-token call at
-     length + i, bit for bit; the launch counter; times of the kernel, of
-     its plain version, of scaled_dot_product_attention over a pre-gathered
-     contiguous view (a yardstick only: the port never calls it) and the
-     bound (live-page bytes over the memory rate, or the operations over
-     the peak rate, whichever is larger).
-  4. serve: ``LLMServerImpl(preset="llama3_8b")`` at full width and depth
+  2. build: nvcc builds both kernel sources of ``ray_tpu_torch/csrc/``
+     (paged attention; flash attention K1-K3) for sm_90a into
+     ``build/kernels/``, one nvcc each, started together; ptxas lines.
+  3. kernel: the paged-attention kernel against
+     ``paged_attention_reference`` on the card, at llama3_8b shapes (H=32,
+     Hkv=8, D=128, 16-token pages), bf16 and float32, for decode (8 slots,
+     1 token) and prefill (1 slot, a 32-token chunk); row i of a 32-token
+     window against a 1-token call at length + i, bit for bit; the launch
+     counter; times of the kernel, of its plain version, of
+     scaled_dot_product_attention over a pre-gathered contiguous view (a
+     yardstick only: the port never calls it) and the bound (live-page
+     bytes over the memory rate, or the operations over the peak rate,
+     whichever is larger).
+  4. flash: the flash-attention forward (K1), dQ (K2) and dK/dV (K3)
+     kernels against their plain versions on the card, bf16 and float32, at
+     gpt2_small (B16 S1024 H12 D64), gpt_1b (B4 S1024 H16/8 D128), a
+     group-4 case (B1 S2048 H32/8 D128), a ragged S=1000 and a non-causal
+     case: O, lse, dQ, dK, dV within the stated tolerances, two runs of K3
+     bitwise equal; times of each kernel, its plain version, the library
+     yardstick (SDPA forward for K1; the autograd backward of that same
+     call for K2 and K3 together) and the bound.
+  5. serve: ``LLMServerImpl(preset="llama3_8b")`` at full width and depth
      (32 layers), random bf16 weights from a seeded torch.Generator,
      answers 12 streamed requests that share a prefix (8 slots, one request
      sampled at temperature 0.7), through the kernel on every layer.
-  5. parity: llama_debug in float32, the port on the card against the port
+  6. parity: llama_debug in float32, the port on the card against the port
      on the CPU with the same weights: temperature-0 texts identical.
+  7. train: ``init_train_state`` + ``make_train_step`` on the card, bf16
+     compute over float32 params, random weights from a seed and random
+     tokens: gpt2_small at full width and depth (12 layers, d 768, vocab
+     50257), B16 x S1024, remat off, CE chunk 8192, one warm-up step and 5
+     timed steps (step ms, tokens/s, model-flop utilization against the
+     bf16 dense peak), one torch.profiler step; one step under the default
+     full remat; gpt_1b at full width with 4 of its 16 layers (cut for
+     time), B4 x S1024, 'dots' remat. Losses and grad norms finite, the
+     loss going down, and the flash launch counters exactly layers x steps
+     for K2 and K3 and (remat ? 2 : 1) x layers x steps for K1. Before
+     them, the fused CE with bf16 operands at gpt2_small's width and vocab
+     against float64 (its logits keep the product's float32 result).
+  8. train parity: llama_debug and a tiny GPT-2 (learned positions,
+     layernorm, tied) in float32, five steps on the card against five on
+     the CPU from the same weights on the same batches: losses and grad
+     norms within the stated tolerance.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Details go to
@@ -35,6 +61,7 @@ from __future__ import annotations
 
 import asyncio
 import json
+import math
 import subprocess
 import sys
 import time
@@ -46,6 +73,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # f32 off tensor cores
 
+SOURCES = ("paged_attention", "flash_attention")
 ARENA_LEN = 2048          # serve arena per slot: 128 pages of 16 tokens
 SERVE_NEW_TOKENS = 32
 TOL = {"float32": (1e-5, 1e-5),       # atol, rtol: sum order differs
@@ -62,20 +90,55 @@ def card_line() -> str:
     return line
 
 
+def ptxas_lines(log: str) -> list:
+    """One line per kernel from nvcc's ``-Xptxas -v`` output: its
+    instantiation (``flash_dkv_kernel<bf16, 128>``; the number is the head
+    dim, or the head-dim elements per lane of the paged kernel), then its
+    registers and spills."""
+    import re
+
+    out, kernel, spill = [], None, ""
+    for ln in log.splitlines():
+        if "Function properties for" in ln:
+            m = re.search(r"\d+([a-z_]+_kernel)I(13__nv_bfloat16|f)Li(\d+)E",
+                          ln)
+            kernel = (f"{m[1]}<{'bf16' if 'bfloat' in m[2] else 'f32'}, "
+                      f"{m[3]}>" if m else ln.split()[-1][:60])
+        elif "spill" in ln:
+            spill = ln.strip()
+        elif "registers" in ln and kernel:
+            regs = re.search(r"Used (\d+) registers", ln)
+            out.append(f"{kernel}: {regs[1] if regs else '?'} registers; "
+                       f"{spill}")
+            kernel, spill = None, ""
+    # another layout of the output: keep its lines as they are
+    return out or [ln.strip() for ln in log.splitlines()
+                   if "registers" in ln or "spill" in ln]
+
+
 def build_phase() -> dict:
+    """Both kernel sources, one nvcc each, started together."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from ray_tpu_torch.ops import _build
 
+    def build(name):
+        t0 = time.perf_counter()
+        _build.load(name)
+        return time.perf_counter() - t0
+
     t0 = time.perf_counter()
-    _build.load("paged_attention")
-    seconds = time.perf_counter() - t0
-    log = _build.build_log.get("paged_attention", "(reused build)")
-    ptxas = [ln.strip() for ln in log.splitlines()
-             if "registers" in ln or "spill" in ln]
-    print(f"build: paged_attention.cu with nvcc for sm_90a in "
-          f"{seconds:.2f} s", flush=True)
-    for ln in ptxas:
-        print(f"  ptxas: {ln}")
-    return {"seconds": seconds, "ptxas": ptxas}
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        seconds = dict(zip(SOURCES, pool.map(build, SOURCES)))
+    out = {"seconds": time.perf_counter() - t0}
+    for name in SOURCES:
+        ptxas = ptxas_lines(_build.build_log.get(name, "(reused build)"))
+        print(f"build: {name}.cu with nvcc for sm_90a in "
+              f"{seconds[name]:.2f} s", flush=True)
+        for ln in ptxas:
+            print(f"  ptxas: {ln}")
+        out[name] = {"seconds": seconds[name], "ptxas": ptxas}
+    return out
 
 
 # --------------------------------------------------------------- kernel
@@ -233,6 +296,455 @@ def kernel_phase(torch) -> dict:
         print(f"kernel {dtype_name}: all 32 window rows equal 1-token calls "
               f"bit for bit", flush=True)
     return results
+
+
+# --------------------------------------------------------- flash kernels
+
+FLASH_CASES = {
+    "gpt2_small": dict(B=16, S=1024, H=12, Hkv=12, D=64, causal=True),
+    "gpt_1b": dict(B=4, S=1024, H=16, Hkv=8, D=128, causal=True),
+    "group4": dict(B=1, S=2048, H=32, Hkv=8, D=128, causal=True),
+    "ragged": dict(B=2, S=1000, H=12, Hkv=4, D=64, causal=True),
+    "full": dict(B=2, S=512, H=16, Hkv=8, D=128, causal=False),
+}
+# Per element, |kernel - plain| <= atol + rtol * |plain|, with atol a
+# fraction of the plain output's RMS (the size of a typical element):
+#  * O in bf16: rtol one bf16 step (2^-7), as both sides round O to bf16;
+#    atol 0.04 x RMS for P, which the kernel rounds to bf16 against the
+#    running row max and the plain version against the final one. Each run
+#    also checks that the gate refuses an O 2% off on the rows past the
+#    first key tile.
+#  * O in float32, and dQ, dK, dV in both dtypes: the float32 gate, 1e-5 x
+#    RMS and 1e-5. In O only the order of the sums differs; the backward
+#    kernels run the same sequential float32 FMA chains as their plain
+#    versions and agree with them bit for bit.
+# lse is float32 on both sides, from the same scores: an absolute tolerance.
+F32_GATE = (1e-5, 1e-5)  # (atol / RMS of the plain output, rtol)
+FLASH_TOL = {("o", "bfloat16"): (0.04, 2.0 ** -7)}
+LSE_ATOL = 1e-4
+
+
+def flash_inputs(torch, case, dtype, seed=0):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    B, S, H, Hkv, D = (case[k] for k in ("B", "S", "H", "Hkv", "D"))
+    q, do = (torch.randn((B, S, H, D), generator=g) for _ in range(2))
+    k, v = (torch.randn((B, S, Hkv, D), generator=g) for _ in range(2))
+    return [t.to("cuda", dtype) for t in (q, k, v, do)]
+
+
+def flash_bounds(case, dtype_name, item):
+    """(ms, "bytes" | "operations") for K1, K2, K3: every input read once,
+    every output written once, against the memory rate; 4 B H D flops per
+    visible (query, key) pair for K1 (q.k and p.v), 1.5x that for K2 and 2x
+    for K3, against the peak rate for the inputs' type."""
+    B, S, H, Hkv, D = (case[k] for k in ("B", "S", "H", "Hkv", "D"))
+    pairs = S * (S + 1) // 2 if case["causal"] else S * S
+    fwd_flops = 4 * B * H * D * pairs
+    qb, kvb, rows = B * S * H * D * item, B * S * Hkv * D * item, B * H * S * 4
+    work = {"fwd": (fwd_flops, 2 * qb + 2 * kvb + rows),
+            "dq": (1.5 * fwd_flops, 3 * qb + 2 * kvb + 2 * rows),
+            "dkv": (2 * fwd_flops, 2 * qb + 4 * kvb + 2 * rows)}
+    out = {}
+    for name, (flops, nbytes) in work.items():
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+        out[name] = ((t_bytes, "bytes") if t_bytes >= t_ops
+                     else (t_ops, "operations"))
+    return out
+
+
+def _flash_err(got, ref, atol_rms, rtol):
+    """(max |got - ref|, the largest share of the per-element gate used)."""
+    got, ref = got.float(), ref.float()
+    err = (got - ref).abs()
+    atol = atol_rms * max(float(ref.square().mean().sqrt()), 1e-30)
+    return float(err.max()), float((err / (atol + rtol * ref.abs())).max())
+
+
+def flash_kernel_phase(torch, cases=None, timed=True) -> dict:
+    """K1, K2 and K3 against their plain versions on the card, bf16 and
+    float32; K3 twice, bit for bit; times of each kernel, its plain version,
+    the library yardstick (SDPA forward for K1; the autograd backward of
+    that same call for K2 and K3 together) and the bound."""
+    import torch.nn.functional as F
+
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    results = {}
+    for dtype_name in ("bfloat16", "float32"):
+        dtype = getattr(torch, dtype_name)
+        for name in cases or FLASH_CASES:
+            case = FLASH_CASES[name]
+            causal = case["causal"]
+            q, k, v, do = flash_inputs(torch, case, dtype)
+            n0 = [f.launches for f in fa.KERNELS]
+            o, lse = fa.flash_forward(q, k, v, causal=causal)
+            delta = fa.delta_rows(do, o)
+            dq = fa.flash_dq(q, k, v, do, lse, delta, causal=causal)
+            dk, dv = fa.flash_dkv(q, k, v, do, lse, delta, causal=causal)
+            dk2, dv2 = fa.flash_dkv(q, k, v, do, lse, delta, causal=causal)
+            torch.cuda.synchronize()
+            if [f.launches - n for f, n in zip(fa.KERNELS, n0)] != [1, 1, 2]:
+                raise AssertionError("the flash launch counters did not move")
+            if not (torch.equal(dk, dk2) and torch.equal(dv, dv2)):
+                raise AssertionError(f"{name} {dtype_name}: two runs of K3 "
+                                     "differ")
+            o_ref, lse_ref = fa.flash_forward_reference(q, k, v,
+                                                        causal=causal)
+            dq_ref = fa.flash_dq_reference(q, k, v, do, lse, delta,
+                                           causal=causal)
+            dk_ref, dv_ref = fa.flash_dkv_reference(q, k, v, do, lse, delta,
+                                                    causal=causal)
+            r = {"lse_atol": LSE_ATOL}
+            for key, got, ref in (("o", o, o_ref), ("dq", dq, dq_ref),
+                                  ("dk", dk, dk_ref), ("dv", dv, dv_ref)):
+                if not torch.isfinite(got).all():
+                    raise AssertionError(f"{name} {dtype_name}: {key} is "
+                                         "not finite")
+                atol_rms, rtol = FLASH_TOL.get((key, dtype_name), F32_GATE)
+                err, used = _flash_err(got, ref, atol_rms, rtol)
+                r[f"{key}_max_abs_err"], r[f"{key}_gate_used"] = err, used
+                r[f"{key}_atol_rms"], r[f"{key}_rtol"] = atol_rms, rtol
+                if not used <= 1.0:
+                    raise AssertionError(
+                        f"{name} {dtype_name}: {key} kernel disagrees with "
+                        f"its plain version: an element is {used:.3g} x its "
+                        f"tolerance {atol_rms:g} x RMS + {rtol:g} x |ref| "
+                        f"(max |err| {err:.3e})")
+            off = o.float().clone()
+            off[:, 64:] *= 1.02  # the rows past the first key tile
+            r["o_2pct_off_gate_used"] = _flash_err(
+                off, o_ref, r["o_atol_rms"], r["o_rtol"])[1]
+            if not r["o_2pct_off_gate_used"] > 1.0:
+                raise AssertionError(f"{name} {dtype_name}: the O tolerance "
+                                     "lets an O 2% off pass")
+            del off
+            r["lse_max_abs_err"] = float((lse - lse_ref).abs().max())
+            if not r["lse_max_abs_err"] <= LSE_ATOL:
+                raise AssertionError(f"{name} {dtype_name}: lse differs by "
+                                     f"{r['lse_max_abs_err']:.3e}")
+            print(f"flash {name} {dtype_name}: max|err| (share of its "
+                  f"tolerance) o {r['o_max_abs_err']:.2e} "
+                  f"({r['o_gate_used']:.2f}), dq {r['dq_max_abs_err']:.2e} "
+                  f"({r['dq_gate_used']:.2f}), dk {r['dk_max_abs_err']:.2e} "
+                  f"({r['dk_gate_used']:.2f}), dv {r['dv_max_abs_err']:.2e} "
+                  f"({r['dv_gate_used']:.2f}), lse "
+                  f"{r['lse_max_abs_err']:.2e}; an O 2% off uses "
+                  f"{r['o_2pct_off_gate_used']:.1f}; K3 bitwise equal twice",
+                  flush=True)
+            del o_ref, lse_ref, dq_ref, dk_ref, dv_ref, dk2, dv2
+            if timed:
+                r.update(_flash_times(torch, F, fa, case, dtype_name,
+                                      (q, k, v, do, lse, delta)))
+            results[f"{name}_{dtype_name}"] = r
+            torch.cuda.empty_cache()
+    return results
+
+
+def _flash_times(torch, F, fa, case, dtype_name, inputs) -> dict:
+    q, k, v, do, lse, delta = inputs
+    causal = case["causal"]
+    gqa = case["H"] != case["Hkv"]
+    qh, kh, vh, doh = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                       for t in (q, k, v, do))
+    out = F.scaled_dot_product_attention(qh, kh, vh, is_causal=causal,
+                                         enable_gqa=gqa)
+    calls = {
+        "fwd": (lambda: fa.flash_forward(q, k, v, causal=causal),
+                lambda: fa.flash_forward_reference(q, k, v, causal=causal)),
+        "dq": (lambda: fa.flash_dq(q, k, v, do, lse, delta, causal=causal),
+               lambda: fa.flash_dq_reference(q, k, v, do, lse, delta,
+                                             causal=causal)),
+        "dkv": (lambda: fa.flash_dkv(q, k, v, do, lse, delta, causal=causal),
+                lambda: fa.flash_dkv_reference(q, k, v, do, lse, delta,
+                                               causal=causal)),
+    }
+    with torch.no_grad():
+        sdpa_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, is_causal=causal, enable_gqa=gqa))
+    sdpa_bwd = time_ms(torch, lambda: torch.autograd.grad(
+        out, (qh, kh, vh), doh, retain_graph=True))
+    bounds = flash_bounds(case, dtype_name, q.element_size())
+    r = {}
+    for name, (kernel, plain) in calls.items():
+        r[f"{name}_ms"] = time_ms(torch, kernel)
+        r[f"{name}_plain_ms"] = time_ms(torch, plain, iters=5, warmup=1)
+        r[f"{name}_bound_ms"], r[f"{name}_bound_by"] = bounds[name]
+    r["fwd_library_ms"] = sdpa_fwd
+    r["dq_library_ms"] = r["dkv_library_ms"] = sdpa_bwd  # one call, the pair
+    print(f"  times: K1 {r['fwd_ms']:.3f} ms (plain {r['fwd_plain_ms']:.3f}, "
+          f"sdpa {sdpa_fwd:.3f}, bound {r['fwd_bound_ms']:.4f} "
+          f"{r['fwd_bound_by']}); K2 {r['dq_ms']:.3f} ms (plain "
+          f"{r['dq_plain_ms']:.3f}, bound {r['dq_bound_ms']:.4f}); K3 "
+          f"{r['dkv_ms']:.3f} ms (plain {r['dkv_plain_ms']:.3f}, bound "
+          f"{r['dkv_bound_ms']:.4f}); sdpa backward (K2 + K3) "
+          f"{sdpa_bwd:.3f} ms", flush=True)
+    return r
+
+
+# ---------------------------------------------------------------- train
+
+TRAIN_STEPS = 5
+# device kernels by the first group whose key is in the kernel's name
+KERNEL_GROUPS = (
+    ("flash", ("flash_fwd", "flash_dq", "flash_dkv")),
+    ("gemm", ("nvjet", "gemm", "cutlass", "xmma", "cublas")),
+    ("copy_cast", ("copy", "Memcpy", "Memset")),
+    ("reduce", ("reduce", "norm")),
+    ("elementwise", ("elementwise", "index", "scatter", "gather")),
+)
+# card against CPU, float32, five steps on the same weights and batches:
+# relative, losses and grad norms (the flash kernels and the CPU's plain
+# versions sum in another order; Adam carries the difference forward)
+TRAIN_PARITY_RTOL = 1e-4
+
+
+def _reset_counters(fa):
+    for f in fa.KERNELS:
+        f.launches = 0
+
+
+def train_run(torch, cfg, B, S, steps, profile=False) -> dict:
+    """``init_train_state`` + ``make_train_step`` on the card: one warm-up
+    step, then ``steps`` counted steps on one batch of random tokens; the
+    flash launch counters go to 0 just before the counted steps."""
+    from ray_tpu_torch import (OptimizerConfig, init_train_state,
+                               make_train_step)
+    from ray_tpu_torch.models.transformer import count_params
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    state, tx = init_train_state(
+        cfg, OptimizerConfig(warmup_steps=10, decay_steps=1000), seed=0)
+    step = make_train_step(cfg, tx)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S), generator=g,
+                                     device="cuda")}
+    state, m = step(state, batch)  # warm-up: cuBLAS handles, allocator
+    first_loss = float(m["loss"])
+    setup_s = time.perf_counter() - t0
+    _reset_counters(fa)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    metrics = []
+    for _ in range(steps):
+        state, m = step(state, batch)
+        metrics.append(m)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t1) / steps
+    launches = {f.__name__: f.launches for f in fa.KERNELS}
+    losses = [float(m["loss"]) for m in metrics]
+    norms = [float(m["grad_norm"]) for m in metrics]
+    L = cfg.num_layers
+    fwd_per_step = 2 * L if cfg.remat else L  # remat runs K1 again
+    want = {"flash_forward": fwd_per_step * steps,
+            "flash_dq": L * steps, "flash_dkv": L * steps}
+    if launches != want:
+        raise AssertionError(f"flash launches {launches}, expected {want} "
+                             f"({L} layers x {steps} steps, remat "
+                             f"{cfg.remat} {cfg.remat_policy})")
+    finite = [x for x in losses + norms if not math.isfinite(x)]
+    if finite or not math.isfinite(first_loss):
+        raise AssertionError(f"non-finite losses or grad norms: {losses} "
+                             f"{norms}")
+    n_params = count_params(state.params)
+    flops_per_token = 6 * n_params + 12 * L * S * cfg.embed_dim
+    r = dict(layers=L, embed_dim=cfg.embed_dim, vocab=cfg.vocab_size,
+             batch=B, seq=S, remat=cfg.remat, remat_policy=cfg.remat_policy,
+             ce_chunk=cfg.ce_chunk, steps=steps, params=n_params,
+             setup_s=setup_s, warmup_loss=first_loss, losses=losses,
+             grad_norms=norms, step_ms=dt * 1e3,
+             tokens_per_s=B * S / dt,
+             mfu=flops_per_token * B * S / dt / PEAK_FLOPS["bfloat16"],
+             launches=launches,
+             peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    if profile:
+        r["profile"] = profile_train_step(torch, step, state, batch)
+    return r
+
+
+def profile_train_step(torch, step, state, batch) -> dict:
+    """One train step under torch.profiler: device kernel time by kernel
+    against the host clock over the step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            n, us = kernels.get(e.name, (0, 0.0))
+            kernels[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    busy_ms = sum(us for _, us in kernels.values()) / 1e3
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:10]
+    groups = {}
+    for name, (n, us) in kernels.items():
+        group = next((g for g, keys in KERNEL_GROUPS
+                      if any(k in name for k in keys)), "other")
+        c, ms = groups.get(group, (0, 0.0))
+        groups[group] = (c + n, ms + us / 1e3)
+    r = dict(wall_ms=wall * 1e3,
+             device_busy_ms=busy_ms if kernels else None,
+             kernel_launches=sum(n for n, _ in kernels.values()),
+             groups={g: dict(count=n, ms=ms) for g, (n, ms) in
+                     sorted(groups.items(), key=lambda kv: -kv[1][1])},
+             top=[dict(name=k[:90], count=n, ms=us / 1e3)
+                  for k, (n, us) in top])
+    if kernels:
+        print(f"profile: one train step in {r['wall_ms']:.1f} ms wall "
+              f"(profiled); device kernels busy {busy_ms:.1f} ms "
+              f"({100 * busy_ms / r['wall_ms']:.1f}%), "
+              f"{r['kernel_launches']} device kernels; by group: "
+              + ", ".join(f"{g} {v['ms']:.1f} ms ({v['count']}x)"
+                          for g, v in r["groups"].items()), flush=True)
+        for t in r["top"]:
+            print(f"  {t['ms']:9.3f} ms {t['count']:6d}x  {t['name']}")
+    else:
+        print("profile: the profiler saw no device kernels (not measured)")
+    return r
+
+
+def _print_train(name, r):
+    print(f"train {name}: {r['layers']} layers, d={r['embed_dim']}, vocab "
+          f"{r['vocab']}, B{r['batch']} x S{r['seq']}, remat "
+          f"{r['remat'] and r['remat_policy']}, {r['params'] / 1e6:.1f}M "
+          f"params: {r['steps']} steps, {r['step_ms']:.1f} ms/step, "
+          f"{r['tokens_per_s']:.0f} tokens/s, MFU {100 * r['mfu']:.2f}% of "
+          f"bf16 dense peak; losses {[round(x, 4) for x in r['losses']]}, "
+          f"grad norms {[round(x, 3) for x in r['grad_norms']]}; flash "
+          f"launches {r['launches']}; peak memory {r['peak_mem_gb']:.1f} GB",
+          flush=True)
+
+
+# the fused CE in bf16 against float64 on the same bf16 operands, token by
+# token: relative
+CE_RTOL = 1e-5
+
+
+def ce_precision_check(torch) -> dict:
+    """The fused CE with bf16 operands at gpt2_small's width and vocab, one
+    8192-token chunk with logits of a trained model's scale (std ~4): the
+    loss of each of 8 tokens (a one-token mask) against float64 on the same
+    operands. The chunk's logits must be the product's float32 result, as
+    JAX keeps them; beside it, for the record, the losses from logits
+    rounded to bf16. (Over the mean of many tokens the rounding averages
+    out, so single tokens are checked.)"""
+    from ray_tpu_torch.ops.losses import fused_softmax_cross_entropy
+
+    n, V, D = 8192, 50257, 768
+    g = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn((n, D), generator=g, device="cuda").bfloat16()
+    w = (torch.randn((V, D), generator=g, device="cuda") * 0.15).bfloat16()
+    labels = torch.randint(0, V, (n,), generator=g, device="cuda")
+    picks = torch.randperm(n, generator=torch.Generator().manual_seed(6))[:8]
+
+    def per_token(logits):
+        lab = logits.gather(-1, labels[:, None])[:, 0]
+        return (torch.logsumexp(logits, -1) - lab)[picks.cuda()].tolist()
+
+    ref = per_token(x.double() @ w.double().T)
+    rounded = per_token((x @ w.T).double())
+    got = []
+    for t in picks.tolist():
+        mask = torch.zeros(n, device="cuda")
+        mask[t] = 1.0
+        got.append(float(fused_softmax_cross_entropy(
+            x, w.float(), labels, mask, chunk=n)[0]))
+    rel = max(abs(a - b) / abs(b) for a, b in zip(got, ref))
+    rel_bf16 = max(abs(a - b) / abs(b) for a, b in zip(rounded, ref))
+    r = dict(tokens=picks.tolist(), loss=got, float64=ref, bf16_logits=rounded,
+             max_rel_err=rel, bf16_logits_max_rel_err=rel_bf16, rtol=CE_RTOL)
+    print(f"CE precision: bf16 operands, {n} x {V} x {D}, the losses of 8 "
+          f"tokens against float64: within {rel:.2e} (rtol {CE_RTOL:g}); "
+          f"from bf16-rounded logits {rel_bf16:.2e}", flush=True)
+    if not rel <= CE_RTOL:
+        raise AssertionError("the fused CE's logits lost float32 precision")
+    return r
+
+
+def train_phase(torch) -> dict:
+    """gpt2_small at full width and depth, B16 x S1024, remat off, chunk
+    8192 (the first candidate of bench.py); one step of it under the
+    default full remat; gpt_1b at full width, 4 of its 16 layers, under
+    the 'dots' policy (its first bench.py candidate)."""
+    from ray_tpu_torch import presets
+
+    out = {"ce_precision": ce_precision_check(torch)}
+    torch.cuda.empty_cache()
+    runs = {
+        "gpt2_small": (presets.gpt2_small(remat=False, ce_chunk=8192), 16,
+                       1024, TRAIN_STEPS, True),
+        "gpt2_small_remat_full": (presets.gpt2_small(ce_chunk=8192), 16,
+                                  1024, 1, False),
+        "gpt_1b_4_layers": (presets.gpt_1b(num_layers=4, remat_policy="dots",
+                                           ce_chunk=8192), 4, 1024,
+                            TRAIN_STEPS, False),
+    }
+    for name, (cfg, B, S, steps, prof) in runs.items():
+        out[name] = r = train_run(torch, cfg, B, S, steps, profile=prof)
+        _print_train(name, r)
+        if name != "gpt2_small_remat_full" and not (
+                r["losses"][-1] < r["warmup_loss"]):
+            raise AssertionError(f"{name}: the loss did not go down")
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_parity_phase(torch) -> dict:
+    """llama_debug and a tiny GPT-2 (learned positions, layernorm, tied
+    embeddings) in float32: five steps of the port on the card against
+    five on the CPU, from the same weights on the same batches."""
+    from ray_tpu_torch import (OptimizerConfig, init_train_state,
+                               make_train_step, presets)
+    from ray_tpu_torch.models.transformer import init_params
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    configs = {
+        "llama_debug": presets.llama_debug(ce_chunk=32),
+        "gpt2_tiny": presets.gpt2_small(vocab_size=300, num_layers=2,
+                                        embed_dim=64, num_heads=4,
+                                        max_seq_len=64, dtype=torch.float32,
+                                        ce_chunk=32),
+    }
+    ocfg = OptimizerConfig(learning_rate=1e-2, warmup_steps=2,
+                           decay_steps=6)
+    out = {}
+    for name, cfg in configs.items():
+        host = init_params(cfg, seed=3, device="cpu",
+                           param_dtype=torch.float32)
+        g = torch.Generator(device="cpu").manual_seed(4)
+        batches = [{"tokens": torch.randint(0, cfg.vocab_size, (2, 48),
+                                            generator=g)}
+                   for _ in range(TRAIN_STEPS)]
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            _reset_counters(fa)
+            state, tx = init_train_state(cfg, ocfg, device=dev, params=host)
+            step = make_train_step(cfg, tx)
+            ms = [step(state, b)[1] for b in batches]
+            runs[dev] = ([float(m["loss"]) for m in ms],
+                         [float(m["grad_norm"]) for m in ms])
+            if dev == "cuda" and fa.flash_dkv.launches == 0:
+                raise AssertionError("the card run did not use the kernels")
+        rel = max(abs(a - b) / abs(b) for x, y in zip(runs["cuda"],
+                                                      runs["cpu"])
+                  for a, b in zip(x, y))
+        out[name] = dict(card=runs["cuda"], cpu=runs["cpu"], max_rel=rel,
+                         rtol=TRAIN_PARITY_RTOL)
+        print(f"train parity {name}: float32, {TRAIN_STEPS} steps, losses "
+              f"and grad norms card vs CPU within {rel:.2e} (rtol "
+              f"{TRAIN_PARITY_RTOL:g}); losses "
+              f"{[round(x, 5) for x in runs['cuda'][0]]}", flush=True)
+        if not rel <= TRAIN_PARITY_RTOL:
+            raise AssertionError(f"{name}: card and CPU training differ: "
+                                 f"{runs}")
+    return out
 
 
 # ---------------------------------------------------------------- serve
@@ -452,8 +964,11 @@ def main() -> int:
     card = card_line()
     build = build_phase()
     kern = kernel_phase(torch)
+    flash = flash_kernel_phase(torch)
     serve = serve_phase(torch)
     parity = parity_phase(torch)
+    train = train_phase(torch)
+    train_parity = train_parity_phase(torch)
     main_case = kern["decode_bfloat16"]
     kernels = {"kernels": [{
         "name": "paged_attention",
@@ -468,8 +983,32 @@ def main() -> int:
         "bound_by": main_case["bound_by"],
         "library_ms": main_case["library_ms"],
     }]}
-    detail = {"card": card, "build": build, "kernel": kern, "serve": serve,
-              "parity": parity, "seconds": time.perf_counter() - t_start}
+    # the flash kernels at the main path's shapes: gpt2_small, bf16
+    fcase = flash["gpt2_small_bfloat16"]
+    launches = train["gpt2_small"]["launches"]
+    for key, name, line, err in (
+            ("fwd", "flash_attention_fwd", 103, fcase["o_max_abs_err"]),
+            ("dq", "flash_attention_dq", 203, fcase["dq_max_abs_err"]),
+            ("dkv", "flash_attention_dkv", 239,
+             max(fcase["dk_max_abs_err"], fcase["dv_max_abs_err"]))):
+        kernels["kernels"].append({
+            "name": name,
+            "route": "cuda",
+            "source": "ray_tpu_torch/csrc/flash_attention.cu",
+            "replaces": f"ray_tpu/ops/flash_attention.py:{line}",
+            "launches": launches[{"fwd": "flash_forward", "dq": "flash_dq",
+                                  "dkv": "flash_dkv"}[key]],
+            "max_abs_err": err,
+            "ms": fcase[f"{key}_ms"],
+            "plain_ms": fcase[f"{key}_plain_ms"],
+            "bound_ms": fcase[f"{key}_bound_ms"],
+            "bound_by": fcase[f"{key}_bound_by"],
+            "library_ms": fcase[f"{key}_library_ms"],
+        })
+    detail = {"card": card, "build": build, "kernel": kern, "flash": flash,
+              "serve": serve, "parity": parity, "train": train,
+              "train_parity": train_parity,
+              "seconds": time.perf_counter() - t_start}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(detail, indent=1))

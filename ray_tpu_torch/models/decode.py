@@ -27,6 +27,7 @@ from typing import List, Optional, Tuple
 
 import torch
 
+from ray_tpu_torch._private.device import resolve_device
 from ray_tpu_torch.models.transformer import (TransformerConfig, _head,
                                               _mlp, _norm)
 from ray_tpu_torch.ops.paged_attention import paged_attention
@@ -49,10 +50,10 @@ class PagedKVCache:
 
 def init_paged_caches(cfg: TransformerConfig, slots: int, num_pages: int,
                       page_tokens: int, pages_per_slot: int,
-                      device: torch.device | str = "cpu"
+                      device: Optional[torch.device | str] = None
                       ) -> List[PagedKVCache]:
     """Zeroed pools in ``cfg.dtype``, one per layer, sharing one cursor
-    tensor."""
+    tensor, on ``device`` (the card unless ``"cpu"`` is asked for)."""
     if page_tokens < 1:
         raise ValueError(f"page_tokens must be >= 1, got {page_tokens}")
     if num_pages < 2:
@@ -65,6 +66,7 @@ def init_paged_caches(cfg: TransformerConfig, slots: int, num_pages: int,
         raise ValueError(
             f"pages_per_slot * page_tokens ({pages_per_slot * page_tokens}) "
             f"exceeds cfg.max_seq_len ({cfg.max_seq_len})")
+    device = resolve_device(device)
     shape = (num_pages, page_tokens, cfg.kv_heads, cfg.head_dim)
     lengths = torch.zeros(slots, dtype=torch.int32, device=device)
     return [PagedKVCache(k=torch.zeros(shape, dtype=cfg.dtype, device=device),

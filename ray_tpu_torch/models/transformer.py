@@ -6,29 +6,38 @@ package's layouts (``wq [d, h, hd]``, ``wo [h, hd, d]``, ``w_gate [d, f]``,
 ``ray_tpu_torch/_private/convert.py``). Blocks are a list of per-layer
 dicts.
 
-Dtypes: the JAX package keeps float32 params and casts each matmul weight,
-embedding and bias to ``cfg.dtype`` at every use. The port casts them once,
-when the params are placed on their device, which gives the same numbers.
-Norm scales and biases stay float32, as the norms read them in float32.
+Dtypes: the JAX package keeps params in ``cfg.param_dtype`` (float32) and
+casts each matmul weight, embedding and bias to ``cfg.dtype`` at every use.
+``forward`` (training) does the same, so autograd returns float32 grads. The
+serving programs read params that ``place_params`` cast once to ``cfg.dtype``,
+which gives the same numbers; the casts in the shared layer pieces are then
+no-ops. Norm scales and biases are read in float32 either way.
 
-This slice serves: the layer math lives in ``models/decode.py``'s paged
-forward. ``forward`` without caches comes with the training slice, and so
-does ``mlp="moe"``.
+``forward`` runs without caches (training); the paged serving programs are
+in ``models/decode.py``. ``mlp="moe"`` is not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
+from ray_tpu_torch._private.device import resolve_device
+from ray_tpu_torch.ops.attention import attention
+from ray_tpu_torch.ops.losses import (fused_softmax_cross_entropy,
+                                      softmax_cross_entropy)
 from ray_tpu_torch.ops.norms import layer_norm, rms_norm
+from ray_tpu_torch.ops.rotary import apply_rotary, rope_frequencies
 
-_MOE_LATER = ("mlp='moe' is not ported yet: mixture-of-experts layers come "
-              "with the port's training slice")
+_MOE_LATER = ("mlp='moe' is not ported yet: the mixture-of-experts layer "
+              "(ops/moe.py) is the port's next module")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,6 +58,15 @@ class TransformerConfig:
     tie_embeddings: bool = True
     norm_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16       # activation/compute dtype
+    param_dtype: torch.dtype = torch.float32  # training params and grads
+    remat: bool = True                        # checkpoint each block
+    # 'full': recompute the whole block in backward; 'dots': keep the
+    # matmul outputs, recompute the rest
+    remat_policy: str = "full"
+    attn_impl: str = "auto"                   # 'auto'|'flash'|'reference'
+    # fold the vocab projection into the CE loss, chunked (ops/losses.py)
+    fused_ce: bool = True
+    ce_chunk: int = 2048
 
     @property
     def kv_heads(self) -> int:
@@ -100,23 +118,29 @@ def map_params(fn, params, path: str = ""):
     return fn(path, params)
 
 
-def _norm_params(cfg: TransformerConfig, dim: int, device):
-    p = {"scale": torch.ones(dim, device=device)}
+def _norm_params(cfg: TransformerConfig, dim: int, device, dtype):
+    p = {"scale": torch.ones(dim, device=device, dtype=dtype)}
     if cfg.norm != "rmsnorm":
-        p["bias"] = torch.zeros(dim, device=device)
+        p["bias"] = torch.zeros(dim, device=device, dtype=dtype)
     return p
 
 
 def init_params(cfg: TransformerConfig, seed: int = 0,
-                device: torch.device | str = "cpu") -> Dict[str, Any]:
+                device: Optional[torch.device | str] = None,
+                param_dtype: Optional[torch.dtype] = None
+                ) -> Dict[str, Any]:
     """Random params with the JAX package's distributions (normal 0.02;
     0.02/sqrt(2L) for the output projections), drawn from a
-    ``torch.Generator`` on ``device`` seeded with ``seed``, and placed as
-    ``place_params`` does. Each tensor is drawn in float32 and cast at
-    once, so a full-size model never holds a float32 copy."""
+    ``torch.Generator`` on ``device`` (the card unless ``"cpu"`` is asked
+    for) seeded with ``seed``. Each tensor is drawn in float32 and cast at
+    once. With ``param_dtype`` every leaf is in that dtype (training keeps
+    ``cfg.param_dtype``); without it they are placed as ``place_params``
+    does, so a full-size served model never holds a float32 copy."""
     if cfg.mlp == "moe":
         raise NotImplementedError(_MOE_LATER)
-    device = torch.device(device)
+    device = resolve_device(device)
+    weight_dtype = param_dtype or cfg.dtype
+    norm_dtype = param_dtype or torch.float32
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     d, h, kvh, hd, f = (cfg.embed_dim, cfg.num_heads, cfg.kv_heads,
@@ -126,14 +150,14 @@ def init_params(cfg: TransformerConfig, seed: int = 0,
     def normal(shape, std=0.02):
         t = torch.randn(shape, generator=gen, device=device,
                         dtype=torch.float32)
-        return t.mul_(std).to(cfg.dtype)
+        return t.mul_(std).to(weight_dtype)
 
     def zeros(shape):
-        return torch.zeros(shape, device=device, dtype=cfg.dtype)
+        return torch.zeros(shape, device=device, dtype=weight_dtype)
 
     params: Dict[str, Any] = {
         "embed": {"table": normal((cfg.vocab_size, d))},
-        "final_norm": _norm_params(cfg, d, device),
+        "final_norm": _norm_params(cfg, d, device, norm_dtype),
     }
     if cfg.pos == "learned":
         params["pos_embed"] = {"table": normal((cfg.max_seq_len, d))}
@@ -144,8 +168,8 @@ def init_params(cfg: TransformerConfig, seed: int = 0,
         b = {"attn": {"wq": normal((d, h, hd)), "wk": normal((d, kvh, hd)),
                       "wv": normal((d, kvh, hd)),
                       "wo": normal((h, hd, d), out_std)},
-             "ln1": _norm_params(cfg, d, device),
-             "ln2": _norm_params(cfg, d, device)}
+             "ln1": _norm_params(cfg, d, device, norm_dtype),
+             "ln2": _norm_params(cfg, d, device, norm_dtype)}
         if cfg.mlp == "swiglu":
             b["mlp"] = {"w_gate": normal((d, f)), "w_up": normal((d, f)),
                         "w_down": normal((f, d), out_std)}
@@ -158,8 +182,18 @@ def init_params(cfg: TransformerConfig, seed: int = 0,
     return params
 
 
+def count_params(params) -> int:
+    return sum(t.numel() for t in _leaves(params))
+
+
+def _leaves(params):
+    out = []
+    map_params(lambda _p, t: out.append(t), params)
+    return out
+
+
 # ---------------------------------------------------------------------------
-# layer pieces (the paged forward in models/decode.py strings them together)
+# layer pieces (forward and the paged programs in models/decode.py)
 
 
 def _norm(cfg: TransformerConfig, p, x):
@@ -168,21 +202,145 @@ def _norm(cfg: TransformerConfig, p, x):
     return layer_norm(x, p["scale"], p["bias"], cfg.norm_eps)
 
 
+def _w(cfg: TransformerConfig, t: torch.Tensor) -> torch.Tensor:
+    """A weight in the compute dtype (a no-op for placed params)."""
+    return t.to(cfg.dtype)
+
+
 def _mlp(cfg: TransformerConfig, p, x):
     """[..., d] -> [..., d] in ``cfg.dtype``."""
     if cfg.mlp == "moe":
         raise NotImplementedError(_MOE_LATER)
     if cfg.mlp == "swiglu":
-        gate = x @ p["w_gate"]
-        up = x @ p["w_up"]
-        return (F.silu(gate) * up) @ p["w_down"]
-    hid = F.gelu(x @ p["w_in"] + p["b_in"], approximate="tanh")
-    return hid @ p["w_out"] + p["b_out"]
+        gate = x @ _w(cfg, p["w_gate"])
+        up = x @ _w(cfg, p["w_up"])
+        return (F.silu(gate) * up) @ _w(cfg, p["w_down"])
+    hid = F.gelu(x @ _w(cfg, p["w_in"]) + _w(cfg, p["b_in"]),
+                 approximate="tanh")
+    return hid @ _w(cfg, p["w_out"]) + _w(cfg, p["b_out"])
 
 
 def _head(cfg: TransformerConfig, params, x):
     """Final norm + vocab projection: [..., d] -> [..., vocab]."""
-    x = _norm(cfg, params["final_norm"], x)
+    return _project(cfg, params, _norm(cfg, params["final_norm"], x))
+
+
+def _project(cfg: TransformerConfig, params, x):
     if cfg.tie_embeddings:
-        return x @ params["embed"]["table"].T
-    return x @ params["lm_head"]["kernel"]
+        return x @ _w(cfg, params["embed"]["table"]).T
+    return x @ _w(cfg, params["lm_head"]["kernel"])
+
+
+# ---------------------------------------------------------------------------
+# forward without caches (training)
+
+Rope = Optional[Tuple[torch.Tensor, torch.Tensor]]
+
+
+@functools.lru_cache(maxsize=8)
+def _rope_tables(head_dim: int, max_len: int, theta: float,
+                 device: torch.device):
+    # built on the CPU, then moved, so the CPU and the card read one table
+    return tuple(t.to(device) for t in rope_frequencies(head_dim, max_len,
+                                                        theta))
+
+
+def _attn(cfg: TransformerConfig, p, x, rope: Rope, positions):
+    B, S, d = x.shape
+    H, Hkv, hd = cfg.num_heads, cfg.kv_heads, cfg.head_dim
+    q = (x @ _w(cfg, p["wq"]).reshape(d, H * hd)).view(B, S, H, hd)
+    k = (x @ _w(cfg, p["wk"]).reshape(d, Hkv * hd)).view(B, S, Hkv, hd)
+    v = (x @ _w(cfg, p["wv"]).reshape(d, Hkv * hd)).view(B, S, Hkv, hd)
+    if rope is not None:
+        cos, sin = rope
+        q = apply_rotary(q, cos, sin, positions)
+        k = apply_rotary(k, cos, sin, positions)
+    o = attention(q, k, v, causal=True, impl=cfg.attn_impl)
+    return o.reshape(B, S, H * hd) @ _w(cfg, p["wo"]).reshape(H * hd, d)
+
+
+def _block(cfg: TransformerConfig, p, x, rope: Rope, positions):
+    x = x + _attn(cfg, p["attn"], _norm(cfg, p["ln1"], x), rope, positions)
+    return x + _mlp(cfg, p["mlp"], _norm(cfg, p["ln2"], x))
+
+
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _block_fn(cfg: TransformerConfig):
+    """The block under the config's remat policy. 'full' keeps only the
+    block's inputs and runs the block again in backward (the flash forward
+    kernel with it); 'dots' keeps the matmul outputs as well."""
+    if not cfg.remat:
+        return _block
+    if cfg.remat_policy == "full":
+        return functools.partial(checkpoint, _block, use_reentrant=False)
+    if cfg.remat_policy == "dots":
+        return functools.partial(
+            checkpoint, _block, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                         _save_dots))
+    raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}; expected "
+                     "one of ['dots', 'full']")
+
+
+def forward(cfg: TransformerConfig, params, tokens: torch.Tensor, *,
+            positions: Optional[torch.Tensor] = None,
+            return_hidden: bool = False, return_aux: bool = False):
+    """tokens [B, S] int -> logits [B, S, vocab] in ``cfg.dtype``.
+
+    return_hidden: skip the vocab projection and return (the hidden states
+    after the final norm [B, S, d], aux) for the fused-CE loss. return_aux:
+    return (logits, aux). aux is 0.0: it carries the MoE routing loss, and
+    MoE is not ported yet."""
+    tokens = tokens.long()
+    x = _w(cfg, params["embed"]["table"])[tokens]
+    rope = None
+    if cfg.pos == "learned":
+        pos = (positions if positions is not None
+               else torch.arange(tokens.shape[1], device=tokens.device))
+        x = x + _w(cfg, params["pos_embed"]["table"])[pos]
+    else:
+        rope = _rope_tables(cfg.head_dim, cfg.max_seq_len, cfg.rope_theta,
+                            x.device)
+    block = _block_fn(cfg)
+    for p in params["blocks"]:
+        x = block(cfg, p, x, rope, positions)
+    x = _norm(cfg, params["final_norm"], x)
+    if return_hidden:
+        return x, 0.0
+    logits = _project(cfg, params, x)
+    return (logits, 0.0) if return_aux else logits
+
+
+def loss_fn(cfg: TransformerConfig, params, batch, *,
+            positions: Optional[torch.Tensor] = None):
+    """Causal-LM loss. batch: {'tokens': [B, S], optional 'mask': [B, S]}.
+    Targets are the tokens shifted left; the last position is dropped.
+    Returns (loss, {'loss', 'tokens'})."""
+    tokens = batch["tokens"]
+    targets = tokens[:, 1:]
+    mask = batch.get("mask")
+    if mask is not None:
+        mask = mask[:, 1:]
+    if cfg.fused_ce:
+        hidden, _ = forward(cfg, params, tokens, positions=positions,
+                            return_hidden=True)
+        if cfg.tie_embeddings:
+            table, transpose = params["embed"]["table"], False
+        else:
+            table, transpose = params["lm_head"]["kernel"], True
+        loss, n = fused_softmax_cross_entropy(
+            hidden[:, :-1], table, targets, mask, chunk=cfg.ce_chunk,
+            compute_dtype=cfg.dtype, transpose_table=transpose)
+    else:
+        logits, _ = forward(cfg, params, tokens, positions=positions,
+                            return_aux=True)
+        loss, n = softmax_cross_entropy(logits[:, :-1], targets, mask)
+    return loss, {"loss": loss, "tokens": n}

@@ -24,7 +24,8 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_lock = threading.Lock()
+_locks: Dict[str, threading.Lock] = {}
+_locks_guard = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 # what each build printed (ptxas registers and spills)
 build_log: Dict[str, str] = {}
@@ -49,8 +50,11 @@ def library_path(name: str) -> Path:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load ``csrc/<name>.cu``; cached per process."""
-    with _lock:
+    """Build (if needed) and load ``csrc/<name>.cu``; cached per process.
+    Each source has its own lock, so two sources build at the same time."""
+    with _locks_guard:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
         lib = _libs.get(name)
         if lib is not None:
             return lib

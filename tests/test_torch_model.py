@@ -119,7 +119,7 @@ def test_convert_round_trip(model_pair):
 
 def test_place_params_keeps_norms_f32():
     cfg = presets.llama_debug(dtype=torch.bfloat16)
-    params = transformer.init_params(cfg, seed=0)
+    params = transformer.init_params(cfg, seed=0, device="cpu")
     assert params["blocks"][0]["attn"]["wq"].dtype == torch.bfloat16
     assert params["blocks"][0]["ln1"]["scale"].dtype == torch.float32
     placed = transformer.place_params(cfg, convert.from_jax(
@@ -129,7 +129,7 @@ def test_place_params_keeps_norms_f32():
 
 
 def test_moe_raises_naming_the_training_slice():
-    with pytest.raises(NotImplementedError, match="training slice"):
+    with pytest.raises(NotImplementedError, match="not ported yet"):
         transformer.init_params(presets.moe_debug())
 
 
@@ -143,7 +143,7 @@ def test_paged_prefill_then_decode_matches_jax(model_pair):
     N = S * P + 1
     tables = (1 + np.arange(S * P, dtype=np.int32)).reshape(S, P)
     jc = jdecode.init_paged_caches(jcfg, S, N, T, P)
-    tc = decode.init_paged_caches(cfg, S, N, T, P)
+    tc = decode.init_paged_caches(cfg, S, N, T, P, device="cpu")
     rope = None
     if cfg.pos == "rope":
         rope = rotary.rope_frequencies(cfg.head_dim, cfg.max_seq_len,
