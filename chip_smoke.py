@@ -10,7 +10,10 @@ of its checks fails:
   1. card: the card's name and power limit, as nvidia-smi gives them.
   2. build: nvcc builds both kernel sources of ``ray_tpu_torch/csrc/``
      (paged attention; flash attention K1-K3) for sm_90a into
-     ``build/kernels/``, one nvcc each, started together; ptxas lines.
+     ``build/kernels/``, one nvcc each, started together; ptxas lines;
+     ``cuobjdump -sass`` counts the HMMA (tensor-core) instructions of each
+     flash kernel, and the run fails if the bf16 K1 or K3 at D=64 or 128
+     has none.
   3. kernel: the paged-attention kernel against
      ``paged_attention_reference`` on the card, at llama3_8b shapes (H=32,
      Hkv=8, D=128, 16-token pages), bf16 and float32, for decode (8 slots,
@@ -25,10 +28,12 @@ of its checks fails:
      kernels against their plain versions on the card, bf16 and float32, at
      gpt2_small (B16 S1024 H12 D64), gpt_1b (B4 S1024 H16/8 D128), a
      group-4 case (B1 S2048 H32/8 D128), a ragged S=1000 and a non-causal
-     case: O, lse, dQ, dK, dV within the stated tolerances, two runs of K3
-     bitwise equal; times of each kernel, its plain version, the library
-     yardstick (SDPA forward for K1; the autograd backward of that same
-     call for K2 and K3 together) and the bound.
+     case: O, lse, dQ, dK, dV within the stated tolerances, an O, a dK and
+     a dV 2% off refused, two runs of K3 bitwise equal; times of each
+     kernel, its plain version, the library yardstick (SDPA forward for K1;
+     the autograd backward of that same call for K2 and K3 together) and
+     the bound. In bf16, K1 and K3 run on the tensor cores (mma.sync); K2
+     and every float32 kernel run float32 FMA.
   5. serve: ``LLMServerImpl(preset="llama3_8b")`` at full width and depth
      (32 layers), random bf16 weights from a seeded torch.Generator,
      answers 12 streamed requests that share a prefix (8 slots, one request
@@ -40,13 +45,15 @@ of its checks fails:
      tokens: gpt2_small at full width and depth (12 layers, d 768, vocab
      50257), B16 x S1024, remat off, CE chunk 8192, one warm-up step and 5
      timed steps (step ms, tokens/s, model-flop utilization against the
-     bf16 dense peak), one torch.profiler step; one step under the default
-     full remat; gpt_1b at full width with 4 of its 16 layers (cut for
-     time), B4 x S1024, 'dots' remat. Losses and grad norms finite, the
-     loss going down, and the flash launch counters exactly layers x steps
-     for K2 and K3 and (remat ? 2 : 1) x layers x steps for K1. Before
-     them, the fused CE with bf16 operands at gpt2_small's width and vocab
-     against float64 (its logits keep the product's float32 result).
+     bf16 dense peak), one torch.profiler step (device time by kernel
+     group, the flash group by kernel); one step under the default full
+     remat; gpt_1b at full width with 4 of its 16 layers (cut for time),
+     B4 x S1024, 'dots' remat, 5 timed steps and one profiled. Losses and
+     grad norms finite, the loss going down, and the flash launch counters
+     exactly layers x steps for K2 and K3 and (remat ? 2 : 1) x layers x
+     steps for K1. Before them, the fused CE with bf16 operands at
+     gpt2_small's width and vocab against float64 (its logits keep the
+     product's float32 result).
   8. train parity: llama_debug and a tiny GPT-2 (learned positions,
      layernorm, tied) in float32, five steps on the card against five on
      the CPU from the same weights on the same batches: losses and grad
@@ -74,6 +81,10 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # f32 off tensor cores
 
 SOURCES = ("paged_attention", "flash_attention")
+# the kernel instantiations that must run on the tensor cores
+TENSOR_CORE_KERNELS = tuple(f"{name}_mma_kernel<bf16, {d}>"
+                            for name in ("flash_fwd", "flash_dkv")
+                            for d in (64, 128))
 ARENA_LEN = 2048          # serve arena per slot: 128 pages of 16 tokens
 SERVE_NEW_TOKENS = 32
 TOL = {"float32": (1e-5, 1e-5),       # atol, rtol: sum order differs
@@ -90,20 +101,28 @@ def card_line() -> str:
     return line
 
 
+def kernel_label(mangled: str) -> str:
+    """``flash_dkv_kernel<bf16, 128>`` from a mangled kernel name; the
+    number is the head dim, or the head-dim elements per lane of the paged
+    kernel. The tensor-core kernels (``*_mma_kernel<D>``) take bf16 only."""
+    import re
+
+    m = re.search(r"\d+([a-z_]+_kernel)I(13__nv_bfloat16|f)?Li(\d+)E",
+                  mangled)
+    if not m:
+        return mangled.split()[-1][:60]
+    return f"{m[1]}<{'f32' if m[2] == 'f' else 'bf16'}, {m[3]}>"
+
+
 def ptxas_lines(log: str) -> list:
     """One line per kernel from nvcc's ``-Xptxas -v`` output: its
-    instantiation (``flash_dkv_kernel<bf16, 128>``; the number is the head
-    dim, or the head-dim elements per lane of the paged kernel), then its
-    registers and spills."""
+    instantiation (``kernel_label``), then its registers and spills."""
     import re
 
     out, kernel, spill = [], None, ""
     for ln in log.splitlines():
         if "Function properties for" in ln:
-            m = re.search(r"\d+([a-z_]+_kernel)I(13__nv_bfloat16|f)Li(\d+)E",
-                          ln)
-            kernel = (f"{m[1]}<{'bf16' if 'bfloat' in m[2] else 'f32'}, "
-                      f"{m[3]}>" if m else ln.split()[-1][:60])
+            kernel = kernel_label(ln)
         elif "spill" in ln:
             spill = ln.strip()
         elif "registers" in ln and kernel:
@@ -138,7 +157,36 @@ def build_phase() -> dict:
         for ln in ptxas:
             print(f"  ptxas: {ln}")
         out[name] = {"seconds": seconds[name], "ptxas": ptxas}
+    hmma = hmma_counts(_build.library_path("flash_attention"))
+    out["flash_attention"]["hmma"] = hmma
+    print("build: HMMA (tensor-core) instructions per flash kernel: "
+          + ", ".join(f"{k} {n}" for k, n in sorted(hmma.items())),
+          flush=True)
+    for key in TENSOR_CORE_KERNELS:
+        if not hmma.get(key):
+            raise AssertionError(f"{key}: no HMMA instruction in the built "
+                                 "library: the kernel is off the tensor "
+                                 "cores")
     return out
+
+
+def hmma_counts(so: Path) -> dict:
+    """HMMA instructions per kernel function in the SASS of a built
+    library, read with ``cuobjdump -sass``; raises if the tool is
+    missing."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(so)], check=True,
+                          capture_output=True, text=True, timeout=300).stdout
+    counts, name = {}, None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            name = kernel_label(ln.split("Function :", 1)[1].strip())
+            counts[name] = 0
+        elif name is not None and "HMMA" in ln:
+            counts[name] += 1
+    return counts
 
 
 # --------------------------------------------------------------- kernel
@@ -172,13 +220,17 @@ def make_case(torch, dtype, S, K, lengths, *, H=32, Hkv=8, D=128, T=16,
 def time_ms(torch, fn, iters=20, warmup=3):
     """Mean device time of ``fn`` over ``iters`` calls, each timed with
     CUDA events after a 256 MB write that evicts the 50 MB L2, so every
-    call starts from a cold cache as a layer of the model would."""
+    call starts from a cold cache as a layer of the model would. The card
+    then spins for about 0.5 ms before the start event, so the host's time
+    to enqueue ``fn`` (a Python wrapper's checks and allocations) lies
+    inside the spin and not between the events."""
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
     for _ in range(warmup):
         fn()
     total = 0.0
     for _ in range(iters):
         flush.zero_()
+        torch.cuda._sleep(1_000_000)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -311,16 +363,33 @@ FLASH_CASES = {
 # fraction of the plain output's RMS (the size of a typical element):
 #  * O in bf16: rtol one bf16 step (2^-7), as both sides round O to bf16;
 #    atol 0.04 x RMS for P, which the kernel rounds to bf16 against the
-#    running row max and the plain version against the final one. Each run
-#    also checks that the gate refuses an O 2% off on the rows past the
-#    first key tile.
-#  * O in float32, and dQ, dK, dV in both dtypes: the float32 gate, 1e-5 x
-#    RMS and 1e-5. In O only the order of the sums differs; the backward
-#    kernels run the same sequential float32 FMA chains as their plain
-#    versions and agree with them bit for bit.
+#    running row max and the plain version against the final one.
+#  * dK and dV in bf16 (tensor-core K3): rtol one bf16 step, as the sums
+#    run in another order and the result may round to the neighbouring
+#    bf16 value. A P or dS whose float32 value differs by a rounding on the
+#    two sides now and then rounds to neighbouring bf16 values before its
+#    product, and moves a few elements by much more. Two correct plain
+#    versions differ so too: each run computes the plain dK and dV with
+#    their float32 steps in float64 (``_dkv_float64``), records how far
+#    they lie from the float32 ones, and fails if the gate refuses them.
+#    So atol is 0.25 x RMS, which holds off gross faults only, and the
+#    whole tensor must also lie within 2e-3 of the plain one in relative L2
+#    norm, which a bias of 2% (2e-2) breaks tenfold; PERF.md has the
+#    measured shares.
+#  * O in float32, dQ in both dtypes, dK and dV in float32: the float32
+#    gate, 1e-5 x RMS and 1e-5. In O only the order of the sums differs;
+#    K2 and the float32 K3 run the same sequential float32 FMA chains as
+#    their plain versions and agree with them bit for bit.
+# Each run also checks that the gates refuse an O 2% off on the rows past
+# the first key tile, and a dK and a dV 2% off.
 # lse is float32 on both sides, from the same scores: an absolute tolerance.
 F32_GATE = (1e-5, 1e-5)  # (atol / RMS of the plain output, rtol)
-FLASH_TOL = {("o", "bfloat16"): (0.04, 2.0 ** -7)}
+FLASH_TOL = {("o", "bfloat16"): (0.04, 2.0 ** -7),
+             ("dk", "bfloat16"): (0.25, 2.0 ** -7),
+             ("dv", "bfloat16"): (0.25, 2.0 ** -7)}
+# relative L2 gates: ||kernel - plain|| <= l2 x ||plain||
+FLASH_L2 = {("dk", "bfloat16"): 2e-3, ("dv", "bfloat16"): 2e-3}
+OFF_FROM_ROW = {"o": 64, "dk": 0, "dv": 0}  # rows a 2%-off copy scales
 LSE_ATOL = 1e-4
 
 
@@ -353,12 +422,44 @@ def flash_bounds(case, dtype_name, item):
     return out
 
 
-def _flash_err(got, ref, atol_rms, rtol):
-    """(max |got - ref|, the largest share of the per-element gate used)."""
+def _flash_err(got, ref, atol_rms, rtol, l2=None):
+    """(max |got - ref|, relative L2 error, the largest share of a gate
+    used: the per-element gate's, and the L2 gate's where there is one)."""
     got, ref = got.float(), ref.float()
     err = (got - ref).abs()
-    atol = atol_rms * max(float(ref.square().mean().sqrt()), 1e-30)
-    return float(err.max()), float((err / (atol + rtol * ref.abs())).max())
+    norm = max(float(ref.norm()), 1e-30)
+    atol = atol_rms * norm / ref.numel() ** 0.5  # atol_rms x RMS
+    rel_l2 = float(err.norm()) / norm
+    used = float((err / (atol + rtol * ref.abs())).max())
+    if l2 is not None:
+        used = max(used, rel_l2 / l2)
+    return float(err.max()), rel_l2, used
+
+
+def _dkv_float64(torch, fa, q, k, v, do, lse, delta, causal):
+    """``flash_dkv_reference`` with its float32 steps in float64 (P and dS
+    still rounded to the operands' dtype before their products), for
+    Sq == Sk."""
+    B, S, H, D = q.shape
+    Hkv = k.shape[2]
+    f64 = torch.float64
+    scale = 1.0 / math.sqrt(D)
+    qg = q.reshape(B, S, Hkv, H // Hkv, D).to(f64)
+    dog = do.reshape(B, S, Hkv, H // Hkv, D).to(f64)
+
+    def rows(t):  # [B, H, S] -> [B, Hkv, G, S, 1]
+        return t.to(f64).reshape(B, Hkv, H // Hkv, S, 1)
+
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.to(f64)) * scale
+    if causal:
+        pos = torch.arange(S, device=q.device)
+        s = s.masked_fill(pos[:, None] < pos[None, :], fa.NEG_INF)
+    p = torch.exp(s - rows(lse))
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", dog, v.to(f64))
+    ds = p * (dp - rows(delta)) * scale
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p.to(do.dtype).to(f64), dog)
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds.to(q.dtype).to(f64), qg)
+    return dk.to(k.dtype), dv.to(v.dtype)
 
 
 def flash_kernel_phase(torch, cases=None, timed=True) -> dict:
@@ -402,23 +503,50 @@ def flash_kernel_phase(torch, cases=None, timed=True) -> dict:
                     raise AssertionError(f"{name} {dtype_name}: {key} is "
                                          "not finite")
                 atol_rms, rtol = FLASH_TOL.get((key, dtype_name), F32_GATE)
-                err, used = _flash_err(got, ref, atol_rms, rtol)
+                l2 = FLASH_L2.get((key, dtype_name))
+                err, rel_l2, used = _flash_err(got, ref, atol_rms, rtol, l2)
                 r[f"{key}_max_abs_err"], r[f"{key}_gate_used"] = err, used
+                r[f"{key}_rel_l2"] = rel_l2
                 r[f"{key}_atol_rms"], r[f"{key}_rtol"] = atol_rms, rtol
+                r[f"{key}_l2"] = l2
                 if not used <= 1.0:
                     raise AssertionError(
                         f"{name} {dtype_name}: {key} kernel disagrees with "
-                        f"its plain version: an element is {used:.3g} x its "
+                        f"its plain version: it uses {used:.3g} x its "
                         f"tolerance {atol_rms:g} x RMS + {rtol:g} x |ref| "
-                        f"(max |err| {err:.3e})")
-            off = o.float().clone()
-            off[:, 64:] *= 1.02  # the rows past the first key tile
-            r["o_2pct_off_gate_used"] = _flash_err(
-                off, o_ref, r["o_atol_rms"], r["o_rtol"])[1]
-            if not r["o_2pct_off_gate_used"] > 1.0:
-                raise AssertionError(f"{name} {dtype_name}: the O tolerance "
-                                     "lets an O 2% off pass")
-            del off
+                        f"per element (max |err| {err:.3e}), relative L2 "
+                        f"{rel_l2:.2e} (gate {l2})")
+            for key, got, ref in (("o", o, o_ref), ("dk", dk, dk_ref),
+                                  ("dv", dv, dv_ref)):
+                off = got.float().clone()
+                off[:, OFF_FROM_ROW[key]:] *= 1.02
+                used = _flash_err(off, ref, r[f"{key}_atol_rms"],
+                                  r[f"{key}_rtol"], r[f"{key}_l2"])[2]
+                r[f"{key}_2pct_off_gate_used"] = used
+                if not used > 1.0:
+                    raise AssertionError(f"{name} {dtype_name}: the {key} "
+                                         f"tolerance lets a {key} 2% off "
+                                         "pass")
+                del off
+            if ("dk", dtype_name) in FLASH_L2:
+                # the gate must admit a second correct version: the plain
+                # one with its float32 steps in float64
+                alts = _dkv_float64(torch, fa, q, k, v, do, lse, delta,
+                                    causal)
+                for key, alt, ref in zip(("dk", "dv"), alts,
+                                         (dk_ref, dv_ref)):
+                    err, rel_l2, used = _flash_err(
+                        alt, ref, r[f"{key}_atol_rms"], r[f"{key}_rtol"],
+                        r[f"{key}_l2"])
+                    rms = float(ref.float().square().mean().sqrt())
+                    r[f"{key}_plain64_max_err_rms"] = err / rms
+                    r[f"{key}_plain64_rel_l2"] = rel_l2
+                    r[f"{key}_plain64_gate_used"] = used
+                    if not used <= 1.0:
+                        raise AssertionError(
+                            f"{name} {dtype_name}: the {key} gate refuses "
+                            "the plain version run in float64")
+                del alts
             r["lse_max_abs_err"] = float((lse - lse_ref).abs().max())
             if not r["lse_max_abs_err"] <= LSE_ATOL:
                 raise AssertionError(f"{name} {dtype_name}: lse differs by "
@@ -429,9 +557,20 @@ def flash_kernel_phase(torch, cases=None, timed=True) -> dict:
                   f"({r['dq_gate_used']:.2f}), dk {r['dk_max_abs_err']:.2e} "
                   f"({r['dk_gate_used']:.2f}), dv {r['dv_max_abs_err']:.2e} "
                   f"({r['dv_gate_used']:.2f}), lse "
-                  f"{r['lse_max_abs_err']:.2e}; an O 2% off uses "
-                  f"{r['o_2pct_off_gate_used']:.1f}; K3 bitwise equal twice",
+                  f"{r['lse_max_abs_err']:.2e}; relative L2 dk "
+                  f"{r['dk_rel_l2']:.2e}, dv {r['dv_rel_l2']:.2e}; 2% off "
+                  f"uses o {r['o_2pct_off_gate_used']:.1f}, dk "
+                  f"{r['dk_2pct_off_gate_used']:.1f}, dv "
+                  f"{r['dv_2pct_off_gate_used']:.1f}; K3 bitwise equal twice",
                   flush=True)
+            if "dk_plain64_gate_used" in r:
+                print("  the plain version in float64 against float32: "
+                      + ", ".join(
+                          f"{key} max|err| "
+                          f"{r[f'{key}_plain64_max_err_rms']:.3f} x RMS, "
+                          f"relative L2 {r[f'{key}_plain64_rel_l2']:.2e}, "
+                          f"{r[f'{key}_plain64_gate_used']:.2f} of the gate"
+                          for key in ("dk", "dv")), flush=True)
             del o_ref, lse_ref, dq_ref, dk_ref, dv_ref, dk2, dv2
             if timed:
                 r.update(_flash_times(torch, F, fa, case, dtype_name,
@@ -583,17 +722,21 @@ def profile_train_step(torch, step, state, batch) -> dict:
             kernels[e.name] = (n + 1, us + e.time_range.elapsed_us())
     busy_ms = sum(us for _, us in kernels.values()) / 1e3
     top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:10]
-    groups = {}
+    groups, flash = {}, {}
     for name, (n, us) in kernels.items():
         group = next((g for g, keys in KERNEL_GROUPS
                       if any(k in name for k in keys)), "other")
         c, ms = groups.get(group, (0, 0.0))
         groups[group] = (c + n, ms + us / 1e3)
+        if group == "flash":  # "void (anonymous namespace)::<kernel>(..."
+            flash[name.split("::", 1)[-1].split("(", 1)[0]] = dict(
+                count=n, ms=us / 1e3)
     r = dict(wall_ms=wall * 1e3,
              device_busy_ms=busy_ms if kernels else None,
              kernel_launches=sum(n for n, _ in kernels.values()),
              groups={g: dict(count=n, ms=ms) for g, (n, ms) in
                      sorted(groups.items(), key=lambda kv: -kv[1][1])},
+             flash=flash,
              top=[dict(name=k[:90], count=n, ms=us / 1e3)
                   for k, (n, us) in top])
     if kernels:
@@ -603,6 +746,8 @@ def profile_train_step(torch, step, state, batch) -> dict:
               f"{r['kernel_launches']} device kernels; by group: "
               + ", ".join(f"{g} {v['ms']:.1f} ms ({v['count']}x)"
                           for g, v in r["groups"].items()), flush=True)
+        print("  flash: " + ", ".join(f"{k} {v['ms']:.2f} ms ({v['count']}x)"
+                                      for k, v in sorted(flash.items())))
         for t in r["top"]:
             print(f"  {t['ms']:9.3f} ms {t['count']:6d}x  {t['name']}")
     else:
@@ -684,7 +829,7 @@ def train_phase(torch) -> dict:
                                   1024, 1, False),
         "gpt_1b_4_layers": (presets.gpt_1b(num_layers=4, remat_policy="dots",
                                            ce_chunk=8192), 4, 1024,
-                            TRAIN_STEPS, False),
+                            TRAIN_STEPS, True),
     }
     for name, (cfg, B, S, steps, prof) in runs.items():
         out[name] = r = train_run(torch, cfg, B, S, steps, profile=prof)

@@ -15,11 +15,13 @@ Three kernels, each behind its own wrapper:
 
 On a CUDA tensor each wrapper launches its hand-written Hopper kernel in
 ``ray_tpu_torch/csrc/flash_attention.cu`` (built by ``ops/_build.py``), or
-raises; ``<wrapper>.launches`` counts its launches. On a CPU tensor it runs
-its plain PyTorch version (``flash_forward_reference``, ``flash_dq_reference``,
-``flash_dkv_reference``), with the same math in float32 and the same casts:
-P is cast to v's dtype before P.V, and P and dS to the dtype of the operand
-they multiply in the backward products.
+raises; ``<wrapper>.launches`` counts its launches. In bf16 at head widths
+64 and 128, K1 and K3 run on the tensor cores (``mma.sync``, float32
+sums); K2 and every float32 kernel run float32 FMA. On a CPU tensor each
+wrapper runs its plain PyTorch version (``flash_forward_reference``,
+``flash_dq_reference``, ``flash_dkv_reference``), with the same math in
+float32 and the same casts: P is cast to v's dtype before P.V, and P and dS
+to the dtype of the operand they multiply in the backward products.
 
 ``flash_attention`` is the differentiable op: a ``torch.autograd.Function``
 that saves q, k, v, O and lse and runs K2 and K3 in its backward. Delta =
@@ -242,7 +244,10 @@ def flash_dq(q, k, v, do, lse, delta, sm_scale=None, causal=True):
 def flash_dkv(q, k, v, do, lse, delta, sm_scale=None, causal=True
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K3: (dK, dV) [B, Sk, Hkv, D] in k's dtype. No atomics: each block
-    owns one key tile of one kv head, so two runs give the same bits."""
+    owns one key tile of one kv head and walks the query tiles in a fixed
+    order, so two runs give the same bits. In bf16 the tensor-core sums run
+    in another order than the plain version's: dK and dV may land on the
+    neighbouring bf16 value."""
     sm_scale = _scale(q, sm_scale)
     if q.device.type == "cpu":
         return flash_dkv_reference(q, k, v, do, lse, delta, sm_scale, causal)

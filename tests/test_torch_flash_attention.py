@@ -13,7 +13,9 @@ Tolerances, float32 throughout:
     do the same float32 arithmetic; the sums run in another order.
   * a ragged length against JAX ``reference_attention`` (the JAX kernel
     only takes lengths its blocks divide): the same 2e-5.
-  * bf16 inputs: O to atol 2^-7 + rtol 2^-8 (see that test), lse 2e-5.
+  * bf16 inputs: O to atol 2^-7 + rtol 2^-8 (see that test), lse 2e-5;
+    the plain backward's dQ, dK, dV to atol 2^-8 + rtol 2^-7 (see that
+    test).
 """
 
 import jax
@@ -124,6 +126,43 @@ def test_bf16_forward_matches_jax_kernel():
     np.testing.assert_allclose(o.float().numpy(), want, atol=2.0 ** -7,
                                rtol=2.0 ** -8)
     np.testing.assert_allclose(lse.numpy(), np.asarray(jlse)[..., 0], **TOL)
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("heads", sorted(HEADS))
+def test_bf16_grads_match_jax_kernel(causal, heads):
+    """bf16 q, k, v, dO: the plain versions of K2 and K3, the yardstick the
+    card's kernels are held to, against JAX ``_flash_bwd`` in interpret mode,
+    both fed the same O, lse and delta (delta as ``_flash_bwd`` forms it).
+    With one 64-key block both sides form P and dS in float32 from the same
+    rows and round them to bf16 alike; the float32 sums may run in another
+    order, so a grad may round to the neighbouring bf16 value (rtol 2^-7,
+    one step), and a P or dS a float32 rounding apart may round to
+    neighbouring bf16 values, moving a grad by at most 2^-8 |dS| |q| (atol
+    2^-8; here |dS| |q| < 1)."""
+    h, hkv = HEADS[heads]
+    q, k, v, do = (np.asarray(jnp.asarray(a, jnp.bfloat16))
+                   for a in _inputs(b=1, s=64, h=h, hkv=hkv, d=16, seed=7))
+    tq, tk, tv, tdo = (_t(a.astype(np.float32)).bfloat16()
+                       for a in (q, k, v, do))
+    o, lse = fa.flash_forward_reference(tq, tk, tv, 0.25, causal)
+    o = np.asarray(jnp.asarray(o.float().numpy(), jnp.bfloat16))
+    delta = jnp.sum(jnp.asarray(do, jnp.float32) * jnp.asarray(o, jnp.float32),
+                    axis=-1)                                # [B, S, H]
+    jlse = jnp.asarray(lse.numpy())[..., None]              # [B, H, S, 1]
+    want = jflash._flash_bwd(_head_major(q), _head_major(k), _head_major(v),
+                             _head_major(o), jlse, _head_major(do), 0.25,
+                             causal, 64, 64, None, True)
+    tdelta = _t(delta).transpose(1, 2).contiguous()         # [B, H, S]
+    dq = fa.flash_dq_reference(tq, tk, tv, tdo, lse, tdelta, 0.25, causal)
+    dk, dv = fa.flash_dkv_reference(tq, tk, tv, tdo, lse, tdelta, 0.25,
+                                    causal)
+    for name, g, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        assert g.dtype == torch.bfloat16
+        np.testing.assert_allclose(
+            g.float().numpy(),
+            np.asarray(w.astype(jnp.float32)).transpose(0, 2, 1, 3),
+            atol=2.0 ** -8, rtol=2.0 ** -7, err_msg=name)
 
 
 def test_launch_counters_only_count_kernels():
