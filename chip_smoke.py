@@ -12,28 +12,32 @@ of its checks fails:
      (paged attention; flash attention K1-K3) for sm_90a into
      ``build/kernels/``, one nvcc each, started together; ptxas lines;
      ``cuobjdump -sass`` counts the HMMA (tensor-core) instructions of each
-     flash kernel, and the run fails if the bf16 K1 or K3 at D=64 or 128
-     has none.
-  3. kernel: the paged-attention kernel against
-     ``paged_attention_reference`` on the card, at llama3_8b shapes (H=32,
-     Hkv=8, D=128, 16-token pages), bf16 and float32, for decode (8 slots,
-     1 token) and prefill (1 slot, a 32-token chunk); row i of a 32-token
-     window against a 1-token call at length + i, bit for bit; the launch
-     counter; times of the kernel, of its plain version, of
-     scaled_dot_product_attention over a pre-gathered contiguous view (a
-     yardstick only: the port never calls it) and the bound (live-page
-     bytes over the memory rate, or the operations over the peak rate,
-     whichever is larger).
+     kernel, and the run fails if the bf16 K1, K2 or K3 at D=64 or 128, or
+     the bf16 split kernel of K4 at any of its head widths, has none.
+  3. kernel: the paged-attention kernel (split over pages, then merged;
+     the split kernel on the tensor cores in bf16, float32 FMA in float32)
+     against ``paged_attention_reference`` on the card, at llama3_8b shapes
+     (H=32, Hkv=8, D=128, 16-token pages), bf16 and float32, for decode (8
+     slots, 1 token) and prefill (1 slot, a 32-token chunk); row i of a
+     32-token window against a 1-token call at length + i, bit for bit, at
+     length 45 and at length 240 (the window crosses a split boundary); two
+     decode calls bitwise equal; one call under
+     ``torch.cuda.set_sync_debug_mode("error")``, so a host read of the
+     lengths fails the run; the launch counter; the split plan; times of
+     the kernel, of its plain version, of scaled_dot_product_attention over
+     a pre-gathered contiguous view (a yardstick only: the port never calls
+     it) and the bound (live-page bytes over the memory rate, or the
+     operations over the peak rate, whichever is larger).
   4. flash: the flash-attention forward (K1), dQ (K2) and dK/dV (K3)
      kernels against their plain versions on the card, bf16 and float32, at
      gpt2_small (B16 S1024 H12 D64), gpt_1b (B4 S1024 H16/8 D128), a
      group-4 case (B1 S2048 H32/8 D128), a ragged S=1000 and a non-causal
-     case: O, lse, dQ, dK, dV within the stated tolerances, an O, a dK and
-     a dV 2% off refused, two runs of K3 bitwise equal; times of each
-     kernel, its plain version, the library yardstick (SDPA forward for K1;
-     the autograd backward of that same call for K2 and K3 together) and
-     the bound. In bf16, K1 and K3 run on the tensor cores (mma.sync); K2
-     and every float32 kernel run float32 FMA.
+     case: O, lse, dQ, dK, dV within the stated tolerances, an O, a dQ, a
+     dK and a dV 2% off refused, two runs of K2 and of K3 bitwise equal;
+     times of each kernel, its plain version, the library yardstick (SDPA
+     forward for K1; the autograd backward of that same call for K2 and K3
+     together) and the bound. In bf16, K1, K2 and K3 run on the tensor
+     cores (mma.sync); every float32 kernel runs float32 FMA.
   5. serve: ``LLMServerImpl(preset="llama3_8b")`` at full width and depth
      (32 layers), random bf16 weights from a seeded torch.Generator,
      answers 12 streamed requests that share a prefix (8 slots, one request
@@ -82,9 +86,12 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # f32 off tensor cores
 
 SOURCES = ("paged_attention", "flash_attention")
 # the kernel instantiations that must run on the tensor cores
-TENSOR_CORE_KERNELS = tuple(f"{name}_mma_kernel<bf16, {d}>"
-                            for name in ("flash_fwd", "flash_dkv")
-                            for d in (64, 128))
+TENSOR_CORE_KERNELS = (
+    tuple(f"{name}_mma_kernel<bf16, {d}>"
+          for name in ("flash_fwd", "flash_dq", "flash_dkv")
+          for d in (64, 128))
+    + tuple(f"paged_attention_split_mma_kernel<bf16, {d}>"
+            for d in (32, 64, 128, 256)))
 ARENA_LEN = 2048          # serve arena per slot: 128 pages of 16 tokens
 SERVE_NEW_TOKENS = 32
 TOL = {"float32": (1e-5, 1e-5),       # atol, rtol: sum order differs
@@ -103,8 +110,10 @@ def card_line() -> str:
 
 def kernel_label(mangled: str) -> str:
     """``flash_dkv_kernel<bf16, 128>`` from a mangled kernel name; the
-    number is the head dim, or the head-dim elements per lane of the paged
-    kernel. The tensor-core kernels (``*_mma_kernel<D>``) take bf16 only."""
+    number is the head dim (the largest the kernel takes, for the paged
+    split kernels), or the head-dim elements per lane of the paged merge
+    kernel. The tensor-core kernels (``*_mma_kernel<D>``) take bf16
+    only."""
     import re
 
     m = re.search(r"\d+([a-z_]+_kernel)I(13__nv_bfloat16|f)?Li(\d+)E",
@@ -157,11 +166,14 @@ def build_phase() -> dict:
         for ln in ptxas:
             print(f"  ptxas: {ln}")
         out[name] = {"seconds": seconds[name], "ptxas": ptxas}
-    hmma = hmma_counts(_build.library_path("flash_attention"))
-    out["flash_attention"]["hmma"] = hmma
-    print("build: HMMA (tensor-core) instructions per flash kernel: "
-          + ", ".join(f"{k} {n}" for k, n in sorted(hmma.items())),
-          flush=True)
+    hmma = {}
+    for name in SOURCES:
+        out[name]["hmma"] = counts = hmma_counts(_build.library_path(name))
+        hmma.update(counts)
+        print(f"build: HMMA (tensor-core) instructions per kernel of "
+              f"{name}.cu: "
+              + ", ".join(f"{k} {n}" for k, n in sorted(counts.items())),
+              flush=True)
     for key in TENSOR_CORE_KERNELS:
         if not hmma.get(key):
             raise AssertionError(f"{key}: no HMMA instruction in the built "
@@ -284,6 +296,37 @@ def sdpa_call(torch, case):
     return lambda: f(qh, kv, vv, attn_mask=mask)
 
 
+def _plan_line(case) -> dict:
+    """The kernel's split plan for a case, printed on a line of its own."""
+    from ray_tpu_torch.ops.paged_attention import split_plan
+
+    S, K, H, D = case["q"].shape
+    _, T, Hkv, _ = case["k_pool"].shape
+    plan = split_plan(S, K, H, Hkv, D, T, case["tables"].shape[1],
+                      case["q"].element_size())
+    units = "tensor cores" if plan.tensor_cores else "FMA units"
+    print(f"  split plan: {plan.splits} splits of {plan.pages_per_split} "
+          f"pages, {plan.row_tiles} row tiles, grid {plan.grid}, workspace "
+          f"{plan.workspace}, {plan.smem_bytes} B shared memory, split "
+          f"kernel on the {units}", flush=True)
+    return plan._asdict()
+
+
+def _window_rows_check(torch, paged_attention, case, dtype_name):
+    """Row i of the case's window equals a 1-token call at length + i, bit
+    for bit."""
+    win = paged_attention(**case)
+    for i in range(case["q"].shape[1]):
+        one = paged_attention(case["q"][:, i:i + 1], case["k_pool"],
+                              case["v_pool"], case["tables"],
+                              case["lengths"] + i)
+        if not torch.equal(win[:, i:i + 1], one):
+            raise AssertionError(
+                f"{dtype_name}: window row {i} at length "
+                f"{case['lengths'].tolist()} differs from the 1-token call "
+                f"at length + {i}")
+
+
 def kernel_phase(torch) -> dict:
     from ray_tpu_torch.ops.paged_attention import (paged_attention,
                                                    paged_attention_reference)
@@ -295,6 +338,10 @@ def kernel_phase(torch) -> dict:
         # 1 slot, a 32-token prefill chunk at a cursor off a page boundary
         "prefill": dict(S=1, K=32, lengths=[45]),
     }
+    # 32-token windows whose rows are checked against 1-token calls; at
+    # length 240 the window's positions 240-271 cross the boundary between
+    # the first two 256-key splits
+    windows = [dict(S=1, K=32, lengths=[45]), dict(S=1, K=32, lengths=[240])]
     results = {}
     for dtype_name in ("bfloat16", "float32"):
         dtype = getattr(torch, dtype_name)
@@ -306,6 +353,18 @@ def kernel_phase(torch) -> dict:
             torch.cuda.synchronize()
             if paged_attention.launches != n0 + 1:
                 raise AssertionError("the launch counter did not move")
+            if not torch.equal(got, paged_attention(**case)):
+                raise AssertionError(f"{shape_name} {dtype_name}: two calls "
+                                     "differ")
+            # the wrapper must not read lengths or tables on the host
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                again = paged_attention(**case)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            if not torch.equal(got, again):
+                raise AssertionError(f"{shape_name} {dtype_name}: the call "
+                                     "under the sync check differs")
             ref = paged_attention_reference(**case)
             err = (got.float() - ref.float()).abs()
             limit = atol + rtol * ref.float().abs()
@@ -316,6 +375,11 @@ def kernel_phase(torch) -> dict:
                     f"plain version (max |err| {max_err:.3e})")
             if not torch.isfinite(got).all():
                 raise AssertionError(f"{shape_name} {dtype_name}: non-finite")
+            print(f"kernel {shape_name} {dtype_name}: max|err| "
+                  f"{max_err:.3e} (tol {atol:g} + {rtol:g}*|ref|); two "
+                  "calls bitwise equal; no host sync in the call",
+                  flush=True)
+            plan = _plan_line(case)
             sdpa = sdpa_call(torch, case)
             sdpa_err = float((sdpa().transpose(1, 2).float()
                               - ref.float()).abs().max())
@@ -327,26 +391,19 @@ def kernel_phase(torch) -> dict:
             r = dict(max_abs_err=max_err, atol=atol, rtol=rtol, ms=ms,
                      plain_ms=plain_ms, library_ms=library_ms,
                      bound_ms=bound_ms, bound_by=bound_by,
-                     sdpa_max_abs_err=sdpa_err)
+                     sdpa_max_abs_err=sdpa_err, plan=plan)
             results[f"{shape_name}_{dtype_name}"] = r
-            print(f"kernel {shape_name} {dtype_name}: max|err| "
-                  f"{max_err:.3e} (tol {atol:g} + {rtol:g}*|ref|), "
-                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            print(f"  times: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                   f"sdpa {library_ms:.4f} ms, bound {bound_ms:.5f} ms "
                   f"({bound_by})", flush=True)
         # row i of a 32-token window == a 1-token call at length + i
-        case = make_case(torch, dtype, **shapes["prefill"], seed=1)
-        win = paged_attention(**case)
-        for i in range(case["q"].shape[1]):
-            one = paged_attention(case["q"][:, i:i + 1], case["k_pool"],
-                                  case["v_pool"], case["tables"],
-                                  case["lengths"] + i)
-            if not torch.equal(win[:, i:i + 1], one):
-                raise AssertionError(
-                    f"{dtype_name}: window row {i} differs from the 1-token "
-                    f"call at length + {i}")
-        print(f"kernel {dtype_name}: all 32 window rows equal 1-token calls "
-              f"bit for bit", flush=True)
+        for shp in windows:
+            _window_rows_check(torch, paged_attention,
+                               make_case(torch, dtype, **shp, seed=1),
+                               dtype_name)
+        print(f"kernel {dtype_name}: all 32 rows of the windows at lengths "
+              f"{[w['lengths'][0] for w in windows]} equal 1-token calls "
+              "bit for bit", flush=True)
     return results
 
 
@@ -364,32 +421,35 @@ FLASH_CASES = {
 #  * O in bf16: rtol one bf16 step (2^-7), as both sides round O to bf16;
 #    atol 0.04 x RMS for P, which the kernel rounds to bf16 against the
 #    running row max and the plain version against the final one.
-#  * dK and dV in bf16 (tensor-core K3): rtol one bf16 step, as the sums
-#    run in another order and the result may round to the neighbouring
-#    bf16 value. A P or dS whose float32 value differs by a rounding on the
-#    two sides now and then rounds to neighbouring bf16 values before its
-#    product, and moves a few elements by much more. Two correct plain
-#    versions differ so too: each run computes the plain dK and dV with
-#    their float32 steps in float64 (``_dkv_float64``), records how far
-#    they lie from the float32 ones, and fails if the gate refuses them.
-#    So atol is 0.25 x RMS, which holds off gross faults only, and the
-#    whole tensor must also lie within 2e-3 of the plain one in relative L2
-#    norm, which a bias of 2% (2e-2) breaks tenfold; PERF.md has the
-#    measured shares.
-#  * O in float32, dQ in both dtypes, dK and dV in float32: the float32
-#    gate, 1e-5 x RMS and 1e-5. In O only the order of the sums differs;
-#    K2 and the float32 K3 run the same sequential float32 FMA chains as
-#    their plain versions and agree with them bit for bit.
+#  * dQ, dK and dV in bf16 (tensor-core K2 and K3): rtol one bf16 step, as
+#    the sums run in another order and the result may round to the
+#    neighbouring bf16 value. A P or dS whose float32 value differs by a
+#    rounding on the two sides now and then rounds to neighbouring bf16
+#    values before its product, and moves a few elements by much more. Two
+#    correct plain versions differ so too: each run computes the plain dQ,
+#    dK and dV with their float32 steps in float64 (``_dq_float64``,
+#    ``_dkv_float64``), records how far they lie from the float32 ones,
+#    and fails if the gate refuses them. So atol is 0.25 x RMS, which holds
+#    off gross faults only, and the whole tensor must also lie within 2e-3
+#    of the plain one in relative L2 norm, which a bias of 2% (2e-2) breaks
+#    tenfold; PERF.md has the measured shares.
+#  * O, dQ, dK and dV in float32: the float32 gate, 1e-5 x RMS and 1e-5.
+#    In O only the order of the sums differs; the float32 K2 and K3 run the
+#    same sequential float32 FMA chains as their plain versions and agree
+#    with them bit for bit.
 # Each run also checks that the gates refuse an O 2% off on the rows past
-# the first key tile, and a dK and a dV 2% off.
+# the first key tile, and a dQ, a dK and a dV 2% off.
 # lse is float32 on both sides, from the same scores: an absolute tolerance.
 F32_GATE = (1e-5, 1e-5)  # (atol / RMS of the plain output, rtol)
 FLASH_TOL = {("o", "bfloat16"): (0.04, 2.0 ** -7),
+             ("dq", "bfloat16"): (0.25, 2.0 ** -7),
              ("dk", "bfloat16"): (0.25, 2.0 ** -7),
              ("dv", "bfloat16"): (0.25, 2.0 ** -7)}
 # relative L2 gates: ||kernel - plain|| <= l2 x ||plain||
-FLASH_L2 = {("dk", "bfloat16"): 2e-3, ("dv", "bfloat16"): 2e-3}
-OFF_FROM_ROW = {"o": 64, "dk": 0, "dv": 0}  # rows a 2%-off copy scales
+FLASH_L2 = {("dq", "bfloat16"): 2e-3, ("dk", "bfloat16"): 2e-3,
+            ("dv", "bfloat16"): 2e-3}
+# the first row a 2%-off copy scales
+OFF_FROM_ROW = {"o": 64, "dq": 0, "dk": 0, "dv": 0}
 LSE_ATOL = 1e-4
 
 
@@ -436,10 +496,43 @@ def _flash_err(got, ref, atol_rms, rtol, l2=None):
     return float(err.max()), rel_l2, used
 
 
-def _dkv_float64(torch, fa, q, k, v, do, lse, delta, causal):
-    """``flash_dkv_reference`` with its float32 steps in float64 (P and dS
-    still rounded to the operands' dtype before their products), for
-    Sq == Sk."""
+def _gate(key, dtype_name) -> dict:
+    """The gate of output ``key`` ("o", "dq", "dk", "dv") in a dtype:
+    ``<key>_atol_rms``, ``<key>_rtol`` and ``<key>_l2`` (None: no L2
+    part)."""
+    atol_rms, rtol = FLASH_TOL.get((key, dtype_name), F32_GATE)
+    return {f"{key}_atol_rms": atol_rms, f"{key}_rtol": rtol,
+            f"{key}_l2": FLASH_L2.get((key, dtype_name))}
+
+
+def _gate_err(got, ref, key, gate):
+    """``_flash_err`` of ``got`` against ``ref`` under ``key``'s gate."""
+    return _flash_err(got, ref, gate[f"{key}_atol_rms"], gate[f"{key}_rtol"],
+                      gate[f"{key}_l2"])
+
+
+def _off_gate_used(got, ref, key, gate) -> float:
+    """The share of ``key``'s gate used by ``got`` 2% off from row
+    ``OFF_FROM_ROW[key]`` on."""
+    off = got.float().clone()
+    off[:, OFF_FROM_ROW[key]:] *= 1.02
+    return _gate_err(off, ref, key, gate)[2]
+
+
+def _plain64_shares(key, alt, ref, gate) -> dict:
+    """How far the plain version run in float64 (``alt``) lies from the
+    float32 one (``ref``): max |err| over RMS, relative L2 and the share of
+    ``key``'s gate it uses."""
+    err, rel_l2, used = _gate_err(alt, ref, key, gate)
+    rms = float(ref.float().square().mean().sqrt())
+    return {f"{key}_plain64_max_err_rms": err / rms,
+            f"{key}_plain64_rel_l2": rel_l2,
+            f"{key}_plain64_gate_used": used}
+
+
+def _p_ds_float64(torch, fa, q, k, v, do, lse, delta, causal):
+    """P and dS of the plain backward with its float32 steps in float64,
+    for Sq == Sk; and q, dO as float64 [B, S, Hkv, G, D]."""
     B, S, H, D = q.shape
     Hkv = k.shape[2]
     f64 = torch.float64
@@ -457,6 +550,25 @@ def _dkv_float64(torch, fa, q, k, v, do, lse, delta, causal):
     p = torch.exp(s - rows(lse))
     dp = torch.einsum("bqhgd,bkhd->bhgqk", dog, v.to(f64))
     ds = p * (dp - rows(delta)) * scale
+    return p, ds, qg, dog
+
+
+def _dq_float64(torch, fa, q, k, v, do, lse, delta, causal):
+    """``flash_dq_reference`` with its float32 steps in float64 (dS still
+    rounded to k's dtype before dS.K), for Sq == Sk."""
+    _, ds, _, _ = _p_ds_float64(torch, fa, q, k, v, do, lse, delta, causal)
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds.to(k.dtype).to(torch.float64),
+                      k.to(torch.float64))
+    return dq.reshape(q.shape).to(q.dtype)
+
+
+def _dkv_float64(torch, fa, q, k, v, do, lse, delta, causal):
+    """``flash_dkv_reference`` with its float32 steps in float64 (P and dS
+    still rounded to the operands' dtype before their products), for
+    Sq == Sk."""
+    p, ds, qg, dog = _p_ds_float64(torch, fa, q, k, v, do, lse, delta,
+                                   causal)
+    f64 = torch.float64
     dv = torch.einsum("bhgqk,bqhgd->bkhd", p.to(do.dtype).to(f64), dog)
     dk = torch.einsum("bhgqk,bqhgd->bkhd", ds.to(q.dtype).to(f64), qg)
     return dk.to(k.dtype), dv.to(v.dtype)
@@ -464,9 +576,9 @@ def _dkv_float64(torch, fa, q, k, v, do, lse, delta, causal):
 
 def flash_kernel_phase(torch, cases=None, timed=True) -> dict:
     """K1, K2 and K3 against their plain versions on the card, bf16 and
-    float32; K3 twice, bit for bit; times of each kernel, its plain version,
-    the library yardstick (SDPA forward for K1; the autograd backward of
-    that same call for K2 and K3 together) and the bound."""
+    float32; K2 and K3 twice, bit for bit; times of each kernel, its plain
+    version, the library yardstick (SDPA forward for K1; the autograd
+    backward of that same call for K2 and K3 together) and the bound."""
     import torch.nn.functional as F
 
     from ray_tpu_torch.ops import flash_attention as fa
@@ -482,11 +594,15 @@ def flash_kernel_phase(torch, cases=None, timed=True) -> dict:
             o, lse = fa.flash_forward(q, k, v, causal=causal)
             delta = fa.delta_rows(do, o)
             dq = fa.flash_dq(q, k, v, do, lse, delta, causal=causal)
+            dq2 = fa.flash_dq(q, k, v, do, lse, delta, causal=causal)
             dk, dv = fa.flash_dkv(q, k, v, do, lse, delta, causal=causal)
             dk2, dv2 = fa.flash_dkv(q, k, v, do, lse, delta, causal=causal)
             torch.cuda.synchronize()
-            if [f.launches - n for f, n in zip(fa.KERNELS, n0)] != [1, 1, 2]:
+            if [f.launches - n for f, n in zip(fa.KERNELS, n0)] != [1, 2, 2]:
                 raise AssertionError("the flash launch counters did not move")
+            if not torch.equal(dq, dq2):
+                raise AssertionError(f"{name} {dtype_name}: two runs of K2 "
+                                     "differ")
             if not (torch.equal(dk, dk2) and torch.equal(dv, dv2)):
                 raise AssertionError(f"{name} {dtype_name}: two runs of K3 "
                                      "differ")
@@ -502,47 +618,37 @@ def flash_kernel_phase(torch, cases=None, timed=True) -> dict:
                 if not torch.isfinite(got).all():
                     raise AssertionError(f"{name} {dtype_name}: {key} is "
                                          "not finite")
-                atol_rms, rtol = FLASH_TOL.get((key, dtype_name), F32_GATE)
-                l2 = FLASH_L2.get((key, dtype_name))
-                err, rel_l2, used = _flash_err(got, ref, atol_rms, rtol, l2)
+                r.update(_gate(key, dtype_name))
+                err, rel_l2, used = _gate_err(got, ref, key, r)
                 r[f"{key}_max_abs_err"], r[f"{key}_gate_used"] = err, used
                 r[f"{key}_rel_l2"] = rel_l2
-                r[f"{key}_atol_rms"], r[f"{key}_rtol"] = atol_rms, rtol
-                r[f"{key}_l2"] = l2
                 if not used <= 1.0:
                     raise AssertionError(
                         f"{name} {dtype_name}: {key} kernel disagrees with "
                         f"its plain version: it uses {used:.3g} x its "
-                        f"tolerance {atol_rms:g} x RMS + {rtol:g} x |ref| "
-                        f"per element (max |err| {err:.3e}), relative L2 "
-                        f"{rel_l2:.2e} (gate {l2})")
-            for key, got, ref in (("o", o, o_ref), ("dk", dk, dk_ref),
-                                  ("dv", dv, dv_ref)):
-                off = got.float().clone()
-                off[:, OFF_FROM_ROW[key]:] *= 1.02
-                used = _flash_err(off, ref, r[f"{key}_atol_rms"],
-                                  r[f"{key}_rtol"], r[f"{key}_l2"])[2]
+                        f"tolerance {r[f'{key}_atol_rms']:g} x RMS + "
+                        f"{r[f'{key}_rtol']:g} x |ref| per element (max "
+                        f"|err| {err:.3e}), relative L2 {rel_l2:.2e} (gate "
+                        f"{r[f'{key}_l2']})")
+            for key, got, ref in (("o", o, o_ref), ("dq", dq, dq_ref),
+                                  ("dk", dk, dk_ref), ("dv", dv, dv_ref)):
+                used = _off_gate_used(got, ref, key, r)
                 r[f"{key}_2pct_off_gate_used"] = used
                 if not used > 1.0:
                     raise AssertionError(f"{name} {dtype_name}: the {key} "
                                          f"tolerance lets a {key} 2% off "
                                          "pass")
-                del off
             if ("dk", dtype_name) in FLASH_L2:
                 # the gate must admit a second correct version: the plain
                 # one with its float32 steps in float64
-                alts = _dkv_float64(torch, fa, q, k, v, do, lse, delta,
-                                    causal)
-                for key, alt, ref in zip(("dk", "dv"), alts,
-                                         (dk_ref, dv_ref)):
-                    err, rel_l2, used = _flash_err(
-                        alt, ref, r[f"{key}_atol_rms"], r[f"{key}_rtol"],
-                        r[f"{key}_l2"])
-                    rms = float(ref.float().square().mean().sqrt())
-                    r[f"{key}_plain64_max_err_rms"] = err / rms
-                    r[f"{key}_plain64_rel_l2"] = rel_l2
-                    r[f"{key}_plain64_gate_used"] = used
-                    if not used <= 1.0:
+                alts = ((_dq_float64(torch, fa, q, k, v, do, lse, delta,
+                                     causal),)
+                        + _dkv_float64(torch, fa, q, k, v, do, lse, delta,
+                                       causal))
+                for key, alt, ref in zip(("dq", "dk", "dv"), alts,
+                                         (dq_ref, dk_ref, dv_ref)):
+                    r.update(_plain64_shares(key, alt, ref, r))
+                    if not r[f"{key}_plain64_gate_used"] <= 1.0:
                         raise AssertionError(
                             f"{name} {dtype_name}: the {key} gate refuses "
                             "the plain version run in float64")
@@ -557,12 +663,14 @@ def flash_kernel_phase(torch, cases=None, timed=True) -> dict:
                   f"({r['dq_gate_used']:.2f}), dk {r['dk_max_abs_err']:.2e} "
                   f"({r['dk_gate_used']:.2f}), dv {r['dv_max_abs_err']:.2e} "
                   f"({r['dv_gate_used']:.2f}), lse "
-                  f"{r['lse_max_abs_err']:.2e}; relative L2 dk "
-                  f"{r['dk_rel_l2']:.2e}, dv {r['dv_rel_l2']:.2e}; 2% off "
-                  f"uses o {r['o_2pct_off_gate_used']:.1f}, dk "
+                  f"{r['lse_max_abs_err']:.2e}; relative L2 dq "
+                  f"{r['dq_rel_l2']:.2e}, dk {r['dk_rel_l2']:.2e}, dv "
+                  f"{r['dv_rel_l2']:.2e}; 2% off uses o "
+                  f"{r['o_2pct_off_gate_used']:.1f}, dq "
+                  f"{r['dq_2pct_off_gate_used']:.1f}, dk "
                   f"{r['dk_2pct_off_gate_used']:.1f}, dv "
-                  f"{r['dv_2pct_off_gate_used']:.1f}; K3 bitwise equal twice",
-                  flush=True)
+                  f"{r['dv_2pct_off_gate_used']:.1f}; K2 and K3 bitwise "
+                  "equal twice", flush=True)
             if "dk_plain64_gate_used" in r:
                 print("  the plain version in float64 against float32: "
                       + ", ".join(
@@ -570,8 +678,8 @@ def flash_kernel_phase(torch, cases=None, timed=True) -> dict:
                           f"{r[f'{key}_plain64_max_err_rms']:.3f} x RMS, "
                           f"relative L2 {r[f'{key}_plain64_rel_l2']:.2e}, "
                           f"{r[f'{key}_plain64_gate_used']:.2f} of the gate"
-                          for key in ("dk", "dv")), flush=True)
-            del o_ref, lse_ref, dq_ref, dk_ref, dv_ref, dk2, dv2
+                          for key in ("dq", "dk", "dv")), flush=True)
+            del o_ref, lse_ref, dq_ref, dk_ref, dv_ref, dq2, dk2, dv2
             if timed:
                 r.update(_flash_times(torch, F, fa, case, dtype_name,
                                       (q, k, v, do, lse, delta)))
@@ -1010,18 +1118,25 @@ def profile_decode(torch, srv, system) -> dict:
             kernels[e.name] = (n + 1, us + e.time_range.elapsed_us())
     busy_ms = sum(us for _, us in kernels.values()) / 1e3
     top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:8]
+    # K4: its split kernel and its merge kernel
+    k4 = [(n, us) for name, (n, us) in kernels.items()
+          if "paged_attention" in name]
     r = dict(wall_ms=wall * 1e3, decode_steps=steps, prefill_chunks=chunks,
              decode_ms=(st["decode_seconds"] - before["decode_seconds"])
              * 1e3,
              device_busy_ms=busy_ms if kernels else None,
              kernel_launches=sum(n for n, _ in kernels.values()),
+             paged_attention_kernels=sum(n for n, _ in k4),
+             paged_attention_ms=sum(us for _, us in k4) / 1e3,
              top=[dict(name=k[:90], count=n, ms=us / 1e3)
                   for k, (n, us) in top])
     if kernels:
         print(f"profile: {steps} decode steps + {chunks} prefill chunks in "
               f"{r['wall_ms']:.1f} ms wall; device kernels busy "
               f"{busy_ms:.1f} ms ({100 * busy_ms / r['wall_ms']:.1f}%), "
-              f"{r['kernel_launches']} device kernels", flush=True)
+              f"{r['kernel_launches']} device kernels; K4 (split + merge "
+              f"kernels) {r['paged_attention_ms']:.2f} ms in "
+              f"{r['paged_attention_kernels']} kernels", flush=True)
         for t in r["top"]:
             print(f"  {t['ms']:9.3f} ms {t['count']:6d}x  {t['name']}")
     else:

@@ -13,29 +13,32 @@
 //
 // Two designs share this file.
 //
-// bf16 K1 and K3 at D = 64 and 128 (the train path): tensor cores.
+// bf16 K1, K2 and K3 at D = 64 and 128 (the train path): tensor cores.
 //   What bounds them: at gpt2_small shapes the card's least time for K1 is
-//   set by its bytes (q, k, v, O once each) and for K3 by its operations,
-//   the two within 20% of each other. Each block reads every key row from
-//   L2 for 2 * 2 * 64 * D flops, so a kernel that streams its tiles well is
-//   held by the rate at which it starts tensor-core products and, beside
-//   them, the float32 exp of the softmax. So:
+//   set by its bytes (q, k, v, O once each) and for K2 and K3 by their
+//   operations, all within 30% of each other. Each block reads every key
+//   row from L2 for 2 * 2 * 64 * D flops or more, so a kernel that streams
+//   its tiles well is held by the rate at which it starts tensor-core
+//   products and, beside them, the float32 exp of the softmax. So:
 //   * products are mma.sync.m16n8k16 (bf16 in, float32 accumulators), the
 //     fragments loaded from shared memory by ldmatrix (.trans for the
-//     operand whose rows run along the product's depth: V in P.V, dO and Q
-//     in dV += P^T.dO and dK += dS^T.Q);
+//     operand whose rows run along the product's depth: V in P.V, K in
+//     dQ += dS.K, dO and Q in dV += P^T.dO and dK += dS^T.Q);
 //   * tiles stay bf16 in shared memory, rows padded by 16 bytes so the
 //     eight row addresses of one ldmatrix fall in eight different banks;
 //     they arrive by cp.async 16-byte copies in a ring of two stages, so
 //     tile j + 1 is in flight while tile j is multiplied;
-//   * 4 warps a block, each owning 16 rows (query rows in K1, key rows in
-//     K3). A row's scores stay in the accumulator fragments of the quad of
-//     threads that hold it: its max and sum are two shuffles, and P (dS)
-//     goes from two accumulator fragments to one A fragment of the next
-//     product in registers, rounded to bf16 as the JAX kernels cast it;
-//   * K1 keeps Q's fragments in registers over the whole key loop; K3 reads
-//     K's and V's from shared memory and, at D = 128, takes 32-query inner
-//     tiles so dK, dV (128 registers a thread) and S^T, dP^T fit in 255;
+//   * 4 warps a block, each owning 16 rows (query rows in K1 and K2, key
+//     rows in K3). A row's scores stay in the accumulator fragments of the
+//     quad of threads that hold it: its max and sum are two shuffles, and
+//     P (dS) goes from two accumulator fragments to one A fragment of the
+//     next product in registers, rounded to bf16 as the JAX kernels cast it;
+//   * K1 keeps Q's fragments in registers over the whole key loop; K2 reads
+//     Q's and dO's from shared memory at each key tile, so dQ (64 registers
+//     a thread at D = 128) and S, dP over a 64-key tile (64 more) fit; K3
+//     reads K's and V's from shared memory and, at D = 128, takes 32-query
+//     inner tiles so dK, dV (128 registers a thread) and S^T, dP^T fit in
+//     255;
 //   * the masking rule of the FMA kernels below is kept: scale, then mask
 //     to -1e30, expf without fast math, so a masked P is exactly 0; only
 //     tiles that hold a masked pair test keys, future tiles are skipped,
@@ -44,19 +47,19 @@
 //   Wider per-warp tiles (two 16-row groups, or 128-key steps) save
 //   shared-memory reads but need more registers, so fewer warps fit on an
 //   SM; tried on the card, they were no faster. The sums run in another
-//   order than the plain versions', so dK and dV may round to the
-//   neighbouring bf16 value; K3 stays deterministic (no atomics, a fixed
-//   loop order).
+//   order than the plain versions', so dQ, dK and dV may round to the
+//   neighbouring bf16 value; K2 and K3 stay deterministic (no atomics, a
+//   fixed loop order).
 //
-// float32 everywhere, bf16 K2, and bf16 at D = 16 (which nothing on the card
-// runs): float32 FMA. Tensor cores would mean TF32 for float32 and break its
+// float32 everywhere, and bf16 at D = 16 (which nothing on the card runs):
+// float32 FMA. Tensor cores would mean TF32 for float32 and break its
 // semantics. What bounds them: operations. At training shapes a block does
 // about 2 * 64 * D flops for every key row it reads, far above the ~20
 // flops per byte where float32 arithmetic off the tensor cores stops being
 // memory-bound. So the design keeps every tile it multiplies in shared
 // memory as float32 and gives each thread a 4 x 4 register tile of scores
 // and a 4 x (D / 16) register tile of its output, so that each value read
-// from shared memory feeds four multiply-adds. K2 in both dtypes equals its
+// from shared memory feeds four multiply-adds. The float32 K2 equals its
 // plain version bit for bit.
 //
 // FMA design (first, simple version):
@@ -79,8 +82,8 @@
 //   * K3 owns one key tile of one kv head and loops over the group's query
 //     heads and the query tiles: dK and dV sum in registers and are written
 //     once, with no atomics, so two runs give the same bits.
-//   * the tensor-core kernels above replace it for bf16 K1 and K3 at D = 64
-//     and 128; wgmma and TMA are left for later work.
+//   * the tensor-core kernels above replace it for bf16 K1, K2 and K3 at
+//     D = 64 and 128; wgmma and TMA are left for later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -488,7 +491,7 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// ------------------------------------------- tensor cores: bf16 K1 and K3
+// -------------------------------------- tensor cores: bf16 K1, K2 and K3
 
 using bf16 = __nv_bfloat16;
 constexpr int kMmaThreads = 128;  // 4 warps, 16 rows each
@@ -805,6 +808,158 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// K2 on tensor cores. K1's block: grid (query tiles, H, B), the last query
+// tiles first; warp w owns query rows q0 + 16 w + [0, 16), and K, V come
+// in a two-stage cp.async ring. Per key tile: S = Q.K^T and dP = dO.V^T,
+// P = exp(S scale - lse) (masked to exactly 0), dS = P (dP - delta) scale,
+// dQ += bf16(dS).K with dS fed from the accumulators. Q's and dO's
+// fragments are read from shared memory at each tile: held in registers
+// beside dQ, S and dP they would not fit in 255 at D = 128.
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, bf16* __restrict__ dq,
+                    int Sq, int Sk, int H, int Hkv, float sm_scale,
+                    int causal) {
+  constexpr int ld = D + kPadH;
+  constexpr int KD = D / 16;      // k-steps over D
+  constexpr int DN = D / 8;       // n-tiles over D
+  constexpr int KN = kTile / 8;   // n-tiles over a key tile
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [64][ld]; dQ at the end
+  bf16* dos = qs + kTile * ld;                   // [64][ld]
+  bf16* ks = dos + kTile * ld;                   // [2][64][ld]
+  bf16* vs = ks + 2 * kTile * ld;                // [2][64][ld]
+  float* lse_s = reinterpret_cast<float*>(vs + 2 * kTile * ld);  // [64]
+  float* delta_s = lse_s + kTile;                                // [64]
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTile;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kvh = h / (H / Hkv);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int row_lo = q0 + 16 * warp + g;  // and row_lo + 8
+  const int k_end = causal ? min(Sk, q0 + kTile) : Sk;
+  const int n_tiles = (k_end + kTile - 1) / kTile;
+
+  cp_tile<D, kTile>(qs, q, b, h, q0, Sq, H);
+  cp_tile<D, kTile>(dos, dout, b, h, q0, Sq, H);
+  cp_rows<kTile>(lse_s, lse, b * H + h, q0, Sq);
+  cp_rows<kTile>(delta_s, delta, b * H + h, q0, Sq);
+  cp_tile<D, kTile>(ks, k, b, kvh, 0, Sk, Hkv);
+  cp_tile<D, kTile>(vs, v, b, kvh, 0, Sk, Hkv);
+  cp_async_commit();
+
+  const uint32_t qs_a = smem_addr(qs + 16 * warp * ld + a_off(lane, ld));
+  const uint32_t dos_a = smem_addr(dos + 16 * warp * ld + a_off(lane, ld));
+  float acc[DN][4];
+#pragma unroll
+  for (int n = 0; n < DN; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int k0 = j * kTile;
+    if (j + 1 < n_tiles) {  // tile j + 1 flies while tile j is multiplied
+      const int st = (j + 1) & 1;
+      cp_tile<D, kTile>(ks + st * kTile * ld, k, b, kvh, k0 + kTile, Sk, Hkv);
+      cp_tile<D, kTile>(vs + st * kTile * ld, v, b, kvh, k0 + kTile, Sk, Hkv);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* kst = ks + (j & 1) * kTile * ld;
+    const bf16* vst = vs + (j & 1) * kTile * ld;
+    const uint32_t ks_b = smem_addr(kst + b_off(lane, ld));
+    const uint32_t vs_b = smem_addr(vst + b_off(lane, ld));
+    const uint32_t ks_t = smem_addr(kst + a_off(lane, ld));
+
+    // S = Q.K^T and dP = dO.V^T
+    float s[KN][4], dp[KN][4];
+#pragma unroll
+    for (int n = 0; n < KN; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[n][e] = 0.f;
+        dp[n][e] = 0.f;
+      }
+#pragma unroll
+    for (int kd = 0; kd < KD; ++kd) {
+      uint32_t qa[4], oa[4];
+      ldsm_x4(qa, qs_a + kd * 32);
+      ldsm_x4(oa, dos_a + kd * 32);
+#pragma unroll
+      for (int jj = 0; jj < KN / 2; ++jj) {
+        uint32_t kb[4], vb[4];
+        ldsm_x4(kb, ks_b + (16 * jj * ld + 16 * kd) * 2);
+        mma(s[2 * jj], qa, kb[0], kb[1]);
+        mma(s[2 * jj + 1], qa, kb[2], kb[3]);
+        ldsm_x4(vb, vs_b + (16 * jj * ld + 16 * kd) * 2);
+        mma(dp[2 * jj], oa, vb[0], vb[1]);
+        mma(dp[2 * jj + 1], oa, vb[2], vb[3]);
+      }
+    }
+
+    // P = exp(S scale - lse), masked to exactly 0 (only the diagonal and
+    // the last tile have masked keys); dS = P (dP - delta) scale
+    const bool masked = k0 + kTile > Sk || (causal && k0 + kTile - 1 > q0);
+    float lse_r[2], delta_r[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      lse_r[i] = lse_s[16 * warp + g + 8 * i];
+      delta_r[i] = delta_s[16 * warp + g + 8 * i];
+    }
+#pragma unroll
+    for (int n = 0; n < KN; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[n][e] * sm_scale;
+        if (masked) {
+          const int key = k0 + 8 * n + 2 * t + (e & 1);
+          const int row = row_lo + 8 * (e >> 1);
+          if (!(key < Sk && (!causal || row >= key))) x = kNegInf;
+        }
+        const float p = expf(x - lse_r[e >> 1]);
+        dp[n][e] = p * (dp[n][e] - delta_r[e >> 1]) * sm_scale;
+      }
+
+    // dQ += bf16(dS) . K, dS straight from the dP fragments
+#pragma unroll
+    for (int kk = 0; kk < KN / 2; ++kk) {
+      uint32_t da[4];
+      to_a_frag(da, dp[2 * kk], dp[2 * kk + 1]);
+#pragma unroll
+      for (int dd = 0; dd < DN / 2; ++dd) {
+        uint32_t kb[4];
+        ldsm_x4_t(kb, ks_t + (16 * kk * ld + 16 * dd) * 2);
+        mma(acc[2 * dd], da, kb[0], kb[1]);
+        mma(acc[2 * dd + 1], da, kb[2], kb[3]);
+      }
+    }
+    __syncthreads();  // stage j & 1 is free for tile j + 2
+  }
+
+  // dQ to bf16 through the warp's own rows of the Q tile
+  bf16* stage = qs + 16 * warp * ld;
+#pragma unroll
+  for (int n = 0; n < DN; ++n) {
+    const int c = 8 * n + 2 * t;
+    *reinterpret_cast<uint32_t*>(stage + g * ld + c) =
+        pack_bf16(acc[n][0], acc[n][1]);
+    *reinterpret_cast<uint32_t*>(stage + (g + 8) * ld + c) =
+        pack_bf16(acc[n][2], acc[n][3]);
+  }
+  __syncwarp();
+  store_rows<D>(dq, stage, b, h, q0 + 16 * warp, Sq, H, lane);
+}
+
 // K3's inner query tile: at D = 128, 32 rows, so that dK and dV (128
 // registers a thread) and S^T, dP^T fit in 255 registers
 __host__ __device__ constexpr int dkv_query_rows(int D) {
@@ -987,6 +1142,11 @@ constexpr size_t fwd_mma_smem() {
   return 5 * static_cast<size_t>(kTile) * (D + kPadH) * sizeof(bf16);
 }
 template <int D>
+constexpr size_t dq_mma_smem() {  // Q, dO, K and V ring; lse, delta
+  return 6 * static_cast<size_t>(kTile) * (D + kPadH) * sizeof(bf16) +
+         2 * kTile * sizeof(float);
+}
+template <int D>
 constexpr size_t dkv_mma_smem() {
   constexpr int QT = dkv_query_rows(D);
   return (2 * static_cast<size_t>(kTile) * (D + kPadH) +
@@ -1044,17 +1204,29 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* d
                const void* lse, const void* delta, void* dqp, int B, int Sq,
                int Sk, int H, int Hkv, float sm_scale, int causal,
                cudaStream_t st) {
-  const size_t smem =
-      (4 * tile_floats(D) + kTile * kLdP + 2 * kTile) * sizeof(float);
-  auto kernel = flash_dq_kernel<T, D>;
-  cudaError_t err = set_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
   dim3 grid((Sq + kTile - 1) / kTile, H, B);
-  kernel<<<grid, kThreads, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dqp), Sq, Sk, H, Hkv, sm_scale, causal);
+  if constexpr (kTensorCores<T, D>) {
+    constexpr size_t smem = dq_mma_smem<D>();
+    auto kernel = flash_dq_mma_kernel<D>;
+    cudaError_t err = set_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, kMmaThreads, smem, st>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(dout),
+        static_cast<const float*>(lse), static_cast<const float*>(delta),
+        static_cast<T*>(dqp), Sq, Sk, H, Hkv, sm_scale, causal);
+  } else {
+    const size_t smem =
+        (4 * tile_floats(D) + kTile * kLdP + 2 * kTile) * sizeof(float);
+    auto kernel = flash_dq_kernel<T, D>;
+    cudaError_t err = set_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, kThreads, smem, st>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(dout),
+        static_cast<const float*>(lse), static_cast<const float*>(delta),
+        static_cast<T*>(dqp), Sq, Sk, H, Hkv, sm_scale, causal);
+  }
   return cudaGetLastError();
 }
 

@@ -16,8 +16,8 @@ Three kernels, each behind its own wrapper:
 On a CUDA tensor each wrapper launches its hand-written Hopper kernel in
 ``ray_tpu_torch/csrc/flash_attention.cu`` (built by ``ops/_build.py``), or
 raises; ``<wrapper>.launches`` counts its launches. In bf16 at head widths
-64 and 128, K1 and K3 run on the tensor cores (``mma.sync``, float32
-sums); K2 and every float32 kernel run float32 FMA. On a CPU tensor each
+64 and 128, K1, K2 and K3 run on the tensor cores (``mma.sync``, float32
+sums); every float32 kernel runs float32 FMA. On a CPU tensor each
 wrapper runs its plain PyTorch version (``flash_forward_reference``,
 ``flash_dq_reference``, ``flash_dkv_reference``), with the same math in
 float32 and the same casts: P is cast to v's dtype before P.V, and P and dS
@@ -227,7 +227,11 @@ def flash_forward(q, k, v, sm_scale=None, causal=True
 
 
 def flash_dq(q, k, v, do, lse, delta, sm_scale=None, causal=True):
-    """K2: dQ in q's dtype. lse, delta: [B, H, Sq] float32."""
+    """K2: dQ in q's dtype. lse, delta: [B, H, Sq] float32. No atomics:
+    each block owns one query tile of one head and walks the key tiles in a
+    fixed order, so two runs give the same bits. In bf16 the tensor-core
+    sums run in another order than the plain version's: dQ may land on the
+    neighbouring bf16 value."""
     sm_scale = _scale(q, sm_scale)
     if q.device.type == "cpu":
         return flash_dq_reference(q, k, v, do, lse, delta, sm_scale, causal)

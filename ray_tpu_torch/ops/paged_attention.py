@@ -6,9 +6,15 @@ attends directly against the pool, reading only the pages that cover a
 slot's live tokens. No contiguous per-slot view is ever built.
 
   * On a CUDA tensor, ``paged_attention`` launches the hand-written Hopper
-    kernel in ``ray_tpu_torch/csrc/paged_attention.cu`` (built by
-    ``ops/_build.py``), or raises. ``paged_attention.launches`` counts its
-    launches.
+    kernels in ``ray_tpu_torch/csrc/paged_attention.cu`` (built by
+    ``ops/_build.py``), or raises: one kernel over (slot, kv head, split of
+    the page table, tile of query rows) into a float32 workspace, and one
+    that merges each row's splits. The split kernel runs on the tensor
+    cores for bf16 pools at the head widths of ``MMA_HEAD_DIMS`` and pages
+    of a multiple of 16 tokens (llama3_8b's serve path), and float32 FMA
+    otherwise. ``split_plan`` is the host side of that split; it reads
+    shapes only, never ``lengths`` or ``tables``, which stay on the card.
+    ``paged_attention.launches`` counts the wrapper's calls.
   * On a CPU tensor it runs ``paged_attention_reference``, the plain PyTorch
     version with the same math: the same page order, the same -1e30 mask
     and the same online-softmax update, in float32.
@@ -17,16 +23,19 @@ Mask: query row ``i`` of slot ``s`` sits at logical position
 ``lengths[s] + i`` and may attend position ``j`` iff ``j <= lengths[s] + i``.
 Table entries past a slot's allocation point at the garbage page 0; every
 position they cover is masked, and exp(-1e30 - m) is exactly 0.0, so their
-content can never reach an output. Each query row reduces over pages in
-ascending order under that mask, so row ``i`` of a K-token window is the
-same as a K=1 call at ``lengths[s] + i``.
+content can never reach an output. The plain version reduces each query
+row over pages in ascending order under that mask; the kernel over fixed
+splits of pages, merged in ascending order up to the split that holds the
+row's position. Either way row ``i`` of a K-token window is the same as a
+K=1 call at ``lengths[s] + i``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
-from typing import Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -34,12 +43,64 @@ from ray_tpu_torch.ops import _build
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 256
-MAX_PAGE_VECTORS = 4 * 256  # 16-byte vectors a block stages per tensor
+MAX_PAGE_VECTORS = 4 * 256  # 16-byte vectors of one page and head
+# the kernels' split plan (``csrc/paged_attention.cu``: kSplitKeys,
+# kRowTile, kRing, kRingSteps; the C entry checks pages per split against
+# its own)
+SPLIT_KEYS = 256   # keys per split, in whole pages
+ROW_TILE = 16      # query rows per block
+RING_PAGES = 8     # page slots of the FMA kernel's shared-memory ring
+RING_STEPS = 3     # steps of 4 pages in the tensor-core kernel's ring
+MMA_HEAD_DIMS = (32, 64, 128, 256)  # head widths of the tensor-core kernel
+MAX_SMEM = 232448  # bytes of shared memory a block can use
 
 _ENTRY = {torch.float32: "paged_attention_f32",
           torch.bfloat16: "paged_attention_bf16"}
-_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
              + [ctypes.c_float, ctypes.c_void_p])
+
+
+class SplitPlan(NamedTuple):
+    """How the kernel cuts a call: pages per split, splits of the page
+    table, tiles of query rows, the split kernel's grid, the float32
+    workspace (``[S, Hkv, splits, rows, D]`` sums and ``[..., 2]`` row max
+    and sum), the split kernel's shared memory in bytes, and whether that
+    kernel is the tensor-core one (bf16, D in ``MMA_HEAD_DIMS``, pages of a
+    multiple of 16 tokens) or the float32 FMA one."""
+    pages_per_split: int
+    splits: int
+    row_tiles: int
+    grid: Tuple[int, int, int]
+    workspace: Tuple[int, int, int, int, int]
+    smem_bytes: int
+    tensor_cores: bool
+
+
+@functools.lru_cache(maxsize=256)
+def split_plan(S: int, K: int, H: int, Hkv: int, D: int, T: int, P: int,
+               elem_bytes: int) -> SplitPlan:
+    """The split plan of a call from its shapes alone: S slots, a K-token
+    window, H query and Hkv kv heads of width D, T-token pages, P-page
+    tables, ``elem_bytes`` per pool element (2: bf16, 4: float32)."""
+    pages = max(1, SPLIT_KEYS // T)
+    splits = -(-P // pages)
+    rows = K * (H // Hkv)
+    tiles = -(-rows // ROW_TILE)
+    tensor_cores = elem_bytes == 2 and D in MMA_HEAD_DIMS and T % 16 == 0
+    if tensor_cores:
+        # the ring of 4-page steps, the 16-row query tile (rows of D + 8
+        # bf16), the scores (rows of pages * T + 8 floats), the page ids
+        row = 2 * (D + 8)
+        smem = ((RING_STEPS * 4 * T + ROW_TILE) * row
+                + ROW_TILE * (pages * T + 8) * 4 + pages * 4)
+    else:
+        row = D * elem_bytes
+        row += (64 - row % 128) % 128  # the padded page and query row
+        rt = min(ROW_TILE, rows)
+        # the page ring, the tile's query rows and scores, the page ids
+        smem = (RING_PAGES * T + rt) * row + rt * pages * T * 4 + pages * 4
+    return SplitPlan(pages, splits, tiles, (S, Hkv, splits * tiles),
+                     (S, Hkv, splits, rows, D), smem, tensor_cores)
 
 
 def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
@@ -153,23 +214,36 @@ def _paged_attention_cuda(q, k_pool, v_pool, tables, lengths, sm_scale):
     N, T, Hkv, _ = k_pool.shape
     P = tables.shape[1]
     vec = 16 // q.element_size()  # the kernel moves 16-byte vectors
-    if D > MAX_HEAD_DIM or D % 8 or T * D > MAX_PAGE_VECTORS * vec:
+    if D > MAX_HEAD_DIM or D % 8 or T * D > MAX_PAGE_VECTORS * vec \
+            or T > SPLIT_KEYS:
         raise ValueError(
             f"the kernel takes head_dim <= {MAX_HEAD_DIM}, a multiple of 8, "
-            f"and pages of at most {MAX_PAGE_VECTORS * vec} elements per "
-            f"head; got head_dim {D}, page_tokens {T}")
+            f"pages of at most {SPLIT_KEYS} tokens and "
+            f"{MAX_PAGE_VECTORS * vec} elements per head; got head_dim {D}, "
+            f"page_tokens {T}")
+    plan = split_plan(S, K, H, Hkv, D, T, P, q.element_size())
+    if plan.smem_bytes > MAX_SMEM or plan.grid[2] > 65535 or S > 65535:
+        raise ValueError(f"split plan {plan} does not fit one block's shared "
+                         f"memory or the grid")
     if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
         raise ValueError("page pools must be 16-byte aligned")
     q = q.contiguous()
+    if q.data_ptr() % 16:  # the kernel copies q in 16-byte pieces
+        q = q.clone()
     tables = tables.contiguous()
     lengths = lengths.contiguous()
     out = torch.empty_like(q)
+    # one float32 workspace: the sums, then each row's max and sum
+    n_acc = math.prod(plan.workspace)
+    ws = torch.empty(n_acc + 2 * n_acc // D, dtype=torch.float32,
+                     device=q.device)
     lib, fn = _kernel_entry(q.dtype)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                  tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-                 S, K, H, Hkv, D, N, T, P, float(sm_scale), stream)
+                 ws.data_ptr(), ws.data_ptr() + 4 * n_acc, S, K, H, Hkv, D,
+                 N, T, P, plan.pages_per_split, float(sm_scale), stream)
     if err != 0:
         msg = lib.paged_attention_error_string(err).decode()
         raise RuntimeError(f"paged_attention kernel launch failed: {msg} "

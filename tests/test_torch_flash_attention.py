@@ -165,6 +165,31 @@ def test_bf16_grads_match_jax_kernel(causal, heads):
             atol=2.0 ** -8, rtol=2.0 ** -7, err_msg=name)
 
 
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("d", [64, 128])
+def test_bf16_dq_gate_admits_float64_plain_and_refuses_2pct_off(d, causal):
+    """The card's bf16 dQ gate (``chip_smoke``'s per-element 0.25 x RMS +
+    2^-7 |plain| and 2e-3 relative L2), through ``chip_smoke``'s own helpers
+    on CPU tensors at B1 S128 GQA 4/2: the plain dQ with its float32 steps
+    in float64 (a second correct version) passes it, and that dQ 2% off
+    does not."""
+    import chip_smoke
+
+    q, k, v, do = (_t(a).bfloat16() for a in _inputs(b=1, s=128, h=4, hkv=2,
+                                                      d=d, seed=11))
+    o, lse = fa.flash_forward_reference(q, k, v, causal=causal)
+    delta = fa.delta_rows(do, o)
+    ref = fa.flash_dq_reference(q, k, v, do, lse, delta, causal=causal)
+    alt = chip_smoke._dq_float64(torch, fa, q, k, v, do, lse, delta, causal)
+    assert alt.dtype == torch.bfloat16 and alt.shape == ref.shape
+    gate = chip_smoke._gate("dq", "bfloat16")
+    assert (gate["dq_atol_rms"], gate["dq_rtol"], gate["dq_l2"]) == (
+        0.25, 2.0 ** -7, 2e-3)
+    shares = chip_smoke._plain64_shares("dq", alt, ref, gate)
+    assert shares["dq_plain64_gate_used"] <= 1.0, shares
+    assert chip_smoke._off_gate_used(alt, ref, "dq", gate) > 1.0
+
+
 def test_launch_counters_only_count_kernels():
     """The CPU path runs the plain versions and launches nothing."""
     q, k, v, do = (_t(a) for a in _inputs(s=32))

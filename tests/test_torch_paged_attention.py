@@ -15,8 +15,9 @@ import torch
 import jax.numpy as jnp
 
 from ray_tpu.ops.paged_attention import paged_attention as jax_paged_attention
-from ray_tpu_torch.ops.paged_attention import (paged_attention,
-                                               paged_attention_reference)
+from ray_tpu_torch.ops.paged_attention import (SPLIT_KEYS, paged_attention,
+                                               paged_attention_reference,
+                                               split_plan)
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 
@@ -142,6 +143,51 @@ def test_shape_and_head_mismatches_rejected():
         paged_attention(q[:, :, :3], kp, vp, tables, lengths)
     with pytest.raises(ValueError, match="head"):
         paged_attention(q[..., :4], kp, vp, tables, lengths)
+
+
+@pytest.mark.parametrize("P,T", [(128, 16), (8, 4), (100, 16), (3, 256),
+                                 (7, 48), (1, 16)])
+def test_split_plan_covers_each_page_once(P, T):
+    """The kernel's split of a P-page table: fixed page ranges, every page
+    of [0, P) in exactly one split, in ascending order, none longer than
+    the pages per split, whose keys stay within SPLIT_KEYS (or one page)."""
+    plan = split_plan(S=8, K=1, H=32, Hkv=8, D=128, T=T, P=P, elem_bytes=2)
+    pps = plan.pages_per_split
+    # split j walks pages [j * pps, min((j + 1) * pps, P)), as the kernel
+    ranges = [range(j * pps, min((j + 1) * pps, P))
+              for j in range(plan.splits)]
+    assert all(len(r) > 0 for r in ranges)
+    assert [p for r in ranges for p in r] == list(range(P))
+    assert pps * T <= max(SPLIT_KEYS, T)
+    assert plan.workspace[2] == plan.splits
+
+
+@pytest.mark.parametrize("dtype_bytes", [2, 4])
+def test_split_plan_depends_on_shapes_alone(dtype_bytes):
+    """The split count, grid and workspace follow from P, T, K and the heads
+    (never from lengths): the serve arena's 128-page tables give 8 splits,
+    512 blocks for 8 decode slots of llama3_8b, and a 32-token prefill
+    chunk 8 tiles of 16 query rows."""
+    decode = split_plan(S=8, K=1, H=32, Hkv=8, D=128, T=16, P=128,
+                        elem_bytes=dtype_bytes)
+    assert (decode.pages_per_split, decode.splits, decode.row_tiles) == (
+        16, 8, 1)
+    assert decode.grid == (8, 8, 8)
+    assert decode.workspace == (8, 8, 8, 4, 128)
+    prefill = split_plan(S=1, K=32, H=32, Hkv=8, D=128, T=16, P=128,
+                         elem_bytes=dtype_bytes)
+    assert prefill.row_tiles == 8 and prefill.grid == (1, 8, 64)
+    assert prefill.workspace == (1, 8, 8, 128, 128)
+    # bf16 takes the tensor-core kernel, whose query tile is always 16 rows
+    assert decode.tensor_cores == prefill.tensor_cores == (dtype_bytes == 2)
+    if dtype_bytes == 2:
+        assert decode.smem_bytes == prefill.smem_bytes == 73536
+    else:
+        assert decode.smem_bytes == 80192 < prefill.smem_bytes <= 232448
+    assert split_plan(S=8, K=1, H=32, Hkv=8, D=96, T=16, P=128,
+                      elem_bytes=2).tensor_cores is False
+    assert split_plan(S=8, K=1, H=32, Hkv=8, D=128, T=8, P=128,
+                      elem_bytes=2).tensor_cores is False
 
 
 def test_cpu_tensors_never_count_as_kernel_launches():
