@@ -18,9 +18,11 @@ of its checks fails:
      the split kernel on the tensor cores in bf16, float32 FMA in float32)
      against ``paged_attention_reference`` on the card, at llama3_8b shapes
      (H=32, Hkv=8, D=128, 16-token pages), bf16 and float32, for decode (8
-     slots, 1 token) and prefill (1 slot, a 32-token chunk); row i of a
-     32-token window against a 1-token call at length + i, bit for bit, at
-     length 45 and at length 240 (the window crosses a split boundary); two
+     slots, 1 token), prefill (1 slot, a 32-token chunk) and the
+     speculative verify window (8 slots, 5 tokens, cursors 0 to 2043); row
+     i of a window against a 1-token call at length + i, bit for bit: the
+     32-token windows at length 45 and at length 240 (the window crosses a
+     split boundary) and the verify window; two
      decode calls bitwise equal; one call under
      ``torch.cuda.set_sync_debug_mode("error")``, so a host read of the
      lengths fails the run; the launch counter; the split plan; times of
@@ -42,9 +44,21 @@ of its checks fails:
      (32 layers), random bf16 weights from a seeded torch.Generator,
      answers 12 streamed requests that share a prefix (8 slots, one request
      sampled at temperature 0.7), through the kernel on every layer.
-  6. parity: llama_debug in float32, the port on the card against the port
-     on the CPU with the same weights: temperature-0 texts identical.
-  7. train: ``init_train_state`` + ``make_train_step`` on the card, bf16
+  6. spec-serve: the same server and requests with speculative decoding
+     (the self drafter, spec_k 4): every round 4 drafter steps over a
+     contiguous slot arena, then one K4 verify window per layer; launches
+     exactly layers x (prefill chunks + verify rounds), no plain decode
+     step; tokens/s, round ms, TTFT, accept rate, tokens per round, the
+     drafter arena's size and peak memory. Then one verify call against 5
+     sequential decode steps on a copy of the same caches, with the bf16
+     weights and with them upcast to float32: logits within
+     ``VERIFY_GATE`` of their RMS per element, and a float32 output 2%
+     off refused.
+  7. parity: in float32, the port on the card against the port on the
+     CPU with the same weights, temperature-0 texts identical: llama_debug;
+     llama_debug with the self drafter (also equal to the texts without
+     it); moe_debug (the mixture-of-experts layer).
+  8. train: ``init_train_state`` + ``make_train_step`` on the card, bf16
      compute over float32 params, random weights from a seed and random
      tokens: gpt2_small at full width and depth (12 layers, d 768, vocab
      50257), B16 x S1024, remat off, CE chunk 8192, one warm-up step and 5
@@ -58,10 +72,11 @@ of its checks fails:
      steps for K1. Before them, the fused CE with bf16 operands at
      gpt2_small's width and vocab against float64 (its logits keep the
      product's float32 result).
-  8. train parity: llama_debug and a tiny GPT-2 (learned positions,
-     layernorm, tied) in float32, five steps on the card against five on
-     the CPU from the same weights on the same batches: losses and grad
-     norms within the stated tolerance.
+  9. train parity: llama_debug, a tiny GPT-2 (learned positions,
+     layernorm, tied) and moe_debug in float32, five steps on the card
+     against five on the CPU from the same weights on the same batches:
+     losses, grad norms and moe_debug's routing losses within the stated
+     tolerance.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Details go to
@@ -94,6 +109,9 @@ TENSOR_CORE_KERNELS = (
             for d in (32, 64, 128, 256)))
 ARENA_LEN = 2048          # serve arena per slot: 128 pages of 16 tokens
 SERVE_NEW_TOKENS = 32
+SPEC_K = 4                # draft tokens per speculative round
+# the verify window's slot cursors: 0 to the last that fits the arena
+VERIFY_LENGTHS = [0, 16, 37, 100, 255, 640, 1024, ARENA_LEN - SPEC_K - 1]
 TOL = {"float32": (1e-5, 1e-5),       # atol, rtol: sum order differs
        "bfloat16": (1e-5, 2.0 ** -7)}  # at most one bf16 rounding step
 
@@ -337,11 +355,14 @@ def kernel_phase(torch) -> dict:
                                           2047]),
         # 1 slot, a 32-token prefill chunk at a cursor off a page boundary
         "prefill": dict(S=1, K=32, lengths=[45]),
+        # the speculative verify window: 8 slots x (spec_k + 1) tokens
+        "verify": dict(S=8, K=SPEC_K + 1, lengths=VERIFY_LENGTHS),
     }
     # 32-token windows whose rows are checked against 1-token calls; at
     # length 240 the window's positions 240-271 cross the boundary between
     # the first two 256-key splits
-    windows = [dict(S=1, K=32, lengths=[45]), dict(S=1, K=32, lengths=[240])]
+    windows = [dict(S=1, K=32, lengths=[45]), dict(S=1, K=32, lengths=[240]),
+               shapes["verify"]]
     results = {}
     for dtype_name in ("bfloat16", "float32"):
         dtype = getattr(torch, dtype_name)
@@ -401,8 +422,9 @@ def kernel_phase(torch) -> dict:
             _window_rows_check(torch, paged_attention,
                                make_case(torch, dtype, **shp, seed=1),
                                dtype_name)
-        print(f"kernel {dtype_name}: all 32 rows of the windows at lengths "
-              f"{[w['lengths'][0] for w in windows]} equal 1-token calls "
+        print(f"kernel {dtype_name}: every row of the 32-token windows at "
+              f"lengths 45 and 240 and of the {SPEC_K + 1}-token verify "
+              f"windows at lengths {VERIFY_LENGTHS} equals a 1-token call "
               "bit for bit", flush=True)
     return results
 
@@ -950,9 +972,10 @@ def train_phase(torch) -> dict:
 
 
 def train_parity_phase(torch) -> dict:
-    """llama_debug and a tiny GPT-2 (learned positions, layernorm, tied
-    embeddings) in float32: five steps of the port on the card against
-    five on the CPU, from the same weights on the same batches."""
+    """llama_debug, a tiny GPT-2 (learned positions, layernorm, tied
+    embeddings) and moe_debug in float32: five steps of the port on the
+    card against five on the CPU, from the same weights on the same
+    batches; for moe_debug the routing loss too, which must be finite."""
     from ray_tpu_torch import (OptimizerConfig, init_train_state,
                                make_train_step, presets)
     from ray_tpu_torch.models.transformer import init_params
@@ -964,6 +987,7 @@ def train_parity_phase(torch) -> dict:
                                         embed_dim=64, num_heads=4,
                                         max_seq_len=64, dtype=torch.float32,
                                         ce_chunk=32),
+        "moe_debug": presets.moe_debug(ce_chunk=32),
     }
     ocfg = OptimizerConfig(learning_rate=1e-2, warmup_steps=2,
                            decay_steps=6)
@@ -981,17 +1005,21 @@ def train_parity_phase(torch) -> dict:
             state, tx = init_train_state(cfg, ocfg, device=dev, params=host)
             step = make_train_step(cfg, tx)
             ms = [step(state, b)[1] for b in batches]
-            runs[dev] = ([float(m["loss"]) for m in ms],
-                         [float(m["grad_norm"]) for m in ms])
+            runs[dev] = tuple([float(m[k]) for m in ms] for k in (
+                "loss", "grad_norm", "moe_aux") if k in ms[0])
             if dev == "cuda" and fa.flash_dkv.launches == 0:
                 raise AssertionError("the card run did not use the kernels")
+        if not all(math.isfinite(x) for x in sum(runs["cuda"], [])):
+            raise AssertionError(f"{name}: non-finite metrics {runs}")
         rel = max(abs(a - b) / abs(b) for x, y in zip(runs["cuda"],
                                                       runs["cpu"])
                   for a, b in zip(x, y))
         out[name] = dict(card=runs["cuda"], cpu=runs["cpu"], max_rel=rel,
                          rtol=TRAIN_PARITY_RTOL)
-        print(f"train parity {name}: float32, {TRAIN_STEPS} steps, losses "
-              f"and grad norms card vs CPU within {rel:.2e} (rtol "
+        what = ("losses, grad norms and routing losses"
+                if len(runs["cpu"]) > 2 else "losses and grad norms")
+        print(f"train parity {name}: float32, {TRAIN_STEPS} steps, {what} "
+              f"card vs CPU within {rel:.2e} (rtol "
               f"{TRAIN_PARITY_RTOL:g}); losses "
               f"{[round(x, 5) for x in runs['cuda'][0]]}", flush=True)
         if not rel <= TRAIN_PARITY_RTOL:
@@ -1013,52 +1041,72 @@ async def _stream(srv, req):
     return ttft, pieces
 
 
-def serve_phase(torch) -> dict:
+SYSTEM_PROMPT = ("You are a careful assistant for a distributed systems "
+                 "team. Answer briefly and precisely. Question: ")
+
+
+def _llama3_8b_server(torch, name, **kw):
+    """``LLMServerImpl`` of llama3_8b at full width and depth on the card,
+    random bf16 weights from seed 0; prints its shape and set-up time."""
     from ray_tpu_torch import LLMServerImpl
-    from ray_tpu_torch.ops.paged_attention import paged_attention
 
     t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
     srv = LLMServerImpl(preset="llama3_8b", arena_len=ARENA_LEN,
-                        max_new_tokens=SERVE_NEW_TOKENS)
+                        max_new_tokens=SERVE_NEW_TOKENS, **kw)
     torch.cuda.synchronize()
-    setup_s = time.perf_counter() - t0
-    try:
-        cfg = srv.cfg
-        print(f"serve: llama3_8b, {cfg.num_layers} layers, d={cfg.embed_dim}"
-              f", vocab {cfg.vocab_size}, {cfg.dtype}, arena_len "
-              f"{ARENA_LEN}, slots {srv._sched.slots}, pages "
-              f"{srv._sched.num_pages}; weights and pool ready in "
-              f"{setup_s:.1f} s", flush=True)
-        # warm-up (cuBLAS handles, allocator), outside the counted run
-        asyncio.run(srv({"prompt": "warm up", "max_new_tokens": 2}))
-        system = ("You are a careful assistant for a distributed systems "
-                  "team. Answer briefly and precisely. Question: ")
-        reqs = [{"prompt": system + f"what does step {i} of the plan do?"}
-                for i in range(12)]
-        reqs[5]["temperature"] = 0.7
-        before = srv.scheduler_stats()
-        paged_attention.launches = 0
+    cfg = srv.cfg
+    print(f"{name}: llama3_8b, {cfg.num_layers} layers, d={cfg.embed_dim}"
+          f", vocab {cfg.vocab_size}, {cfg.dtype}, arena_len "
+          f"{ARENA_LEN}, slots {srv._sched.slots}, pages "
+          f"{srv._sched.num_pages}; weights and pool ready in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return srv
 
-        async def go():
-            return await asyncio.gather(*[_stream(srv, r) for r in reqs])
 
-        t1 = time.perf_counter()
-        outs = asyncio.run(go())
-        wall = time.perf_counter() - t1
-        launches = paged_attention.launches
-        st = srv.scheduler_stats()
-        prof = profile_decode(torch, srv, system)
-    finally:
-        srv.shutdown()
-    steps = st["decode_steps"] - before["decode_steps"]
-    chunks = st["prefill_chunks"] - before["prefill_chunks"]
-    own = st["kernel_launches"] - before["kernel_launches"]
+def _serve_requests(srv):
+    """A warm-up request, then the 12 streamed requests that share a
+    prefix (one sampled at temperature 0.7), with the K4 launch counter set
+    to 0 just before them and read just after. Returns (outs, wall seconds,
+    launches, stats before, stats after)."""
+    from ray_tpu_torch.ops.paged_attention import paged_attention
+
+    # warm-up (cuBLAS handles, allocator), outside the counted run
+    asyncio.run(srv({"prompt": "warm up", "max_new_tokens": 2}))
+    reqs = [{"prompt": SYSTEM_PROMPT + f"what does step {i} of the plan do?"}
+            for i in range(12)]
+    reqs[5]["temperature"] = 0.7
+    before = srv.scheduler_stats()
+
+    async def go():
+        return await asyncio.gather(*[_stream(srv, r) for r in reqs])
+
+    paged_attention.launches = 0
+    t1 = time.perf_counter()
+    outs = asyncio.run(go())
+    wall = time.perf_counter() - t1
+    launches = paged_attention.launches
+    st = srv.scheduler_stats()
     for i, (_ttft, pieces) in enumerate(outs):
         if len(pieces) != SERVE_NEW_TOKENS:
             raise AssertionError(f"request {i} returned {len(pieces)} "
                                  f"tokens, not {SERVE_NEW_TOKENS}")
     if st["attn_lane"] != "cuda":
         raise AssertionError(f"attn_lane is {st['attn_lane']!r}")
+    return outs, wall, launches, before, st
+
+
+def serve_phase(torch) -> dict:
+    srv = _llama3_8b_server(torch, "serve")
+    try:
+        cfg = srv.cfg
+        outs, wall, launches, before, st = _serve_requests(srv)
+        prof = profile_decode(torch, srv, SYSTEM_PROMPT)
+    finally:
+        srv.shutdown()
+    steps = st["decode_steps"] - before["decode_steps"]
+    chunks = st["prefill_chunks"] - before["prefill_chunks"]
+    own = st["kernel_launches"] - before["kernel_launches"]
     if st["prefix_hits"] <= 0:
         raise AssertionError("no prefix-cache hit")
     if launches != cfg.num_layers * (chunks + steps) or own != launches:
@@ -1068,9 +1116,9 @@ def serve_phase(torch) -> dict:
             f"{steps} decode steps)")
     if st["max_active_slots"] > 8:
         raise AssertionError("more than 8 sequences decoded at once")
-    tokens = len(reqs) * SERVE_NEW_TOKENS
+    tokens = len(outs) * SERVE_NEW_TOKENS
     ttfts = [t for t, _ in outs]
-    r = dict(requests=len(reqs), tokens=tokens, wall_s=wall,
+    r = dict(requests=len(outs), tokens=tokens, wall_s=wall,
              tokens_per_s=tokens / wall,
              decode_step_ms=(st["decode_seconds"]
                              - before["decode_seconds"]) / steps * 1e3,
@@ -1090,10 +1138,182 @@ def serve_phase(torch) -> dict:
     return r
 
 
+# verify logits against spec_k + 1 sequential decode steps, per element:
+# |verify - sequential| <= gate x RMS(sequential). K4's window rows are
+# bitwise equal to 1-token calls, but cuBLAS rounds the 40-row projections
+# of a verify call otherwise than the 8-row ones of a step (8-row and
+# 1-row steps are bitwise equal). In bf16 that rounding difference grows
+# through 32 layers of random weights to the size of bf16's own error (the
+# bf16 model against the same weights in float32: up to 0.32 x RMS, 5.5%
+# in relative L2, on an H100 80GB HBM3 at 700 W), so the bf16 gate holds
+# only against gross faults and the 2%-off refusal is held in float32, the
+# same weights upcast, where the difference is 5e-5 x RMS.
+VERIFY_GATE = {"bfloat16": 0.5, "float32": 1e-3}
+VERIFY_OFF = 0.02  # a float32 verify output this far off is refused
+
+
+def _verify_and_steps(torch, cfg, params, rope, lens, K, T=16):
+    """Paged caches for len(lens) slots, slot s prefilled (32-token chunks
+    of random tokens from a fixed seed) to cursor lens[s]; then one
+    ``paged_verify_step`` over a K-token window of random tokens, and K
+    ``paged_decode_step`` calls on a copy of the same caches. Returns the
+    two [slots, K, vocab] float32 logits."""
+    from ray_tpu_torch.models import decode
+
+    P = ARENA_LEN // T
+    need = [-(-(n + K) // T) for n in lens]
+    tables = torch.zeros((len(lens), P), dtype=torch.int32)
+    first = 1
+    for s, n in enumerate(need):
+        tables[s, :n] = torch.arange(first, first + n)
+        first += n
+    tables = tables.cuda()
+    caches = decode.init_paged_caches(cfg, len(lens), first, T, P,
+                                      device="cuda")
+    g = torch.Generator(device="cpu").manual_seed(7)
+    for s, n in enumerate(lens):
+        for c0 in range(0, n, 32):
+            real = min(32, n - c0)
+            chunk = torch.zeros((1, 32), dtype=torch.int32)
+            chunk[0, :real] = torch.randint(1, cfg.vocab_size, (real,),
+                                            generator=g)
+            decode.paged_prefill_into_slot(cfg, params, chunk.cuda(), real,
+                                           s, tables[s], tables[s], caches,
+                                           rope)
+    win = torch.randint(1, cfg.vocab_size, (len(lens), K), generator=g,
+                        dtype=torch.int32).cuda()
+    lengths = caches[0].lengths.clone()
+    copy = [decode.PagedKVCache(k=c.k.clone(), v=c.v.clone(),
+                                lengths=lengths) for c in caches]
+    verify = decode.paged_verify_step(cfg, params, win, tables, tables,
+                                      caches, rope).float()
+    ones = torch.ones(len(lens), dtype=torch.int32, device="cuda")
+    seq = torch.stack([decode.paged_decode_step(
+        cfg, params, win[:, j].contiguous(), ones, tables, tables, copy,
+        rope) for j in range(K)], dim=1).float()
+    if caches[0].lengths.tolist() != lens:
+        raise AssertionError("the verify call moved the cursors")
+    if lengths.tolist() != [n + K for n in lens]:
+        raise AssertionError("the decode steps did not advance the cursors")
+    return verify, seq
+
+
+def verify_logits_check(torch, srv) -> dict:
+    """One verify call against ``spec_k + 1`` sequential decode steps on a
+    copy of the same caches, 8 slots at cursors 0-640, with the served
+    bf16 weights and with the same weights upcast to float32 (a float32
+    copy of llama3_8b, 32 GB, for the length of the check)."""
+    import dataclasses
+
+    from ray_tpu_torch.models.transformer import place_params
+
+    cfg, rope = srv.cfg, srv._sched._rope
+    lens, K = [0, 16, 37, 100, 255, 300, 480, 640], SPEC_K + 1
+    v16, s16 = _verify_and_steps(torch, cfg, srv.params, rope, lens, K)
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    p32 = place_params(cfg32, srv.params, torch.device("cuda"))
+    v32, s32 = _verify_and_steps(torch, cfg32, p32, rope, lens, K)
+    del p32
+
+    def share(a, b):  # max |a - b| over the RMS of b
+        return float((a - b).abs().max() / b.square().mean().sqrt())
+
+    r = dict(lengths=lens, window=K, gate=VERIFY_GATE,
+             rms=float(s16.square().mean().sqrt()),
+             bfloat16=share(v16, s16), float32=share(v32, s32),
+             bf16_own_error=share(s16, s32),
+             off_share=share(s32 * (1 + VERIFY_OFF), s32),
+             argmax_equal_bf16=float((v16.argmax(-1) == s16.argmax(-1))
+                                     .float().mean()),
+             rel_l2_bf16=float((v16 - s16).norm() / s16.norm()))
+    print(f"spec-serve verify check: one {K}-token verify call against {K} "
+          f"decode steps on a copy of the caches (cursors {lens}): max "
+          f"|diff| {r['bfloat16']:.4f} x RMS in bf16 (gate "
+          f"{VERIFY_GATE['bfloat16']}; relative L2 {r['rel_l2_bf16']:.4f}; "
+          f"argmax equal in {100 * r['argmax_equal_bf16']:.1f}% of rows; "
+          f"the bf16 steps against float32 {r['bf16_own_error']:.4f}), "
+          f"{r['float32']:.2e} x RMS in float32 (gate "
+          f"{VERIFY_GATE['float32']:g}); an output {100 * VERIFY_OFF:g}% "
+          f"off is {r['off_share']:.4f} x RMS", flush=True)
+    for dtype_name, gate in VERIFY_GATE.items():
+        if not r[dtype_name] <= gate:
+            raise AssertionError(f"{dtype_name} verify logits differ from "
+                                 "the sequential decode steps' beyond the "
+                                 "gate")
+    if r["off_share"] <= VERIFY_GATE["float32"]:
+        raise AssertionError(f"the float32 gate would pass an output "
+                             f"{100 * VERIFY_OFF:g}% off")
+    return r
+
+
+def spec_serve_phase(torch, card) -> dict:
+    """llama3_8b at full width and depth with the self drafter, spec_k 4:
+    the serve phase's 12 streamed requests through drafter steps and K4
+    verify windows, then the verify logits check."""
+    srv = _llama3_8b_server(torch, "spec-serve", drafter="self",
+                            spec_k=SPEC_K)
+    try:
+        cfg = srv.cfg
+        outs, wall, launches, before, st = _serve_requests(srv)
+        peak = torch.cuda.max_memory_allocated() / 1e9  # the serving run
+        prof = profile_decode(torch, srv, SYSTEM_PROMPT)
+        check = verify_logits_check(torch, srv)
+    finally:
+        srv.shutdown()
+    d = {k: st[k] - before[k] for k in (
+        "decode_steps", "plain_decode_steps", "verify_rounds",
+        "prefill_chunks", "kernel_launches", "spec_drafted_tokens",
+        "spec_accepted_tokens", "spec_seconds", "spec_draft_seconds",
+        "spec_verify_seconds", "tokens_generated")}
+    rounds, chunks = d["verify_rounds"], d["prefill_chunks"]
+    if d["plain_decode_steps"] != 0:
+        raise AssertionError(f"{d['plain_decode_steps']} plain decode steps "
+                             "ran with a drafter")
+    if rounds <= 0 or d["spec_drafted_tokens"] <= 0:
+        raise AssertionError(f"no speculative round ran: {d}")
+    if (launches != cfg.num_layers * (chunks + rounds)
+            or d["kernel_launches"] != launches):
+        raise AssertionError(
+            f"{launches} kernel launches (scheduler counted "
+            f"{d['kernel_launches']}), expected {cfg.num_layers} x ({chunks} "
+            f"prefill chunks + {rounds} verify rounds)")
+    tokens = len(outs) * SERVE_NEW_TOKENS
+    ttfts = [t for t, _ in outs]
+    r = dict(requests=len(outs), tokens=tokens, wall_s=wall,
+             tokens_per_s=tokens / wall, verify_rounds=rounds,
+             prefill_chunks=chunks, launches=launches,
+             round_ms=d["spec_seconds"] / rounds * 1e3,
+             draft_ms=d["spec_draft_seconds"] / rounds * 1e3,
+             verify_ms=d["spec_verify_seconds"] / rounds * 1e3,
+             ttft_mean_s=sum(ttfts) / len(ttfts), ttft_max_s=max(ttfts),
+             accept_rate=(d["spec_accepted_tokens"]
+                          / d["spec_drafted_tokens"]),
+             drafted=d["spec_drafted_tokens"],
+             accepted=d["spec_accepted_tokens"],
+             # each request's first token comes from its prefill
+             tokens_per_round=(d["tokens_generated"] - len(outs)) / rounds,
+             drafter_arena_gb=st["drafter_arena_bytes"] / 1e9,
+             peak_mem_gb=peak, profile=prof, verify_check=check)
+    print(f"spec-serve: {r['requests']} requests, {tokens} tokens in "
+          f"{wall:.2f} s = {r['tokens_per_s']:.1f} tokens/s; {rounds} rounds "
+          f"of {SPEC_K} drafter steps + 1 verify, mean round "
+          f"{r['round_ms']:.1f} ms (drafting {r['draft_ms']:.1f}, verify "
+          f"{r['verify_ms']:.1f}); TTFT mean {r['ttft_mean_s']:.3f} s, max "
+          f"{r['ttft_max_s']:.3f} s; accept rate {r['accept_rate']:.3f} "
+          f"({r['accepted']}/{r['drafted']}), {r['tokens_per_round']:.2f} "
+          f"tokens per round (all slots); {chunks} prefill chunks; "
+          f"{launches} kernel launches = {cfg.num_layers} x ({chunks} + "
+          f"{rounds}); 0 plain decode steps; drafter arena "
+          f"{r['drafter_arena_gb']:.2f} GB; peak memory {peak:.1f} GB; "
+          f"card {card}", flush=True)
+    return r
+
+
 def profile_decode(torch, srv, system) -> dict:
-    """Where a decode step's time goes: 8 requests that hit the prefix
-    cache, 16 tokens each, under torch.profiler; device kernel time by
-    kernel, against the host clock over the decode steps."""
+    """Where a decode step's (or, with a drafter, a speculative round's)
+    time goes: 8 requests that hit the prefix cache, 16 tokens each, under
+    torch.profiler; device kernel time by kernel, against the host clock
+    over the decode steps or verify rounds."""
     from torch.profiler import ProfilerActivity, profile
 
     reqs = [{"prompt": system + f"and step {i}?", "max_new_tokens": 16}
@@ -1122,8 +1342,9 @@ def profile_decode(torch, srv, system) -> dict:
     k4 = [(n, us) for name, (n, us) in kernels.items()
           if "paged_attention" in name]
     r = dict(wall_ms=wall * 1e3, decode_steps=steps, prefill_chunks=chunks,
-             decode_ms=(st["decode_seconds"] - before["decode_seconds"])
-             * 1e3,
+             decode_ms=(st["decode_seconds"] - before["decode_seconds"]
+                        + st.get("spec_seconds", 0.0)
+                        - before.get("spec_seconds", 0.0)) * 1e3,
              device_busy_ms=busy_ms if kernels else None,
              kernel_launches=sum(n for n, _ in kernels.values()),
              paged_attention_kernels=sum(n for n, _ in k4),
@@ -1131,7 +1352,8 @@ def profile_decode(torch, srv, system) -> dict:
              top=[dict(name=k[:90], count=n, ms=us / 1e3)
                   for k, (n, us) in top])
     if kernels:
-        print(f"profile: {steps} decode steps + {chunks} prefill chunks in "
+        kind = "verify rounds" if "spec_seconds" in st else "decode steps"
+        print(f"profile: {steps} {kind} + {chunks} prefill chunks in "
               f"{r['wall_ms']:.1f} ms wall; device kernels busy "
               f"{busy_ms:.1f} ms ({100 * busy_ms / r['wall_ms']:.1f}%), "
               f"{r['kernel_launches']} device kernels; K4 (split + merge "
@@ -1147,32 +1369,59 @@ def profile_decode(torch, srv, system) -> dict:
 # --------------------------------------------------------------- parity
 
 
+def _parity_texts(preset, host, dev, **kw):
+    """Temperature-0 texts of 9 requests (3 prompts x 3) from a small
+    float32 server on ``dev`` with the given host weights, and its stats."""
+    from ray_tpu_torch import LLMServerImpl
+
+    prompts = ["hi", "hello 123", "a much longer prompt than the others!"]
+    srv = LLMServerImpl(preset=preset, max_new_tokens=8, slots=4,
+                        prefill_chunk=8, page_tokens=4, device=dev,
+                        params_loader=lambda c: host, **kw)
+    try:
+        async def go():
+            return await asyncio.gather(
+                *[srv({"prompt": p}) for p in prompts * 3])
+
+        return [o["text"] for o in asyncio.run(go())], srv.scheduler_stats()
+    finally:
+        srv.shutdown()
+
+
 def parity_phase(torch) -> dict:
-    """llama_debug in float32: the port on the card against the port on
-    the CPU, on the same weights."""
-    from ray_tpu_torch import LLMServerImpl, presets
+    """In float32, the port on the card against the port on the CPU, on the
+    same weights: llama_debug, llama_debug with the self drafter (whose
+    texts must also equal the card's own texts without it), and
+    moe_debug."""
+    from ray_tpu_torch import presets
     from ray_tpu_torch.models import decode
     from ray_tpu_torch.models.transformer import init_params, place_params
     from ray_tpu_torch.ops.rotary import rope_frequencies
 
     cfg = presets.llama_debug()
     host = init_params(cfg, seed=0, device="cpu")
-    prompts = ["hi", "hello 123", "a much longer prompt than the others!"]
-    texts = {}
-    for dev in ("cuda", "cpu"):
-        srv = LLMServerImpl(max_new_tokens=8, slots=4, prefill_chunk=8,
-                            page_tokens=4, device=dev,
-                            params_loader=lambda c: host)
-        try:
-            async def go():
-                return await asyncio.gather(
-                    *[srv({"prompt": p}) for p in prompts * 3])
-
-            texts[dev] = [o["text"] for o in asyncio.run(go())]
-        finally:
-            srv.shutdown()
+    texts = {dev: _parity_texts("llama_debug", host, dev)[0]
+             for dev in ("cuda", "cpu")}
     if texts["cuda"] != texts["cpu"]:
         raise AssertionError(f"card and CPU texts differ: {texts}")
+    spec, spec_stats = {}, {}
+    for dev in ("cuda", "cpu"):
+        spec[dev], spec_stats[dev] = _parity_texts(
+            "llama_debug", host, dev, drafter="self", spec_k=SPEC_K)
+    if not spec["cuda"] == spec["cpu"] == texts["cuda"]:
+        raise AssertionError(f"spec texts differ (card, CPU, card without "
+                             f"the drafter): {spec['cuda']} {spec['cpu']} "
+                             f"{texts['cuda']}")
+    st = spec_stats["cuda"]
+    if st["plain_decode_steps"] or not st["verify_rounds"] or not (
+            st["kernel_launches"]):
+        raise AssertionError(f"the card's spec run did not verify through "
+                             f"the kernel: {st}")
+    moe_host = init_params(presets.moe_debug(), seed=0, device="cpu")
+    moe = {dev: _parity_texts("moe_debug", moe_host, dev)[0]
+           for dev in ("cuda", "cpu")}
+    if moe["cuda"] != moe["cpu"]:
+        raise AssertionError(f"moe_debug card and CPU texts differ: {moe}")
     # the programs' logits, side by side: one prefill chunk + 3 decode steps
     diffs = []
     runs = {}
@@ -1197,13 +1446,27 @@ def parity_phase(torch) -> dict:
         runs[dev] = [o.cpu() for o in out]
     for a, b in zip(runs["cuda"], runs["cpu"]):
         diffs.append(float((a - b).abs().max()))
-    r = dict(texts_equal=True, max_logit_diff=max(diffs))
-    print(f"parity: llama_debug float32, card and CPU texts identical "
-          f"({len(texts['cpu'])} requests); largest logit difference "
+    r = dict(texts_equal=True, max_logit_diff=max(diffs),
+             spec_accept_rate=st["spec_accept_rate"],
+             spec_verify_rounds=st["verify_rounds"])
+    print(f"parity: float32, card and CPU texts identical ({len(texts['cpu'])}"
+          f" requests each): llama_debug; llama_debug with the self drafter "
+          f"(spec_k {SPEC_K}, accept rate {st['spec_accept_rate']:.3f}, "
+          f"{st['verify_rounds']} verify rounds), equal to the texts without "
+          f"it; moe_debug. llama_debug's largest logit difference "
           f"{r['max_logit_diff']:.3e}", flush=True)
     if not r["max_logit_diff"] < 1e-4:
         raise AssertionError("card and CPU logits differ by more than 1e-4")
     return r
+
+
+def _free(torch):
+    """Drop a finished phase's server (16 GB of llama3_8b weights) from the
+    card before the next phase builds its own."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -1226,6 +1489,9 @@ def main() -> int:
     kern = kernel_phase(torch)
     flash = flash_kernel_phase(torch)
     serve = serve_phase(torch)
+    _free(torch)
+    spec_serve = spec_serve_phase(torch, card)
+    _free(torch)
     parity = parity_phase(torch)
     train = train_phase(torch)
     train_parity = train_parity_phase(torch)
@@ -1266,7 +1532,8 @@ def main() -> int:
             "library_ms": fcase[f"{key}_library_ms"],
         })
     detail = {"card": card, "build": build, "kernel": kern, "flash": flash,
-              "serve": serve, "parity": parity, "train": train,
+              "serve": serve, "spec_serve": spec_serve, "parity": parity,
+              "train": train,
               "train_parity": train_parity,
               "seconds": time.perf_counter() - t_start}
     out_dir = ROOT / "chiprun_out"

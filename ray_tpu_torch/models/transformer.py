@@ -13,8 +13,11 @@ serving programs read params that ``place_params`` cast once to ``cfg.dtype``,
 which gives the same numbers; the casts in the shared layer pieces are then
 no-ops. Norm scales and biases are read in float32 either way.
 
-``forward`` runs without caches (training); the paged serving programs are
-in ``models/decode.py``. ``mlp="moe"`` is not ported yet.
+``forward`` runs without caches (training) or, with ``kv_caches``, over
+contiguous per-layer KV caches (the contiguous serving programs); the paged
+serving programs are in ``models/decode.py``. ``mlp="moe"`` runs the
+mixture-of-experts layer of ``ops/moe.py``; its routing loss comes back as
+``aux`` and ``loss_fn`` adds it.
 """
 
 from __future__ import annotations
@@ -33,11 +36,9 @@ from ray_tpu_torch._private.device import resolve_device
 from ray_tpu_torch.ops.attention import attention
 from ray_tpu_torch.ops.losses import (fused_softmax_cross_entropy,
                                       softmax_cross_entropy)
+from ray_tpu_torch.ops.moe import init_moe_params, moe_layer
 from ray_tpu_torch.ops.norms import layer_norm, rms_norm
 from ray_tpu_torch.ops.rotary import apply_rotary, rope_frequencies
-
-_MOE_LATER = ("mlp='moe' is not ported yet: the mixture-of-experts layer "
-              "(ops/moe.py) is the port's next module")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,8 +49,11 @@ class TransformerConfig:
     num_heads: int = 12
     num_kv_heads: Optional[int] = None        # None => MHA
     mlp_dim: Optional[int] = None             # None => 4x (gelu) / 8/3x (swiglu)
+    # MoE (mlp='moe'): SwiGLU experts, top-k routing
     moe_num_experts: int = 0
     moe_top_k: int = 2
+    moe_capacity_factor: float = 1.25
+    moe_aux_weight: float = 0.01
     max_seq_len: int = 2048
     norm: str = "rmsnorm"                     # 'rmsnorm' | 'layernorm'
     pos: str = "rope"                         # 'rope' | 'learned'
@@ -136,8 +140,8 @@ def init_params(cfg: TransformerConfig, seed: int = 0,
     once. With ``param_dtype`` every leaf is in that dtype (training keeps
     ``cfg.param_dtype``); without it they are placed as ``place_params``
     does, so a full-size served model never holds a float32 copy."""
-    if cfg.mlp == "moe":
-        raise NotImplementedError(_MOE_LATER)
+    if cfg.mlp == "moe" and cfg.moe_num_experts < 2:
+        raise ValueError("mlp='moe' needs moe_num_experts >= 2")
     device = resolve_device(device)
     weight_dtype = param_dtype or cfg.dtype
     norm_dtype = param_dtype or torch.float32
@@ -170,7 +174,10 @@ def init_params(cfg: TransformerConfig, seed: int = 0,
                       "wo": normal((h, hd, d), out_std)},
              "ln1": _norm_params(cfg, d, device, norm_dtype),
              "ln2": _norm_params(cfg, d, device, norm_dtype)}
-        if cfg.mlp == "swiglu":
+        if cfg.mlp == "moe":
+            b["mlp"] = init_moe_params(gen, d, f, cfg.moe_num_experts,
+                                       dtype=weight_dtype)
+        elif cfg.mlp == "swiglu":
             b["mlp"] = {"w_gate": normal((d, f)), "w_up": normal((d, f)),
                         "w_down": normal((f, d), out_std)}
         else:
@@ -208,16 +215,20 @@ def _w(cfg: TransformerConfig, t: torch.Tensor) -> torch.Tensor:
 
 
 def _mlp(cfg: TransformerConfig, p, x):
-    """[..., d] -> [..., d] in ``cfg.dtype``."""
+    """[B, S, d] -> (y [B, S, d] in ``cfg.dtype``, aux): aux is the MoE
+    routing loss, 0.0 for the dense MLPs."""
     if cfg.mlp == "moe":
-        raise NotImplementedError(_MOE_LATER)
+        return moe_layer(p, x, num_experts=cfg.moe_num_experts,
+                         top_k=cfg.moe_top_k,
+                         capacity_factor=cfg.moe_capacity_factor,
+                         dtype=cfg.dtype)
     if cfg.mlp == "swiglu":
         gate = x @ _w(cfg, p["w_gate"])
         up = x @ _w(cfg, p["w_up"])
-        return (F.silu(gate) * up) @ _w(cfg, p["w_down"])
+        return (F.silu(gate) * up) @ _w(cfg, p["w_down"]), 0.0
     hid = F.gelu(x @ _w(cfg, p["w_in"]) + _w(cfg, p["b_in"]),
                  approximate="tanh")
-    return hid @ _w(cfg, p["w_out"]) + _w(cfg, p["b_out"])
+    return hid @ _w(cfg, p["w_out"]) + _w(cfg, p["b_out"]), 0.0
 
 
 def _head(cfg: TransformerConfig, params, x):
@@ -232,7 +243,7 @@ def _project(cfg: TransformerConfig, params, x):
 
 
 # ---------------------------------------------------------------------------
-# forward without caches (training)
+# forward (training, or over contiguous KV caches)
 
 Rope = Optional[Tuple[torch.Tensor, torch.Tensor]]
 
@@ -245,7 +256,8 @@ def _rope_tables(head_dim: int, max_len: int, theta: float,
                                                         theta))
 
 
-def _attn(cfg: TransformerConfig, p, x, rope: Rope, positions):
+def _attn(cfg: TransformerConfig, p, x, rope: Rope, positions,
+          kv_cache=None):
     B, S, d = x.shape
     H, Hkv, hd = cfg.num_heads, cfg.kv_heads, cfg.head_dim
     q = (x @ _w(cfg, p["wq"]).reshape(d, H * hd)).view(B, S, H, hd)
@@ -255,13 +267,25 @@ def _attn(cfg: TransformerConfig, p, x, rope: Rope, positions):
         cos, sin = rope
         q = apply_rotary(q, cos, sin, positions)
         k = apply_rotary(k, cos, sin, positions)
-    o = attention(q, k, v, causal=True, impl=cfg.attn_impl)
+    if kv_cache is not None:
+        # decode: write into the cache first, then attend over the whole
+        # fixed buffer under the cache's mask
+        bias = kv_cache.mask_bias(S)
+        k_all, v_all = kv_cache.update(k, v)
+        o = attention(q, k_all, v_all, causal=False, impl="reference",
+                      bias=bias)
+    else:
+        o = attention(q, k, v, causal=True, impl=cfg.attn_impl)
     return o.reshape(B, S, H * hd) @ _w(cfg, p["wo"]).reshape(H * hd, d)
 
 
-def _block(cfg: TransformerConfig, p, x, rope: Rope, positions):
-    x = x + _attn(cfg, p["attn"], _norm(cfg, p["ln1"], x), rope, positions)
-    return x + _mlp(cfg, p["mlp"], _norm(cfg, p["ln2"], x))
+def _block(cfg: TransformerConfig, p, x, rope: Rope, positions,
+           kv_cache=None):
+    """One block: (x, aux), aux the MoE routing loss (0.0 otherwise)."""
+    x = x + _attn(cfg, p["attn"], _norm(cfg, p["ln1"], x), rope, positions,
+                  kv_cache)
+    m, aux = _mlp(cfg, p["mlp"], _norm(cfg, p["ln2"], x))
+    return x + m, aux
 
 
 _DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
@@ -291,14 +315,18 @@ def _block_fn(cfg: TransformerConfig):
 
 
 def forward(cfg: TransformerConfig, params, tokens: torch.Tensor, *,
-            positions: Optional[torch.Tensor] = None,
+            positions: Optional[torch.Tensor] = None, kv_caches=None,
             return_hidden: bool = False, return_aux: bool = False):
     """tokens [B, S] int -> logits [B, S, vocab] in ``cfg.dtype``.
 
+    kv_caches: per-layer contiguous caches (``models/decode.py``
+    ``LayerKVCache``); each layer writes its new k/v into its cache, in
+    place, then attends over the cache's whole buffer (JAX returns the
+    updated caches beside the logits). No remat on this path.
     return_hidden: skip the vocab projection and return (the hidden states
     after the final norm [B, S, d], aux) for the fused-CE loss. return_aux:
-    return (logits, aux). aux is 0.0: it carries the MoE routing loss, and
-    MoE is not ported yet."""
+    return (logits, aux). aux is the MoE routing loss summed over the
+    layers (0.0 without MoE)."""
     tokens = tokens.long()
     x = _w(cfg, params["embed"]["table"])[tokens]
     rope = None
@@ -309,29 +337,38 @@ def forward(cfg: TransformerConfig, params, tokens: torch.Tensor, *,
     else:
         rope = _rope_tables(cfg.head_dim, cfg.max_seq_len, cfg.rope_theta,
                             x.device)
-    block = _block_fn(cfg)
-    for p in params["blocks"]:
-        x = block(cfg, p, x, rope, positions)
+    aux_total = 0.0
+    if kv_caches is not None:
+        for p, c in zip(params["blocks"], kv_caches):
+            x, aux = _block(cfg, p, x, rope, positions, c)
+            aux_total = aux_total + aux
+    else:
+        block = _block_fn(cfg)
+        for p in params["blocks"]:
+            x, aux = block(cfg, p, x, rope, positions)
+            aux_total = aux_total + aux
     x = _norm(cfg, params["final_norm"], x)
     if return_hidden:
-        return x, 0.0
+        return x, aux_total
     logits = _project(cfg, params, x)
-    return (logits, 0.0) if return_aux else logits
+    return (logits, aux_total) if return_aux else logits
 
 
 def loss_fn(cfg: TransformerConfig, params, batch, *,
             positions: Optional[torch.Tensor] = None):
     """Causal-LM loss. batch: {'tokens': [B, S], optional 'mask': [B, S]}.
     Targets are the tokens shifted left; the last position is dropped.
-    Returns (loss, {'loss', 'tokens'})."""
+    With MoE the routing loss times ``moe_aux_weight`` is added. Returns
+    (loss, {'loss' (the cross-entropy alone), 'tokens', and with MoE
+    'moe_aux'})."""
     tokens = batch["tokens"]
     targets = tokens[:, 1:]
     mask = batch.get("mask")
     if mask is not None:
         mask = mask[:, 1:]
     if cfg.fused_ce:
-        hidden, _ = forward(cfg, params, tokens, positions=positions,
-                            return_hidden=True)
+        hidden, aux = forward(cfg, params, tokens, positions=positions,
+                              return_hidden=True)
         if cfg.tie_embeddings:
             table, transpose = params["embed"]["table"], False
         else:
@@ -340,7 +377,11 @@ def loss_fn(cfg: TransformerConfig, params, batch, *,
             hidden[:, :-1], table, targets, mask, chunk=cfg.ce_chunk,
             compute_dtype=cfg.dtype, transpose_table=transpose)
     else:
-        logits, _ = forward(cfg, params, tokens, positions=positions,
-                            return_aux=True)
+        logits, aux = forward(cfg, params, tokens, positions=positions,
+                              return_aux=True)
         loss, n = softmax_cross_entropy(logits[:, :-1], targets, mask)
-    return loss, {"loss": loss, "tokens": n}
+    metrics = {"loss": loss, "tokens": n}
+    if cfg.mlp == "moe":
+        loss = loss + cfg.moe_aux_weight * aux
+        metrics["moe_aux"] = aux
+    return loss, metrics

@@ -2,8 +2,8 @@
 
 Counterpart: the paged path of ``ray_tpu/serve/_private/continuous.py``.
 The scheduler owns a pool of KV pages shared by ``slots`` sequence slots
-and, per iteration, runs at most ONE prefill chunk and ONE decode step over
-every slot:
+and, per iteration, runs at most ONE prefill chunk and ONE decode step (or,
+with a drafter, one speculative round) over every slot:
 
   * new requests are admitted into free slots between iterations and
     prefilled in ``prefill_chunk``-token chunks, one chunk per iteration,
@@ -12,16 +12,20 @@ every slot:
     page-table splice plus a cursor jump instead of a re-prefill;
   * finished or cancelled sequences retire their slot and pages at once;
   * every sampled token streams to its request's asyncio queue in the
-    iteration that produced it.
+    iteration that produced it;
+  * with a ``speculative.Drafter``, each round the drafter proposes up to
+    ``spec_k`` tokens per slot and ONE ``paged_verify_step`` call scores
+    them all, with exact accept-prefix + corrected-resample semantics
+    (temperature-0 output is the sequential greedy path's, token for
+    token); the plain decode step then never runs.
 
 All torch work runs on the scheduler's own thread (on CUDA, on that
 thread's current stream); the replica's event loop only touches queues.
 Logits go to the host for sampling, which is numpy, so equal logits draw
 equal tokens from equal seeds on the CPU and on the card.
 
-Not carried by this slice: the drafter (speculative decoding), cross-replica
-page migration, the contiguous arena, EOS handling, flight spans and
-metrics.
+Not carried by the port yet: cross-replica page migration, the contiguous
+(non-paged) KV layout, EOS handling, flight spans and metrics.
 """
 
 from __future__ import annotations
@@ -37,11 +41,16 @@ import torch
 from ray_tpu_torch.models.decode import (init_paged_caches,
                                          paged_decode_step,
                                          paged_prefill_into_slot,
-                                         paged_reset_slot)
+                                         paged_reset_slot,
+                                         paged_rewind_slots,
+                                         paged_verify_step)
 from ray_tpu_torch.ops.paged_attention import paged_attention
 from ray_tpu_torch.ops.rotary import rope_frequencies
 from ray_tpu_torch.serve._private.paging import (OutOfPagesError, PageArena,
                                                  RadixCache)
+from ray_tpu_torch.serve._private.speculative import (_softmax,
+                                                      accept_greedy,
+                                                      accept_sample)
 
 # sequence states
 _QUEUED = "queued"
@@ -59,8 +68,9 @@ class _Seq:
 
     __slots__ = ("prompt", "remaining_prompt", "max_new", "temperature",
                  "seed", "slot", "state", "n_generated", "next_token",
-                 "queue", "loop", "cancelled", "rng", "cached_len", "cursor", "owned_pages", "radix_node",
-                 "table_fill")
+                 "queue", "loop", "cancelled", "rng", "cached_len", "cursor",
+                 "owned_pages", "radix_node", "table_fill", "drafter_len",
+                 "drafter_pending")
 
     def __init__(self, prompt: List[int], max_new: int, temperature: float,
                  seed: int, loop, queue):
@@ -83,17 +93,23 @@ class _Seq:
         self.owned_pages: List[int] = []  # pages this slot must free
         self.radix_node = None         # ref-counted prefix-cache node
         self.table_fill = 0            # logical pages present in the table
+        # ---- speculative decoding (per-slot drafter sync state) ----
+        self.drafter_len = -1          # drafter's valid context length
+        self.drafter_pending: List[int] = []  # tokens drafter must catch up
 
 
 class ContinuousScheduler:
     """Paged-arena continuous-batching scheduler.
 
-    ``params`` are the model's parameters on ``device``, shared by both
-    programs. The scheduler owns the KV page pools, updated in place."""
+    ``params`` are the model's parameters on ``device``, shared by its
+    programs. The scheduler owns the KV page pools, updated in place.
+    ``drafter`` (a ``speculative.Drafter`` with the scheduler's slot count)
+    turns on speculative decoding with ``spec_k`` draft tokens a round."""
 
     def __init__(self, cfg, params, *, device: torch.device,
                  slots: int = 8, prefill_chunk: int = 32,
-                 arena_len: Optional[int] = None, page_tokens: int = 16):
+                 arena_len: Optional[int] = None, page_tokens: int = 16,
+                 drafter=None, spec_k: int = 4):
         self.cfg = cfg
         self.params = params
         self.device = torch.device(device)
@@ -118,6 +134,14 @@ class ContinuousScheduler:
             raise ValueError(
                 f"arena_len ({self.arena_len}) must be a multiple of "
                 f"page_tokens ({self.page_tokens})")
+        self.spec_k = int(spec_k)
+        if self.spec_k < 1:
+            raise ValueError(f"spec_k must be >= 1, got {self.spec_k}")
+        if drafter is not None and drafter.slots != self.slots:
+            raise ValueError(
+                f"drafter has {drafter.slots} slots, scheduler has "
+                f"{self.slots}: they must share the slot numbering")
+        self._drafter = drafter
         self._pages_per_slot = self.arena_len // self.page_tokens
         # every slot could fill its whole logical range, plus the reserved
         # garbage page; prefix-cache pages beyond that are evicted LRU
@@ -149,7 +173,15 @@ class ContinuousScheduler:
         self._wake = threading.Event()
         self._closed = False
         self._error: Optional[BaseException] = None
-        self._n_steps = 0
+        self._n_steps = 0              # plain decode steps + verify rounds
+        self._n_plain_steps = 0
+        self._n_spec_rounds = 0
+        self._n_drafted = 0
+        self._n_accepted = 0
+        self._n_spec_emitted = 0
+        self._spec_seconds = 0.0
+        self._draft_seconds = 0.0
+        self._verify_seconds = 0.0
         self._n_prefill_chunks = 0
         self._n_admitted = 0
         self._n_retired = 0
@@ -169,11 +201,14 @@ class ContinuousScheduler:
     def max_prompt_len(self, max_new: int) -> int:
         """Longest admissible prompt for a generation budget: the padded
         prefill chunks AND prompt + new tokens must fit the arena, and the
-        whole pool's pages cap one sequence."""
+        whole pool's pages cap one sequence. With speculation on, a verify
+        round near the end of a generation writes up to ``spec_k``
+        positions past the final cursor; they are reserved too."""
         c = self.prefill_chunk
         effective = min(self.arena_len,
                         self._arena.usable_pages * self.page_tokens)
-        return min((effective // c) * c, effective - max_new)
+        reserve = self.spec_k if self._drafter is not None else 0
+        return min((effective // c) * c, effective - max_new - reserve)
 
     def submit(self, prompt_ids: List[int], *, max_new_tokens: int,
                temperature: float = 0.0, seed: int = 0,
@@ -458,6 +493,7 @@ class ContinuousScheduler:
         self._n_kernel_launches += paged_attention.launches - n0
         self._decode_seconds += time.perf_counter() - t0
         self._n_steps += 1
+        self._n_plain_steps += 1
         self._max_active_slots = max(self._max_active_slots, len(live))
         for seq in live:
             seq.cursor += 1
@@ -466,6 +502,144 @@ class ContinuousScheduler:
                 self._retire(seq, "length")
             else:
                 seq.next_token = tok
+        return True
+
+    # ------------------------------------------------ speculative decode
+
+    def _prime_drafter(self, seq: _Seq) -> None:
+        """First speculative round for a freshly decoding slot: give the
+        drafter the sequence's whole context up to the cursor. A drafter
+        sharing the target's params ADOPTS the paged KV by a gather
+        (prefix splices included); another drafter runs the prompt
+        through its own model."""
+        if self._drafter.shares_target:
+            self._drafter.adopt_from_paged(
+                seq.slot, self._caches, self._read_tables[seq.slot],
+                int(seq.cursor), self.page_tokens)
+        else:
+            self._drafter.prefill_prompt(seq.slot, seq.prompt,
+                                         self.prefill_chunk)
+        seq.drafter_len = int(seq.cursor)
+        seq.drafter_pending = []
+
+    def _decode_spec(self) -> bool:
+        """One speculative round over every DECODE slot: exactly ``spec_k``
+        batched drafter steps propose tokens, ONE ``paged_verify_step``
+        scores every proposal, and exact accept-prefix + corrected
+        resample emits 1..spec_k+1 tokens per live sequence. Rejections
+        rewind CURSORS only (on the host): no page is freed or changed;
+        stale KV past a cursor is masked until written over.
+
+        Drafter sync: the drafter always steps ``spec_k`` times, but after
+        a fully accepted round it first catches up on the accepted token
+        it never consumed (``drafter_pending``), producing one fewer draft
+        that round."""
+        k = self.spec_k
+        K = k + 1
+        live: List[_Seq] = []
+        for seq in self._slot_seqs:
+            if seq is None or seq.state != _DECODE:
+                continue
+            if seq.cancelled:
+                self._retire(seq, "cancelled")
+                continue
+            # the verify window writes positions [cursor, cursor + K)
+            if not self._ensure_pages(seq, seq.cursor + K):
+                continue
+            live.append(seq)
+        if not live:
+            return False
+        t0 = time.perf_counter()
+        for seq in live:
+            if seq.drafter_len < 0:
+                self._prime_drafter(seq)
+        # ---- draft: k batched drafter steps, sampled on the host -------
+        feed = {s.slot: list(s.drafter_pending) + [s.next_token]
+                for s in live}
+        pend0 = {s.slot: list(s.drafter_pending) for s in live}
+        drafts: Dict[int, List[int]] = {s.slot: [] for s in live}
+        dprobs: Dict[int, List[Any]] = {s.slot: [] for s in live}
+        toks = np.zeros(self.slots, np.int32)
+        active = np.zeros(self.slots, np.int32)
+        for s in live:
+            active[s.slot] = 1
+        for _ in range(k):
+            for s in live:
+                sl = s.slot
+                toks[sl] = feed[sl].pop(0) if feed[sl] else drafts[sl][-1]
+            la = self._drafter.step(toks, active)
+            for s in live:
+                sl = s.slot
+                if feed[sl]:
+                    continue  # still catching up; not at the draft frontier
+                if s.temperature <= 0.0:
+                    d = int(la[sl].argmax())
+                else:
+                    if s.rng is None:
+                        s.rng = np.random.default_rng(s.seed)
+                    p = _softmax(la[sl], s.temperature)
+                    dprobs[sl].append(p)
+                    d = int(s.rng.choice(len(p), p=p))
+                drafts[sl].append(d)
+        t1 = time.perf_counter()
+        # ---- verify: ONE K-token target call over every slot -----------
+        vt = np.zeros((self.slots, K), np.int32)
+        for s in live:
+            row = [s.next_token] + drafts[s.slot]
+            vt[s.slot, :len(row)] = row
+        n0 = paged_attention.launches
+        vlogits = paged_verify_step(
+            self.cfg, self.params, self._upload(vt),
+            self._upload(self._read_tables), self._upload(self._write_tables),
+            self._caches, self._rope)
+        va = vlogits.float().cpu().numpy()  # waits for the call to finish
+        self._n_kernel_launches += paged_attention.launches - n0
+        t2 = time.perf_counter()
+        self._n_steps += 1
+        self._n_spec_rounds += 1
+        self._max_active_slots = max(self._max_active_slots, len(live))
+        # ---- exact acceptance + cursor rewind on the host ---------------
+        new_lengths = self._caches[0].lengths.cpu().numpy().copy()
+        dlen = self._drafter.lengths().copy()
+        for s in live:
+            sl = s.slot
+            ds = drafts[sl]
+            old = s.cursor
+            nxt = s.next_token
+            if s.temperature <= 0.0:
+                a, emitted = accept_greedy(ds, va[sl])
+            else:
+                if s.rng is None:
+                    s.rng = np.random.default_rng(s.seed)
+                pt = [_softmax(va[sl, j], s.temperature)
+                      for j in range(len(ds) + 1)]
+                a, emitted = accept_sample(ds, dprobs[sl], pt, s.rng)
+            self._n_drafted += len(ds)
+            self._n_accepted += a
+            new_cursor = old + a + 1
+            s.cursor = new_cursor
+            new_lengths[sl] = new_cursor
+            # drafter sync: positions [L0, L0 + k) were consumed this
+            # round; the valid prefix stops at the last accepted position,
+            # and the accepted tokens the drafter missed are next round's
+            # catch-up feed
+            L0 = s.drafter_len
+            valid = min(L0 + k, new_cursor)
+            hist = pend0[sl] + [nxt] + list(ds[:a])
+            s.drafter_pending = hist[valid - L0:new_cursor - L0]
+            s.drafter_len = valid
+            dlen[sl] = valid
+            for tok in emitted:
+                s.next_token = tok
+                self._n_spec_emitted += 1
+                if self._emit_token(s, tok):
+                    self._retire(s, "length")
+                    break
+        paged_rewind_slots(self._caches, new_lengths)
+        self._drafter.set_lengths(dlen)
+        self._draft_seconds += t1 - t0
+        self._verify_seconds += t2 - t1
+        self._spec_seconds += time.perf_counter() - t0
         return True
 
     def _run(self) -> None:
@@ -479,7 +653,10 @@ class ContinuousScheduler:
                             break
                     self._admit()
                     did = self._prefill_one()
-                    did = self._decode_once() or did
+                    if self._drafter is not None:
+                        did = self._decode_spec() or did
+                    else:
+                        did = self._decode_once() or did
                     if not did:
                         with self._lock:
                             idle = not self._pending and all(
@@ -549,4 +726,22 @@ class ContinuousScheduler:
         out.update(self._arena.stats())
         out.update(self._radix.stats())
         out["prefix_hit_tokens"] = self._n_prefix_hit_tokens
+        out["plain_decode_steps"] = self._n_plain_steps
+        out["verify_rounds"] = self._n_spec_rounds
+        if self._drafter is not None:
+            out["spec_k"] = self.spec_k
+            out["drafter"] = self._drafter.name
+            out["spec_rounds"] = self._n_spec_rounds
+            out["spec_drafted_tokens"] = self._n_drafted
+            out["spec_accepted_tokens"] = self._n_accepted
+            out["spec_accept_rate"] = (
+                self._n_accepted / self._n_drafted
+                if self._n_drafted else 0.0)
+            out["spec_tokens_per_step"] = (
+                self._n_spec_emitted / self._n_spec_rounds
+                if self._n_spec_rounds else 0.0)
+            out["spec_seconds"] = self._spec_seconds
+            out["spec_draft_seconds"] = self._draft_seconds
+            out["spec_verify_seconds"] = self._verify_seconds
+            out["drafter_arena_bytes"] = self._drafter.arena_bytes
         return out

@@ -10,9 +10,18 @@ The replica runs on the CUDA card unless the caller passes ``device="cpu"``
 (as the tests do); with no card and no device named it raises. Weights come
 from ``params_loader(cfg)`` (the port's param tree, e.g. converted from JAX
 by ``ray_tpu_torch._private.convert.from_jax``) or from a seeded random
-init. Prompts go through the byte tokenizer. The serve deployment wrapper,
-the per-node shared weights arena, custom tokenizers and EOS handling are
-not ported yet.
+init. Prompts go through the byte tokenizer.
+
+``drafter`` turns on speculative decoding (``serve/_private/
+speculative.py``): ``"self"`` drafts with the replica's own params, a preset
+name with that preset's params from a seeded random init, ``""`` or ``None``
+means off; ``spec_k`` is the draft tokens per round. The JAX package also
+reads both from environment variables; here the arguments carry the same
+defaults.
+
+Not ported yet: the serve deployment wrapper, the per-node shared weights
+arena, the request-level ``scheduler="batch"`` path, custom tokenizers and
+EOS handling.
 """
 
 from __future__ import annotations
@@ -25,6 +34,7 @@ from ray_tpu_torch._private.device import resolve_device
 from ray_tpu_torch.models import presets
 from ray_tpu_torch.models.transformer import init_params, place_params
 from ray_tpu_torch.serve._private.continuous import ContinuousScheduler
+from ray_tpu_torch.serve._private.speculative import Drafter
 
 
 def _byte_tokenize(text: str, vocab_size: int) -> List[int]:
@@ -48,6 +58,8 @@ class LLMServerImpl:
                  prefill_chunk: int = 32,
                  arena_len: Optional[int] = None,
                  page_tokens: int = 16,
+                 drafter: Optional[str] = None,
+                 spec_k: int = 4,
                  device=None):
         self.device = resolve_device(device)
         self.cfg = getattr(presets, preset)()
@@ -65,7 +77,43 @@ class LLMServerImpl:
         self._sched = ContinuousScheduler(
             self.cfg, self.params, device=self.device, slots=slots,
             prefill_chunk=prefill_chunk, arena_len=arena_len,
-            page_tokens=page_tokens)
+            page_tokens=page_tokens,
+            drafter=self._build_drafter(drafter, slots, arena_len),
+            spec_k=spec_k)
+
+    def _build_drafter(self, drafter: Optional[str], slots: int,
+                       arena_len: Optional[int]) -> Optional[Drafter]:
+        """The drafter knob as a ``speculative.Drafter`` (``""``/``None``:
+        off). ``"self"`` reuses this replica's params (no extra weight
+        memory, KV adopted from the paged cache); any other name is a
+        preset whose params come from a seeded random init on this
+        replica's device. A drafter must share the target's vocabulary, or
+        its proposals would be meaningless token ids."""
+        if not drafter:
+            return None
+        arena = self.cfg.max_seq_len if arena_len is None else arena_len
+        if drafter == "self":
+            d_cfg, d_params, shares = self.cfg, self.params, True
+        else:
+            try:
+                d_cfg = getattr(presets, drafter)()
+            except AttributeError:
+                raise ValueError(f"unknown drafter preset {drafter!r}")
+            if d_cfg.vocab_size != self.cfg.vocab_size:
+                raise ValueError(
+                    f"drafter {drafter!r} vocab_size ({d_cfg.vocab_size}) "
+                    f"!= target vocab_size ({self.cfg.vocab_size})")
+            d_params = place_params(
+                d_cfg, init_params(d_cfg, seed=0, device=self.device),
+                self.device)
+            shares = False
+        if arena > d_cfg.max_seq_len:
+            raise ValueError(
+                f"drafter {drafter!r} max_seq_len ({d_cfg.max_seq_len}) is "
+                f"shorter than the serving arena ({arena})")
+        return Drafter(d_cfg, d_params, slots=slots, arena_len=arena,
+                       device=self.device, name=drafter,
+                       shares_target=shares)
 
     def _submit(self, ids: List[int], max_new: int, temperature: float):
         loop = asyncio.get_running_loop()
