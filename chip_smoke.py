@@ -15,9 +15,12 @@ of its checks fails:
      kernel, and the run fails if the bf16 K1, K2 or K3 at D=64 or 128, or
      the bf16 split kernel of K4 at any of its head widths, has none.
   3. kernel: the paged-attention kernel (split over pages, then merged;
-     the split kernel on the tensor cores in bf16, float32 FMA in float32)
-     against ``paged_attention_reference`` on the card, at llama3_8b shapes
-     (H=32, Hkv=8, D=128, 16-token pages), bf16 and float32, for decode (8
+     the split kernel on the tensor cores in bf16, float32 FMA in float32
+     and for a pool of the other dtype than q's) against
+     ``paged_attention_reference`` on the card, at llama3_8b shapes
+     (H=32, Hkv=8, D=128, 16-token pages), for the (q, pool) dtype pairs
+     bf16/bf16, float32/float32, float32/bf16 and bf16/float32 (a float16
+     call must raise), for decode (8
      slots, 1 token), prefill (1 slot, a 32-token chunk) and the
      speculative verify window (8 slots, 5 tokens, cursors 0 to 2043); row
      i of a window against a 1-token call at length + i, bit for bit: the
@@ -49,16 +52,35 @@ of its checks fails:
      contiguous slot arena, then one K4 verify window per layer; launches
      exactly layers x (prefill chunks + verify rounds), no plain decode
      step; tokens/s, round ms, TTFT, accept rate, tokens per round, the
-     drafter arena's size and peak memory. Then one verify call against 5
+     drafter arena's size, peak memory, and how many temperature-0 texts
+     equal the serve phase's (counted, not gated). Then one verify call
+     against 5
      sequential decode steps on a copy of the same caches, with the bf16
      weights and with them upcast to float32: logits within
      ``VERIFY_GATE`` of their RMS per element, and a float32 output 2%
      off refused.
-  7. parity: in float32, the port on the card against the port on the
+  7. serve-lanes: the JAX replica's serve baselines and knobs at
+     llama3_8b, full width and 32 layers, on one tree of the serve phase's
+     seed-0 weights: (a) ``attn="gather"``, (b) ``kv_layout="contiguous"``,
+     (c) a 97-page pool with the prefix cache and an ``eos_id`` from the
+     serve phase's first greedy text (at least one request retires on
+     "eos", at most 96 pages in use), (d) ``scheduler="batch"``, (e) a
+     float32 KV cache under the bf16 model (K4's bf16 q / float32 pool
+     pair), (f) the same weights in float32 over a bf16 KV cache (K4's
+     float32 q / bf16 pool pair); the 12 requests each: tokens/s, TTFT,
+     decode-step ms, K4 launches exact per dtype pair (0 off the
+     in-place lane), temperature-0 texts equal to the serve phase's
+     (counted, not gated). The kernels line's launches of the two mixed
+     pairs come from (e) and (f).
+  8. parity: in float32, the port on the card against the port on the
      CPU with the same weights, temperature-0 texts identical: llama_debug;
      llama_debug with the self drafter (also equal to the texts without
-     it); moe_debug (the mixture-of-experts layer).
-  8. train: ``init_train_state`` + ``make_train_step`` on the card, bf16
+     it); moe_debug (the mixture-of-experts layer); llama_debug under
+     (a)-(d) and with a bf16 KV cache (K4's float32/bf16 pair, launches
+     exact); the bf16 model over a float32 cache (K4's bf16/float32 pair,
+     launches exact, texts counted); ``attn="reference"`` on the card
+     refused.
+  9. train: ``init_train_state`` + ``make_train_step`` on the card, bf16
      compute over float32 params, random weights from a seed and random
      tokens: gpt2_small at full width and depth (12 layers, d 768, vocab
      50257), B16 x S1024, remat off, CE chunk 8192, one warm-up step and 5
@@ -72,7 +94,7 @@ of its checks fails:
      steps for K1. Before them, the fused CE with bf16 operands at
      gpt2_small's width and vocab against float64 (its logits keep the
      product's float32 result).
-  9. train parity: llama_debug, a tiny GPT-2 (learned positions,
+ 10. train parity: llama_debug, a tiny GPT-2 (learned positions,
      layernorm, tied) and moe_debug in float32, five steps on the card
      against five on the CPU from the same weights on the same batches:
      losses, grad norms and moe_debug's routing losses within the stated
@@ -114,6 +136,12 @@ SPEC_K = 4                # draft tokens per speculative round
 VERIFY_LENGTHS = [0, 16, 37, 100, 255, 640, 1024, ARENA_LEN - SPEC_K - 1]
 TOL = {"float32": (1e-5, 1e-5),       # atol, rtol: sum order differs
        "bfloat16": (1e-5, 2.0 ** -7)}  # at most one bf16 rounding step
+# K4's (q dtype, pool dtype) pairs: one pool dtype as q's, and a pool of
+# the other dtype (``cache_dtype``), which the FMA split kernel widens
+K4_PAIRS = {"bfloat16": ("bfloat16", "bfloat16"),
+            "float32": ("float32", "float32"),
+            "float32_q_bfloat16_pool": ("float32", "bfloat16"),
+            "bfloat16_q_float32_pool": ("bfloat16", "float32")}
 
 
 def card_line() -> str:
@@ -130,15 +158,18 @@ def kernel_label(mangled: str) -> str:
     """``flash_dkv_kernel<bf16, 128>`` from a mangled kernel name; the
     number is the head dim (the largest the kernel takes, for the paged
     split kernels), or the head-dim elements per lane of the paged merge
-    kernel. The tensor-core kernels (``*_mma_kernel<D>``) take bf16
-    only."""
+    kernel. The paged FMA split kernel names q's element type, then the
+    pool's (``paged_attention_split_kernel<f32, bf16, 128>``). The
+    tensor-core kernels (``*_mma_kernel<D>``) take bf16 only."""
     import re
 
-    m = re.search(r"\d+([a-z_]+_kernel)I(13__nv_bfloat16|f)?Li(\d+)E",
+    m = re.search(r"\d+([a-z_]+_kernel)I((?:13__nv_bfloat16|f)*)Li(\d+)E",
                   mangled)
     if not m:
         return mangled.split()[-1][:60]
-    return f"{m[1]}<{'f32' if m[2] == 'f' else 'bf16'}, {m[3]}>"
+    types = [{"f": "f32"}.get(t, "bf16")
+             for t in re.findall(r"13__nv_bfloat16|f", m[2])] or ["bf16"]
+    return f"{m[1]}<{', '.join(types)}, {m[3]}>"
 
 
 def ptxas_lines(log: str) -> list:
@@ -223,8 +254,9 @@ def hmma_counts(so: Path) -> dict:
 
 
 def make_case(torch, dtype, S, K, lengths, *, H=32, Hkv=8, D=128, T=16,
-              P=ARENA_LEN // 16, seed=0, device="cuda"):
-    """Pools, page tables and queries at the given shapes. Each slot owns
+              P=ARENA_LEN // 16, seed=0, device="cuda", pool_dtype=None):
+    """Pools, page tables and queries at the given shapes, q in ``dtype``
+    and the pools in ``pool_dtype`` (default: ``dtype``). Each slot owns
     the pages its length + K tokens need, scattered over the pool; table
     entries past them point at page 0, which holds 1e4."""
     g = torch.Generator(device="cpu").manual_seed(seed)
@@ -241,8 +273,9 @@ def make_case(torch, dtype, S, K, lengths, *, H=32, Hkv=8, D=128, T=16,
     kp[0] = 1e4
     vp[0] = 1e4
     q = torch.randn((S, K, H, D), generator=g)
-    return dict(q=q.to(device, dtype), k_pool=kp.to(device, dtype),
-                v_pool=vp.to(device, dtype), tables=tables.to(device),
+    pool_dtype = pool_dtype or dtype
+    return dict(q=q.to(device, dtype), k_pool=kp.to(device, pool_dtype),
+                v_pool=vp.to(device, pool_dtype), tables=tables.to(device),
                 lengths=torch.tensor(lengths, dtype=torch.int32,
                                      device=device))
 
@@ -273,17 +306,17 @@ def time_ms(torch, fn, iters=20, warmup=3):
 
 def bound(case, dtype_name):
     """Least time the card could take: every input read once (only the
-    pages the kernel walks), the output written once, against the memory
-    rate; the q.k and p.v products over the walked keys against the peak
-    rate for the inputs' type. Returns (ms, "bytes" | "operations")."""
+    pages the kernel walks, in the pool's dtype), the output written once
+    (in q's), against the memory rate; the q.k and p.v products over the
+    walked keys against the peak rate for ``dtype_name``, the type they
+    are computed in. Returns (ms, "bytes" | "operations")."""
     q, kp, lengths = case["q"], case["k_pool"], case["lengths"]
     S, K, H, D = q.shape
     _, T, Hkv, _ = kp.shape
     P = case["tables"].shape[1]
-    item = q.element_size()
     pages = sum(min(P, -(-(int(L) + K) // T)) for L in lengths.tolist())
-    nbytes = (2 * pages * T * Hkv * D * item     # k and v of live pages
-              + 2 * q.numel() * item             # q in, out
+    nbytes = (2 * pages * T * Hkv * D * kp.element_size()  # live k, v pages
+              + 2 * q.numel() * q.element_size()           # q in, out
               + case["tables"].numel() * 4 + S * 4)
     flops = 2 * 2 * K * H * pages * T * D
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -294,8 +327,11 @@ def bound(case, dtype_name):
 def sdpa_call(torch, case):
     """scaled_dot_product_attention over each slot's pre-gathered,
     head-expanded contiguous view with the paged mask (built outside the
-    timed call)."""
+    timed call). Where the pools' dtype is not q's, q and the views are
+    widened to float32 first, as the kernel widens both."""
     q, kp, vp = case["q"], case["k_pool"], case["v_pool"]
+    if q.dtype != kp.dtype:
+        q, kp, vp = q.float(), kp.float(), vp.float()
     tables, lengths = case["tables"].long(), case["lengths"].long()
     S, K, H, D = q.shape
     _, T, Hkv, _ = kp.shape
@@ -321,6 +357,7 @@ def _plan_line(case) -> dict:
     S, K, H, D = case["q"].shape
     _, T, Hkv, _ = case["k_pool"].shape
     plan = split_plan(S, K, H, Hkv, D, T, case["tables"].shape[1],
+                      case["k_pool"].element_size(),
                       case["q"].element_size())
     units = "tensor cores" if plan.tensor_cores else "FMA units"
     print(f"  split plan: {plan.splits} splits of {plan.pages_per_split} "
@@ -364,11 +401,14 @@ def kernel_phase(torch) -> dict:
     windows = [dict(S=1, K=32, lengths=[45]), dict(S=1, K=32, lengths=[240]),
                shapes["verify"]]
     results = {}
-    for dtype_name in ("bfloat16", "float32"):
-        dtype = getattr(torch, dtype_name)
-        atol, rtol = TOL[dtype_name]
+    for dtype_name, (q_name, pool_name) in K4_PAIRS.items():
+        dtype, pool_dtype = getattr(torch, q_name), getattr(torch, pool_name)
+        atol, rtol = TOL[q_name]  # the output is in q's dtype
+        # the tensor cores compute the bf16 pair, float32 FMA the others
+        compute = "bfloat16" if pool_name == q_name == "bfloat16" \
+            else "float32"
         for shape_name, shp in shapes.items():
-            case = make_case(torch, dtype, **shp)
+            case = make_case(torch, dtype, **shp, pool_dtype=pool_dtype)
             n0 = paged_attention.launches
             got = paged_attention(**case)
             torch.cuda.synchronize()
@@ -408,7 +448,7 @@ def kernel_phase(torch) -> dict:
             plain_ms = time_ms(torch,
                                lambda: paged_attention_reference(**case))
             library_ms = time_ms(torch, sdpa)
-            bound_ms, bound_by = bound(case, dtype_name)
+            bound_ms, bound_by = bound(case, compute)
             r = dict(max_abs_err=max_err, atol=atol, rtol=rtol, ms=ms,
                      plain_ms=plain_ms, library_ms=library_ms,
                      bound_ms=bound_ms, bound_by=bound_by,
@@ -420,12 +460,21 @@ def kernel_phase(torch) -> dict:
         # row i of a 32-token window == a 1-token call at length + i
         for shp in windows:
             _window_rows_check(torch, paged_attention,
-                               make_case(torch, dtype, **shp, seed=1),
+                               make_case(torch, dtype, **shp, seed=1,
+                                         pool_dtype=pool_dtype),
                                dtype_name)
         print(f"kernel {dtype_name}: every row of the 32-token windows at "
               f"lengths 45 and 240 and of the {SPEC_K + 1}-token verify "
               f"windows at lengths {VERIFY_LENGTHS} equals a 1-token call "
               "bit for bit", flush=True)
+    # a pair the kernels have no entry for raises; nothing falls back
+    case = make_case(torch, torch.float16, **shapes["decode"])
+    try:
+        paged_attention(**case)
+    except TypeError:
+        pass
+    else:
+        raise AssertionError("K4 ran a float16 call")
     return results
 
 
@@ -1043,67 +1092,109 @@ async def _stream(srv, req):
 
 SYSTEM_PROMPT = ("You are a careful assistant for a distributed systems "
                  "team. Answer briefly and precisely. Question: ")
+SAMPLED = 5  # the serve requests' one request sampled at temperature 0.7
+
+
+def _ids_text(ids) -> str:
+    """The llama3_8b servers' detokenizer: each token as ``<id>``, so a
+    text is its token sequence (the byte tokenizer folds 128256 ids onto
+    256 bytes)."""
+    return "".join(f"<{int(i)}>" for i in ids)
+
+
+def _text_ids(text: str) -> list:
+    return [int(t) for t in text[1:-1].split("><")] if text else []
 
 
 def _llama3_8b_server(torch, name, **kw):
     """``LLMServerImpl`` of llama3_8b at full width and depth on the card,
-    random bf16 weights from seed 0; prints its shape and set-up time."""
+    random bf16 weights from seed 0 (or ``params_loader``'s); prints its
+    shape and set-up time."""
     from ray_tpu_torch import LLMServerImpl
 
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     srv = LLMServerImpl(preset="llama3_8b", arena_len=ARENA_LEN,
-                        max_new_tokens=SERVE_NEW_TOKENS, **kw)
+                        max_new_tokens=SERVE_NEW_TOKENS,
+                        detokenize=_ids_text, **kw)
     torch.cuda.synchronize()
     cfg = srv.cfg
+    st = srv.scheduler_stats()
+    arena = (f"scheduler {st['mode']}, max batch {st['max_batch_size']}"
+             if st["mode"] == "batch" else
+             f"{st['kv_layout']} arena, slots {st['slots']}, pages "
+             f"{st.get('num_pages', 0)}, lane {st.get('attn_lane')}")
     print(f"{name}: llama3_8b, {cfg.num_layers} layers, d={cfg.embed_dim}"
           f", vocab {cfg.vocab_size}, {cfg.dtype}, arena_len "
-          f"{ARENA_LEN}, slots {srv._sched.slots}, pages "
-          f"{srv._sched.num_pages}; weights and pool ready in "
+          f"{ARENA_LEN}, {arena}; ready in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     return srv
 
 
-def _serve_requests(srv):
-    """A warm-up request, then the 12 streamed requests that share a
-    prefix (one sampled at temperature 0.7), with the K4 launch counter set
-    to 0 just before them and read just after. Returns (outs, wall seconds,
+def _serve_prompts() -> list:
+    """The serve phases' 12 prompts: ~140 byte tokens each, sharing a
+    ~123-token prefix."""
+    return [SYSTEM_PROMPT + f"what does step {i} of the plan do?"
+            for i in range(12)]
+
+
+def _serve_requests(srv, batch: bool = False):
+    """A warm-up request, then the 12 requests that share a prefix:
+    streamed (request 5 sampled at 0.7) through the continuous scheduler;
+    whole, all at temperature 0 (the batch path refuses a per-request
+    temperature), through the batch scheduler, whose TTFT is each
+    request's completion. The K4 launch counter is set to 0 just before
+    the 12 and read just after. Returns (texts, TTFTs, wall seconds, K4
     launches, stats before, stats after)."""
     from ray_tpu_torch.ops.paged_attention import paged_attention
 
-    # warm-up (cuBLAS handles, allocator), outside the counted run
     asyncio.run(srv({"prompt": "warm up", "max_new_tokens": 2}))
-    reqs = [{"prompt": SYSTEM_PROMPT + f"what does step {i} of the plan do?"}
-            for i in range(12)]
-    reqs[5]["temperature"] = 0.7
+    reqs = [{"prompt": p} for p in _serve_prompts()]
+    if not batch:
+        reqs[SAMPLED]["temperature"] = 0.7
     before = srv.scheduler_stats()
 
+    async def whole(req):
+        t0 = time.perf_counter()
+        out = await srv(req)
+        return time.perf_counter() - t0, [out["text"]]
+
     async def go():
-        return await asyncio.gather(*[_stream(srv, r) for r in reqs])
+        return await asyncio.gather(*[whole(r) if batch else _stream(srv, r)
+                                      for r in reqs])
 
     paged_attention.launches = 0
+    paged_attention.pair_launches.clear()
     t1 = time.perf_counter()
     outs = asyncio.run(go())
     wall = time.perf_counter() - t1
     launches = paged_attention.launches
     st = srv.scheduler_stats()
-    for i, (_ttft, pieces) in enumerate(outs):
-        if len(pieces) != SERVE_NEW_TOKENS:
-            raise AssertionError(f"request {i} returned {len(pieces)} "
-                                 f"tokens, not {SERVE_NEW_TOKENS}")
+    texts = ["".join(pieces) for _, pieces in outs]
+    return texts, [t for t, _ in outs], wall, launches, before, st
+
+
+def _check_paged_run(texts, st) -> None:
+    """The serve and spec-serve phases' requests each returned all their
+    tokens, through the kernel's lane."""
+    for i, text in enumerate(texts):
+        n = len(_text_ids(text))
+        if n != SERVE_NEW_TOKENS:
+            raise AssertionError(f"request {i} returned {n} tokens, not "
+                                 f"{SERVE_NEW_TOKENS}")
     if st["attn_lane"] != "cuda":
         raise AssertionError(f"attn_lane is {st['attn_lane']!r}")
-    return outs, wall, launches, before, st
 
 
 def serve_phase(torch) -> dict:
     srv = _llama3_8b_server(torch, "serve")
     try:
         cfg = srv.cfg
-        outs, wall, launches, before, st = _serve_requests(srv)
+        texts, ttfts, wall, launches, before, st = _serve_requests(srv)
         prof = profile_decode(torch, srv, SYSTEM_PROMPT)
     finally:
         srv.shutdown()
+    _check_paged_run(texts, st)
     steps = st["decode_steps"] - before["decode_steps"]
     chunks = st["prefill_chunks"] - before["prefill_chunks"]
     own = st["kernel_launches"] - before["kernel_launches"]
@@ -1116,9 +1207,8 @@ def serve_phase(torch) -> dict:
             f"{steps} decode steps)")
     if st["max_active_slots"] > 8:
         raise AssertionError("more than 8 sequences decoded at once")
-    tokens = len(outs) * SERVE_NEW_TOKENS
-    ttfts = [t for t, _ in outs]
-    r = dict(requests=len(outs), tokens=tokens, wall_s=wall,
+    tokens = len(texts) * SERVE_NEW_TOKENS
+    r = dict(requests=len(texts), tokens=tokens, wall_s=wall,
              tokens_per_s=tokens / wall,
              decode_step_ms=(st["decode_seconds"]
                              - before["decode_seconds"]) / steps * 1e3,
@@ -1127,7 +1217,7 @@ def serve_phase(torch) -> dict:
              prefix_hits=st["prefix_hits"] - before.get("prefix_hits", 0),
              max_active_slots=st["max_active_slots"],
              peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
-             profile=prof)
+             profile=prof, texts=texts)
     print(f"serve: {r['requests']} requests, {tokens} tokens in {wall:.2f} s"
           f" = {r['tokens_per_s']:.1f} tokens/s; mean decode step "
           f"{r['decode_step_ms']:.2f} ms over {steps} steps; TTFT mean "
@@ -1157,7 +1247,9 @@ def _verify_and_steps(torch, cfg, params, rope, lens, K, T=16):
     of random tokens from a fixed seed) to cursor lens[s]; then one
     ``paged_verify_step`` over a K-token window of random tokens, and K
     ``paged_decode_step`` calls on a copy of the same caches. Returns the
-    two [slots, K, vocab] float32 logits."""
+    two [slots, K, vocab] float32 logits and the host ms of the verify
+    call (its second call: a verify writes the same k/v again and moves
+    no cursor) and of each step, each ending in a synchronize."""
     from ray_tpu_torch.models import decode
 
     P = ARENA_LEN // T
@@ -1185,17 +1277,33 @@ def _verify_and_steps(torch, cfg, params, rope, lens, K, T=16):
     lengths = caches[0].lengths.clone()
     copy = [decode.PagedKVCache(k=c.k.clone(), v=c.v.clone(),
                                 lengths=lengths) for c in caches]
-    verify = decode.paged_verify_step(cfg, params, win, tables, tables,
-                                      caches, rope).float()
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def verify_call():
+        return decode.paged_verify_step(cfg, params, win, tables, tables,
+                                        caches, rope)
+
+    verify_call()  # warm-up; the timed call writes the same k/v again
+    verify, verify_ms = timed(verify_call)
     ones = torch.ones(len(lens), dtype=torch.int32, device="cuda")
-    seq = torch.stack([decode.paged_decode_step(
-        cfg, params, win[:, j].contiguous(), ones, tables, tables, copy,
-        rope) for j in range(K)], dim=1).float()
+    steps, step_ms = [], []
+    for j in range(K):
+        out, ms = timed(lambda: decode.paged_decode_step(
+            cfg, params, win[:, j].contiguous(), ones, tables, tables, copy,
+            rope))
+        steps.append(out)
+        step_ms.append(ms)
+    verify, seq = verify.float(), torch.stack(steps, dim=1).float()
     if caches[0].lengths.tolist() != lens:
         raise AssertionError("the verify call moved the cursors")
     if lengths.tolist() != [n + K for n in lens]:
         raise AssertionError("the decode steps did not advance the cursors")
-    return verify, seq
+    return verify, seq, dict(verify_ms=verify_ms, step_ms=step_ms)
 
 
 def verify_logits_check(torch, srv) -> dict:
@@ -1209,10 +1317,11 @@ def verify_logits_check(torch, srv) -> dict:
 
     cfg, rope = srv.cfg, srv._sched._rope
     lens, K = [0, 16, 37, 100, 255, 300, 480, 640], SPEC_K + 1
-    v16, s16 = _verify_and_steps(torch, cfg, srv.params, rope, lens, K)
+    v16, s16, t16 = _verify_and_steps(torch, cfg, srv.params, rope, lens,
+                                      K)
     cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
     p32 = place_params(cfg32, srv.params, torch.device("cuda"))
-    v32, s32 = _verify_and_steps(torch, cfg32, p32, rope, lens, K)
+    v32, s32, _ = _verify_and_steps(torch, cfg32, p32, rope, lens, K)
     del p32
 
     def share(a, b):  # max |a - b| over the RMS of b
@@ -1225,7 +1334,9 @@ def verify_logits_check(torch, srv) -> dict:
              off_share=share(s32 * (1 + VERIFY_OFF), s32),
              argmax_equal_bf16=float((v16.argmax(-1) == s16.argmax(-1))
                                      .float().mean()),
-             rel_l2_bf16=float((v16 - s16).norm() / s16.norm()))
+             rel_l2_bf16=float((v16 - s16).norm() / s16.norm()),
+             verify_ms=t16["verify_ms"], step_ms=t16["step_ms"])
+    steps = ", ".join(f"{ms:.2f}" for ms in r["step_ms"])
     print(f"spec-serve verify check: one {K}-token verify call against {K} "
           f"decode steps on a copy of the caches (cursors {lens}): max "
           f"|diff| {r['bfloat16']:.4f} x RMS in bf16 (gate "
@@ -1234,7 +1345,11 @@ def verify_logits_check(torch, srv) -> dict:
           f"the bf16 steps against float32 {r['bf16_own_error']:.4f}), "
           f"{r['float32']:.2e} x RMS in float32 (gate "
           f"{VERIFY_GATE['float32']:g}); an output {100 * VERIFY_OFF:g}% "
-          f"off is {r['off_share']:.4f} x RMS", flush=True)
+          f"off is {r['off_share']:.4f} x RMS. In bf16 the verify call "
+          f"took {r['verify_ms']:.2f} ms and the {K} steps "
+          f"{sum(r['step_ms']):.2f} ms ({steps}): verifying by the steps' "
+          "own 8-row GEMMs, the arrangement that would make them agree "
+          "bitwise, costs the difference a round", flush=True)
     for dtype_name, gate in VERIFY_GATE.items():
         if not r[dtype_name] <= gate:
             raise AssertionError(f"{dtype_name} verify logits differ from "
@@ -1246,15 +1361,30 @@ def verify_logits_check(torch, srv) -> dict:
     return r
 
 
-def spec_serve_phase(torch, card) -> dict:
+def _equal_greedy(texts, plain, eos=None) -> int:
+    """How many of the temperature-0 requests' texts equal the plain serve
+    phase's (each plain text cut after its first ``eos``, if given)."""
+    n = 0
+    for i, (got, want) in enumerate(zip(texts, plain)):
+        if i == SAMPLED:
+            continue
+        ids = _text_ids(want)
+        if eos is not None and eos in ids:
+            ids = ids[:ids.index(eos) + 1]
+        n += _text_ids(got) == ids
+    return n
+
+
+def spec_serve_phase(torch, card, plain) -> dict:
     """llama3_8b at full width and depth with the self drafter, spec_k 4:
     the serve phase's 12 streamed requests through drafter steps and K4
-    verify windows, then the verify logits check."""
+    verify windows; how many temperature-0 texts equal the plain serve
+    phase's ``plain`` texts; then the verify logits check."""
     srv = _llama3_8b_server(torch, "spec-serve", drafter="self",
                             spec_k=SPEC_K)
     try:
         cfg = srv.cfg
-        outs, wall, launches, before, st = _serve_requests(srv)
+        texts, ttfts, wall, launches, before, st = _serve_requests(srv)
         peak = torch.cuda.max_memory_allocated() / 1e9  # the serving run
         prof = profile_decode(torch, srv, SYSTEM_PROMPT)
         check = verify_logits_check(torch, srv)
@@ -1277,10 +1407,14 @@ def spec_serve_phase(torch, card) -> dict:
             f"{launches} kernel launches (scheduler counted "
             f"{d['kernel_launches']}), expected {cfg.num_layers} x ({chunks} "
             f"prefill chunks + {rounds} verify rounds)")
-    tokens = len(outs) * SERVE_NEW_TOKENS
-    ttfts = [t for t, _ in outs]
-    r = dict(requests=len(outs), tokens=tokens, wall_s=wall,
-             tokens_per_s=tokens / wall, verify_rounds=rounds,
+    _check_paged_run(texts, st)
+    tokens = len(texts) * SERVE_NEW_TOKENS
+    equal = _equal_greedy(texts, plain)
+    print(f"spec-serve: {equal} of {len(texts) - 1} temperature-0 texts "
+          "equal the plain serve phase's, token for token", flush=True)
+    r = dict(requests=len(texts), tokens=tokens, wall_s=wall,
+             greedy_texts_equal=equal, tokens_per_s=tokens / wall,
+             verify_rounds=rounds,
              prefill_chunks=chunks, launches=launches,
              round_ms=d["spec_seconds"] / rounds * 1e3,
              draft_ms=d["spec_draft_seconds"] / rounds * 1e3,
@@ -1291,7 +1425,7 @@ def spec_serve_phase(torch, card) -> dict:
              drafted=d["spec_drafted_tokens"],
              accepted=d["spec_accepted_tokens"],
              # each request's first token comes from its prefill
-             tokens_per_round=(d["tokens_generated"] - len(outs)) / rounds,
+             tokens_per_round=(d["tokens_generated"] - len(texts)) / rounds,
              drafter_arena_gb=st["drafter_arena_bytes"] / 1e9,
              peak_mem_gb=peak, profile=prof, verify_check=check)
     print(f"spec-serve: {r['requests']} requests, {tokens} tokens in "
@@ -1307,6 +1441,119 @@ def spec_serve_phase(torch, card) -> dict:
           f"{r['drafter_arena_gb']:.2f} GB; peak memory {peak:.1f} GB; "
           f"card {card}", flush=True)
     return r
+
+
+# the serve-lanes phase's pool for (c): a request takes 11 pages (~140
+# prompt tokens + 32 new, 16-token pages); 12 for each of the 8 slots plus
+# the garbage page, against 8 x 128 + 1 for the worst case
+LANES_KV_PAGES = 8 * 12 + 1
+EOS_AT = 8  # (c)'s eos_id: this token of the first greedy serve text
+
+
+def serve_lanes_phase(torch, plain) -> dict:
+    """The JAX replica's serve baselines and knobs at llama3_8b, full width
+    and all 32 layers, on one tree of seed-0 bf16 weights (the serve
+    phase's) shared by every configuration through ``params_loader``:
+    (a) ``attn="gather"``, (b) ``kv_layout="contiguous"``, (c) a pool of
+    ``LANES_KV_PAGES`` pages with the prefix cache and an ``eos_id`` the
+    serve phase's first greedy text emits, (d) ``scheduler="batch"``. Each
+    (e) ``cache_dtype=torch.float32`` (K4 on its bf16 q / float32 pool
+    pair), (f) the same tree in float32 (``preset_overrides``) over
+    ``cache_dtype=torch.bfloat16`` (K4's float32 q / bf16 pool pair).
+    Each runs the serve phase's 12 requests and is freed before the next.
+    K4 launches are exact for each dtype pair: 0 off the in-place lane,
+    layers x (chunks + steps) on it. The count of temperature-0 texts
+    equal to the serve phase's ``plain`` texts (up to the EOS in (c)) is
+    printed, not gated: in bf16 the lanes' attention and the batch path's
+    GEMMs round otherwise, and (e) and (f) keep or widen other
+    roundings."""
+    from ray_tpu_torch import presets
+    from ray_tpu_torch.models.transformer import init_params
+    from ray_tpu_torch.ops.paged_attention import paged_attention
+
+    cfg = presets.llama3_8b()
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    print(f"serve-lanes: seed-0 bf16 weights of llama3_8b, one tree for "
+          f"every configuration, in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    eos = _text_ids(plain[0])[EOS_AT]
+    configs = {
+        "a_gather": dict(attn="gather"),
+        "b_contiguous": dict(kv_layout="contiguous"),
+        "c_kv_pages": dict(kv_pages=LANES_KV_PAGES, eos_id=eos),
+        "d_batch": dict(scheduler="batch"),
+        "e_cache_f32": dict(cache_dtype=torch.float32),
+        "f_f32_cache_bf16": dict(preset_overrides={"dtype": torch.float32},
+                                 cache_dtype=torch.bfloat16),
+    }
+    # the K4 dtype pair (q/pool) of each in-place configuration
+    pairs = {"c_kv_pages": "bfloat16/bfloat16",
+             "e_cache_f32": "bfloat16/float32",
+             "f_f32_cache_bf16": "float32/bfloat16"}
+    out = {"eos_id": eos}
+    for name, kw in configs.items():
+        batch = kw.get("scheduler") == "batch"
+        srv = _llama3_8b_server(torch, f"serve-lanes {name}",
+                                params_loader=lambda c: params, **kw)
+        try:
+            texts, ttfts, wall, launches, before, st = _serve_requests(
+                srv, batch)
+            pair_launches = dict(paged_attention.pair_launches)
+        finally:
+            srv.shutdown()
+            del srv
+            _free(torch)
+        tokens = sum(len(_text_ids(t)) for t in texts)
+        r = dict(requests=len(texts), tokens=tokens, wall_s=wall,
+                 tokens_per_s=tokens / wall,
+                 ttft_mean_s=sum(ttfts) / len(ttfts), ttft_max_s=max(ttfts),
+                 launches=launches, pair_launches=pair_launches,
+                 greedy_texts_equal=_equal_greedy(
+                     texts, plain, eos if "eos_id" in kw else None))
+        line = ""
+        if not batch:
+            steps = st["decode_steps"] - before["decode_steps"]
+            chunks = st["prefill_chunks"] - before["prefill_chunks"]
+            r.update(decode_steps=steps, prefill_chunks=chunks,
+                     decode_step_ms=(st["decode_seconds"]
+                                     - before["decode_seconds"])
+                     / steps * 1e3)
+            line = (f"; mean decode step {r['decode_step_ms']:.2f} ms over "
+                    f"{steps} steps, {chunks} prefill chunks")
+        want = {}
+        if name in pairs:
+            want = {pairs[name]: cfg.num_layers * (r["prefill_chunks"]
+                                                   + r["decode_steps"])}
+        if name == "c_kv_pages":
+            r.update(peak_pages_in_use=st["peak_pages_in_use"],
+                     num_pages=st["num_pages"],
+                     evicted_pages=st["evicted_pages_total"],
+                     retired_eos=st["retired_eos"] - before["retired_eos"])
+            line += (f"; peak pages in use {r['peak_pages_in_use']} of "
+                     f"{st['usable_pages']}, {r['evicted_pages']} pages "
+                     f"evicted, {r['retired_eos']} requests retired on "
+                     f"eos_id {eos}")
+            if r["retired_eos"] < 1:
+                raise AssertionError("(c): no request retired on 'eos'")
+            if r["peak_pages_in_use"] > LANES_KV_PAGES - 1:
+                raise AssertionError(f"(c): {r['peak_pages_in_use']} pages "
+                                     "in use at the peak")
+        if pair_launches != want or launches != sum(want.values()):
+            raise AssertionError(f"serve-lanes {name}: K4 launches "
+                                 f"{pair_launches} ({launches} in all), "
+                                 f"expected {want}")
+        print(f"serve-lanes {name}: {r['requests']} requests, {tokens} "
+              f"tokens in {wall:.2f} s = {r['tokens_per_s']:.1f} tokens/s; "
+              f"TTFT mean {r['ttft_mean_s']:.3f} s, max "
+              f"{r['ttft_max_s']:.3f} s{line}; K4 launches by q/pool "
+              f"dtype {pair_launches} (expected {want}); "
+              f"{r['greedy_texts_equal']} of 11 "
+              "temperature-0 texts equal the serve phase's", flush=True)
+        out[name] = r
+    del params
+    return out
 
 
 def profile_decode(torch, srv, system) -> dict:
@@ -1371,13 +1618,14 @@ def profile_decode(torch, srv, system) -> dict:
 
 def _parity_texts(preset, host, dev, **kw):
     """Temperature-0 texts of 9 requests (3 prompts x 3) from a small
-    float32 server on ``dev`` with the given host weights, and its stats."""
+    server on ``dev`` with the given host weights, and its stats."""
     from ray_tpu_torch import LLMServerImpl
 
     prompts = ["hi", "hello 123", "a much longer prompt than the others!"]
     srv = LLMServerImpl(preset=preset, max_new_tokens=8, slots=4,
                         prefill_chunk=8, page_tokens=4, device=dev,
-                        params_loader=lambda c: host, **kw)
+                        detokenize=_ids_text, params_loader=lambda c: host,
+                        **kw)
     try:
         async def go():
             return await asyncio.gather(
@@ -1448,7 +1696,8 @@ def parity_phase(torch) -> dict:
         diffs.append(float((a - b).abs().max()))
     r = dict(texts_equal=True, max_logit_diff=max(diffs),
              spec_accept_rate=st["spec_accept_rate"],
-             spec_verify_rounds=st["verify_rounds"])
+             spec_verify_rounds=st["verify_rounds"],
+             lanes=parity_lanes(torch, cfg, host, texts["cpu"]))
     print(f"parity: float32, card and CPU texts identical ({len(texts['cpu'])}"
           f" requests each): llama_debug; llama_debug with the self drafter "
           f"(spec_k {SPEC_K}, accept rate {st['spec_accept_rate']:.3f}, "
@@ -1458,6 +1707,76 @@ def parity_phase(torch) -> dict:
     if not r["max_logit_diff"] < 1e-4:
         raise AssertionError("card and CPU logits differ by more than 1e-4")
     return r
+
+
+def parity_lanes(torch, cfg, host, base) -> dict:
+    """The serve-lanes configurations and ``cache_dtype`` at llama_debug:
+    card texts against CPU texts, identical in float32 for (a)
+    ``attn="gather"``, (b) ``kv_layout="contiguous"``, (c) a pool below the
+    worst case with an ``eos_id`` (the third token of the longest prompt's
+    text ``base[2]``), (d) ``scheduler="batch"``, and a bf16 cache under
+    the float32 model, which runs K4 on the (float32 q, bf16 pool) pair,
+    its launches exact. Then the bf16 model over a float32 cache, K4's
+    (bf16 q, float32 pool) pair, launches exact (card against CPU texts
+    counted, not gated: bf16 GEMMs round otherwise on the two). And
+    ``attn="reference"`` on the card must raise."""
+    from ray_tpu_torch import LLMServerImpl
+    from ray_tpu_torch.ops.paged_attention import paged_attention
+
+    eos = _text_ids(base[2])[2]
+    # 4 slots of the longest prompt + 8 tokens, 12 pages each, fit
+    configs = {"a_gather": dict(attn="gather"),
+               "b_contiguous": dict(kv_layout="contiguous"),
+               "c_kv_pages": dict(kv_pages=4 * 12 + 1, eos_id=eos),
+               "d_batch": dict(scheduler="batch"),
+               "cache_bf16": dict(cache_dtype=torch.bfloat16),
+               "bf16_cache_f32": dict(
+                   preset_overrides={"dtype": torch.bfloat16},
+                   cache_dtype=torch.float32)}
+    pairs = {"cache_bf16": "float32/bfloat16",
+             "bf16_cache_f32": "bfloat16/float32"}
+    out = {"eos_id": eos}
+    for name, kw in configs.items():
+        paged_attention.pair_launches.clear()
+        paged_attention.launches = 0
+        card, st = _parity_texts("llama_debug", host, "cuda", **kw)
+        launches = dict(paged_attention.pair_launches)
+        cpu, _ = _parity_texts("llama_debug", host, "cpu", **kw)
+        equal = sum(a == b for a, b in zip(card, cpu))
+        r = dict(texts_equal=equal, launches=launches)
+        if name == "bf16_cache_f32":
+            print(f"parity {name}: {equal} of {len(cpu)} card texts equal "
+                  "the CPU's (bf16 model, not gated)", flush=True)
+        elif equal != len(cpu):
+            raise AssertionError(f"parity {name}: card and CPU texts "
+                                 f"differ: {card} {cpu}")
+        if name == "c_kv_pages" and st["retired_eos"] < 1:
+            raise AssertionError("parity c_kv_pages: no 'eos' retire")
+        if st["mode"] == "batch" or st["kv_layout"] == "contiguous" \
+                or st.get("attn_lane") == "gather":
+            want = {}
+        else:
+            n = cfg.num_layers * (st["prefill_chunks"] + st["decode_steps"])
+            want = {pairs.get(name, "float32/float32"): n}
+        if launches != want:
+            raise AssertionError(f"parity {name}: K4 launches {launches}, "
+                                 f"expected {want}")
+        out[name] = r
+    try:
+        LLMServerImpl(preset="llama_debug", attn="reference",
+                      params_loader=lambda c: host)
+    except ValueError as e:
+        out["reference_on_card"] = str(e)
+    else:
+        raise AssertionError("attn='reference' served on the card")
+    print(f"parity lanes: float32 card and CPU texts identical for "
+          f"gather, contiguous, kv_pages 49 with eos_id {eos}, batch and a "
+          f"bf16 cache (K4 (float32 q, bf16 pool) launches "
+          f"{out['cache_bf16']['launches']}); the bf16 model over a "
+          f"float32 cache ran K4 (bf16 q, float32 pool) "
+          f"{out['bf16_cache_f32']['launches']}; attn='reference' on the "
+          "card refused", flush=True)
+    return out
 
 
 def _free(torch):
@@ -1490,7 +1809,9 @@ def main() -> int:
     flash = flash_kernel_phase(torch)
     serve = serve_phase(torch)
     _free(torch)
-    spec_serve = spec_serve_phase(torch, card)
+    spec_serve = spec_serve_phase(torch, card, serve["texts"])
+    _free(torch)
+    lanes = serve_lanes_phase(torch, serve["texts"])
     _free(torch)
     parity = parity_phase(torch)
     train = train_phase(torch)
@@ -1509,6 +1830,25 @@ def main() -> int:
         "bound_by": main_case["bound_by"],
         "library_ms": main_case["library_ms"],
     }]}
+    # K4 over a pool of another dtype than q's, at llama3_8b decode; their
+    # launches come from the serve-lanes runs of llama3_8b with that pair
+    for pair, label, run in (
+            ("float32_q_bfloat16_pool", "f32q_bf16pool", "f_f32_cache_bf16"),
+            ("bfloat16_q_float32_pool", "bf16q_f32pool", "e_cache_f32")):
+        case = kern[f"decode_{pair}"]
+        kernels["kernels"].append({
+            "name": f"paged_attention_{label}",
+            "route": "cuda",
+            "source": "ray_tpu_torch/csrc/paged_attention.cu",
+            "replaces": "ray_tpu/ops/paged_attention.py:139",
+            "launches": lanes[run]["launches"],
+            "max_abs_err": case["max_abs_err"],
+            "ms": case["ms"],
+            "plain_ms": case["plain_ms"],
+            "bound_ms": case["bound_ms"],
+            "bound_by": case["bound_by"],
+            "library_ms": case["library_ms"],
+        })
     # the flash kernels at the main path's shapes: gpt2_small, bf16
     fcase = flash["gpt2_small_bfloat16"]
     launches = train["gpt2_small"]["launches"]
@@ -1532,7 +1872,8 @@ def main() -> int:
             "library_ms": fcase[f"{key}_library_ms"],
         })
     detail = {"card": card, "build": build, "kernel": kern, "flash": flash,
-              "serve": serve, "spec_serve": spec_serve, "parity": parity,
+              "serve": serve, "spec_serve": spec_serve,
+              "serve_lanes": lanes, "parity": parity,
               "train": train,
               "train_parity": train_parity,
               "seconds": time.perf_counter() - t_start}

@@ -43,8 +43,10 @@
 //     a step is 4 pages, one a warp, two steps in flight; the query tile
 //     is always 16 rows (zeros past the call's rows). P goes to P.V as
 //     bf16 hi + lo parts, so it keeps float32's precision to ~2^-17.
-//   * float32 pools, and the other bf16 shapes: paged_attention_split_
-//     kernel, float32 FMA. Every warp has work at decode (K G = 4 rows): a
+//   * float32 pools, the other bf16 shapes, and a pool whose dtype is not
+//     q's (float32 q over a bf16 pool, bf16 q over a float32 pool: the
+//     TPU kernel widens q and every page to float32 and writes q's dtype,
+//     and so does this one): paged_attention_split_kernel, float32 FMA. Every warp has work at decode (K G = 4 rows): a
 //     score (row, key) is one quad of lanes, each lane a sequential FMA
 //     chain over its eighth of D, summed by two shuffles; P.V gives each
 //     thread 4 columns of up to kRowTile / (128 / (D / 4)) rows, a
@@ -170,22 +172,24 @@ __device__ __forceinline__ void issue_item(
   cp_async_commit();
 }
 
-// dynamic shared memory of the split kernel: the page ring, the tile's
-// query rows, its scores, the split's page ids
-__host__ __device__ constexpr int split_smem(int D, int elem, int Tp,
-                                             int rt) {
-  return kRing * Tp * row_bytes(D, elem) + rt * row_bytes(D, elem) +
+// dynamic shared memory of the split kernel: the page ring (rows of the
+// pool's elements), the tile's query rows (q's elements), its scores, the
+// split's page ids
+__host__ __device__ constexpr int split_smem(int D, int elem_q, int elem_p,
+                                             int Tp, int rt) {
+  return kRing * Tp * row_bytes(D, elem_p) + rt * row_bytes(D, elem_q) +
          rt * pages_per_split(Tp) * Tp * 4 + pages_per_split(Tp) * 4;
 }
 
-// One split of one (slot, kv head, row tile), for head widths D <= DMAX.
+// One split of one (slot, kv head, row tile), for head widths D <= DMAX;
+// q in TQ, the pools in TP, each widened to float32 as it is read.
 // Workspace: ws_acc [S, Hkv, splits, R, D] (unnormalised P.V sums),
 // ws_ml [S, Hkv, splits, R, 2] (row max m, row sum l), R = K * G.
-template <typename T, int DMAX>
+template <typename TQ, typename TP, int DMAX>
 __global__ void __launch_bounds__(kThreads)
-paged_attention_split_kernel(const T* __restrict__ q,          // [S,K,H,D]
-                             const T* __restrict__ k_pool,     // [N,Tp,Hkv,D]
-                             const T* __restrict__ v_pool,     // [N,Tp,Hkv,D]
+paged_attention_split_kernel(const TQ* __restrict__ q,         // [S,K,H,D]
+                             const TP* __restrict__ k_pool,    // [N,Tp,Hkv,D]
+                             const TP* __restrict__ v_pool,    // [N,Tp,Hkv,D]
                              const int* __restrict__ tables,   // [S, P]
                              const int* __restrict__ lengths,  // [S]
                              float* __restrict__ ws_acc,
@@ -206,12 +210,14 @@ paged_attention_split_kernel(const T* __restrict__ q,          // [S,K,H,D]
   const int warp = tid >> 5;
   const int lane = tid & 31;
 
-  const int rb = row_bytes(D, sizeof(T));
-  const int ldp = rb / static_cast<int>(sizeof(T));  // row stride
+  const int rb = row_bytes(D, sizeof(TP));
+  const int ldp = rb / static_cast<int>(sizeof(TP));  // page row stride
   const int slot_bytes = Tp * rb;
+  const int rbq = row_bytes(D, sizeof(TQ));
+  const int ldq = rbq / static_cast<int>(sizeof(TQ));  // query row stride
   unsigned char* ring = smem;                               // [kRing][Tp]
-  const T* qs = reinterpret_cast<const T*>(smem + kRing * slot_bytes);
-  float* sc = reinterpret_cast<float*>(smem + (kRing * Tp + rt) * rb);
+  const TQ* qs = reinterpret_cast<const TQ*>(smem + kRing * slot_bytes);
+  float* sc = reinterpret_cast<float*>(smem + kRing * slot_bytes + rt * rbq);
   int* pids = reinterpret_cast<int*>(sc + rt * KS);         // [pps]
 
   // the split's page ids and the slot's length, loaded side by side
@@ -226,15 +232,15 @@ paged_attention_split_kernel(const T* __restrict__ q,          // [S,K,H,D]
 
   // the tile's query rows, in q's dtype, join the first item's group
   {
-    const int chunks = D * static_cast<int>(sizeof(T)) / 16;
+    const int chunks = D * static_cast<int>(sizeof(TQ)) / 16;
     for (int e = tid; e < rt * chunks; e += kThreads) {
       const int r = e / chunks;
       const int c = e - r * chunks;
       const int i = (r0 + r) / G;
       const int h = kvh * G + (r0 + r - i * G);
-      cp_async16(smem_addr(smem + (kRing * Tp + r) * rb + c * 16),
+      cp_async16(smem_addr(smem + kRing * slot_bytes + r * rbq + c * 16),
                  q + ((static_cast<size_t>(s) * K + i) * H + h) * D +
-                     c * (16 / sizeof(T)));
+                     c * (16 / sizeof(TQ)));
     }
   }
   __syncthreads();  // the page ids are in place
@@ -267,8 +273,8 @@ paged_attention_split_kernel(const T* __restrict__ q,          // [S,K,H,D]
                kvh, Hkv, D, Tp);
     cp_async_wait<kRing - 1>();  // item it has landed (this thread's part)
     __syncthreads();
-    const T* page =
-        reinterpret_cast<const T*>(ring + (it % kRing) * slot_bytes);
+    const TP* page =
+        reinterpret_cast<const TP*>(ring + (it % kRing) * slot_bytes);
     if (it < n) {
       // scores of page it: quad -> pairs (row, key) quad + 32 u, each an
       // independent chain; lane ql -> chunks ql + 4 c of the row
@@ -293,7 +299,7 @@ paged_attention_split_kernel(const T* __restrict__ q,          // [S,K,H,D]
               if (ok[u]) {
                 float kx[8], qx[8];
                 load8(kx, page + pt[u] * ldp + 8 * ch);
-                load8(qx, qs + pr[u] * ldp + 8 * ch);
+                load8(qx, qs + pr[u] * ldq + 8 * ch);
 #pragma unroll
                 for (int e = 0; e < 8; ++e)
                   part[u] = fmaf(qx[e], kx[e], part[u]);
@@ -734,7 +740,7 @@ cudaError_t set_smem(Kernel kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
-template <typename T, int DMAX>
+template <typename TQ, typename TP, int DMAX>
 cudaError_t launch_d(const void* q, const void* k_pool, const void* v_pool,
                      const void* tables, const void* lengths, void* out,
                      void* ws_acc, void* ws_ml, int S, int K, int H, int Hkv,
@@ -743,43 +749,46 @@ cudaError_t launch_d(const void* q, const void* k_pool, const void* v_pool,
   const int R = K * (H / Hkv);
   const int rt = R < kRowTile ? R : kRowTile;
   const dim3 grid(S, Hkv, splits * ((R + kRowTile - 1) / kRowTile));
-  // the tensor cores take bf16 at the head widths they are built for
-  const bool tensor_cores =
-      std::is_same<T, bf16>::value && D == DMAX && Tp % 16 == 0;
-  const size_t smem = tensor_cores ? split_mma_smem(D, Tp)
-                                   : split_smem(D, sizeof(T), Tp, rt);
+  // the tensor cores take bf16 q and pools at the head widths they are
+  // built for
+  constexpr bool kBf16 =
+      std::is_same<TQ, bf16>::value && std::is_same<TP, bf16>::value;
+  const bool tensor_cores = kBf16 && D == DMAX && Tp % 16 == 0;
+  const size_t smem = tensor_cores
+                          ? split_mma_smem(D, Tp)
+                          : split_smem(D, sizeof(TQ), sizeof(TP), Tp, rt);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   cudaError_t err;
-  if constexpr (std::is_same<T, bf16>::value) {
+  if constexpr (kBf16) {
     if (tensor_cores) {
       auto kernel = paged_attention_split_mma_kernel<DMAX>;
       err = set_smem(kernel, smem);
       if (err != cudaSuccess) return err;
       kernel<<<grid, kThreads, smem, stream>>>(
-          static_cast<const T*>(q), static_cast<const T*>(k_pool),
-          static_cast<const T*>(v_pool), static_cast<const int*>(tables),
+          static_cast<const bf16*>(q), static_cast<const bf16*>(k_pool),
+          static_cast<const bf16*>(v_pool), static_cast<const int*>(tables),
           static_cast<const int*>(lengths), static_cast<float*>(ws_acc),
           static_cast<float*>(ws_ml), K, H, Hkv, N, Tp, P, splits, sm_scale);
     }
   }
   if (!tensor_cores) {
-    auto kernel = paged_attention_split_kernel<T, DMAX>;
+    auto kernel = paged_attention_split_kernel<TQ, TP, DMAX>;
     err = set_smem(kernel, smem);
     if (err != cudaSuccess) return err;
     kernel<<<grid, kThreads, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k_pool),
-        static_cast<const T*>(v_pool), static_cast<const int*>(tables),
+        static_cast<const TQ*>(q), static_cast<const TP*>(k_pool),
+        static_cast<const TP*>(v_pool), static_cast<const int*>(tables),
         static_cast<const int*>(lengths), static_cast<float*>(ws_acc),
         static_cast<float*>(ws_ml), K, H, Hkv, D, N, Tp, P, splits,
         sm_scale);
   }
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  paged_attention_merge_kernel<T, DMAX / 32>
+  paged_attention_merge_kernel<TQ, DMAX / 32>
       <<<dim3((R + kWarps - 1) / kWarps, Hkv, S), kThreads, 0, stream>>>(
           static_cast<const float*>(ws_acc),
           static_cast<const float*>(ws_ml), static_cast<const int*>(lengths),
-          static_cast<T*>(out), K, H, Hkv, D, Tp, P, splits);
+          static_cast<TQ*>(out), K, H, Hkv, D, Tp, P, splits);
   return cudaGetLastError();
 }
 
@@ -791,7 +800,7 @@ cudaError_t launch_d(const void* q, const void* k_pool, const void* v_pool,
   else if (D <= 256) { constexpr int kD = 256; err = CALL; }    \
   else err = cudaErrorInvalidValue;
 
-template <typename T>
+template <typename TQ, typename TP>
 int launch(const void* q, const void* k_pool, const void* v_pool,
            const void* tables, const void* lengths, void* out, void* ws_acc,
            void* ws_ml, int S, int K, int H, int Hkv, int D, int N, int Tp,
@@ -808,16 +817,18 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
   if (static_cast<long long>(splits) * tiles > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err;
-  PAGED_DISPATCH_D((launch_d<T, kD>(q, k_pool, v_pool, tables, lengths, out,
-                                    ws_acc, ws_ml, S, K, H, Hkv, D, N, Tp, P,
-                                    splits, sm_scale, st)))
+  PAGED_DISPATCH_D((launch_d<TQ, TP, kD>(q, k_pool, v_pool, tables, lengths, out,
+                                        ws_acc, ws_ml, S, K, H, Hkv, D, N,
+                                        Tp, P, splits, sm_scale, st)))
   return static_cast<int>(err);
 }
 
 }  // namespace
 
-// Plain C entry points, one per dtype, loaded with ctypes. Each launches the
-// split kernel and the merge kernel on `stream` and returns
+// Plain C entry points, one per (q dtype, pool dtype) pair, loaded with
+// ctypes: f32 and bf16 name both, f32_bf16 is float32 q over bf16 pools and
+// bf16_f32 bf16 q over float32 pools; the output is in q's dtype. Each
+// launches the split kernel and the merge kernel on `stream` and returns
 // cudaGetLastError() after the launches (0 = launched). `pages` is the
 // caller's pages per split, checked against this file's.
 extern "C" int paged_attention_f32(const void* q, const void* k_pool,
@@ -827,7 +838,7 @@ extern "C" int paged_attention_f32(const void* q, const void* k_pool,
                                    int H, int Hkv, int D, int N, int Tp,
                                    int P, int pages, float sm_scale,
                                    void* stream) {
-  return launch<float>(q, k_pool, v_pool, tables, lengths, out, ws_acc, ws_ml,
+  return launch<float, float>(q, k_pool, v_pool, tables, lengths, out, ws_acc, ws_ml,
                        S, K, H, Hkv, D, N, Tp, P, pages, sm_scale, stream);
 }
 
@@ -838,9 +849,35 @@ extern "C" int paged_attention_bf16(const void* q, const void* k_pool,
                                     int H, int Hkv, int D, int N, int Tp,
                                     int P, int pages, float sm_scale,
                                     void* stream) {
-  return launch<__nv_bfloat16>(q, k_pool, v_pool, tables, lengths, out,
-                               ws_acc, ws_ml, S, K, H, Hkv, D, N, Tp, P,
-                               pages, sm_scale, stream);
+  return launch<bf16, bf16>(q, k_pool, v_pool, tables, lengths, out, ws_acc,
+                            ws_ml, S, K, H, Hkv, D, N, Tp, P, pages,
+                            sm_scale, stream);
+}
+
+extern "C" int paged_attention_f32_bf16(const void* q, const void* k_pool,
+                                        const void* v_pool,
+                                        const void* tables,
+                                        const void* lengths, void* out,
+                                        void* ws_acc, void* ws_ml, int S,
+                                        int K, int H, int Hkv, int D, int N,
+                                        int Tp, int P, int pages,
+                                        float sm_scale, void* stream) {
+  return launch<float, bf16>(q, k_pool, v_pool, tables, lengths, out, ws_acc,
+                             ws_ml, S, K, H, Hkv, D, N, Tp, P, pages,
+                             sm_scale, stream);
+}
+
+extern "C" int paged_attention_bf16_f32(const void* q, const void* k_pool,
+                                        const void* v_pool,
+                                        const void* tables,
+                                        const void* lengths, void* out,
+                                        void* ws_acc, void* ws_ml, int S,
+                                        int K, int H, int Hkv, int D, int N,
+                                        int Tp, int P, int pages,
+                                        float sm_scale, void* stream) {
+  return launch<bf16, float>(q, k_pool, v_pool, tables, lengths, out, ws_acc,
+                             ws_ml, S, K, H, Hkv, D, N, Tp, P, pages,
+                             sm_scale, stream);
 }
 
 extern "C" const char* paged_attention_error_string(int err) {

@@ -2,7 +2,7 @@
 KV arena with its in-place programs (chunked prefill into one slot, one
 decode step over every slot, and the speculative verify window).
 
-Counterpart: ``ray_tpu/models/decode.py`` without its gather lane.
+Counterpart: ``ray_tpu/models/decode.py``.
 
 * Contiguous caches (``LayerKVCache``, ``init_caches``, ``prefill``,
   ``decode_step``, ``sample_token``, ``generate``): one fixed buffer per
@@ -16,9 +16,15 @@ Counterpart: ``ray_tpu/models/decode.py`` without its gather lane.
   ``paged_verify_step``, ``paged_rewind_slots``): KV storage is a pool of
   fixed-size pages per layer, ``[num_pages, page_tokens, Hkv, D]``; a slot
   owns a page table of physical page ids instead of a contiguous range.
-  Each layer writes the new tokens' k/v straight into their pages (write
-  before attend) and attends through the page table with
-  ``ops.paged_attention``.
+  The paged programs take an attention lane
+  (``ops.attention.PAGED_ATTN_LANES``): on the in-place lanes
+  (``"cuda"``, and ``"reference"``, its name on the CPU, refused on a
+  CUDA device) each layer writes the new tokens' k/v straight into their
+  pages (write before attend) and attends through the page table with
+  ``ops.paged_attention``, which runs its plain version on CPU tensors
+  and only there; the ``"gather"`` lane, the measured baseline,
+  gathers each slot's logical view from the pool, runs the contiguous
+  forward over it and scatters the written pages back.
 
 Page 0 is the garbage page: read-table entries a slot has not allocated
 point at it (their positions are past the slot's cursor, so the mask zeroes
@@ -43,6 +49,7 @@ import torch
 from ray_tpu_torch._private.device import resolve_device
 from ray_tpu_torch.models.transformer import (TransformerConfig, _head,
                                               _mlp, _norm, forward)
+from ray_tpu_torch.ops.attention import check_paged_attn_lane
 from ray_tpu_torch.ops.paged_attention import paged_attention
 from ray_tpu_torch.ops.rotary import apply_rotary
 
@@ -235,21 +242,38 @@ def prefill_into_slot(cfg: TransformerConfig, params, tokens, real_len: int,
     return logits[0, real_len - 1]
 
 
+def _forward_slots(cfg: TransformerConfig, params, tokens, positions,
+                   rows: List[LayerKVCache]) -> torch.Tensor:
+    """``forward`` over a batch of slots whose contiguous caches are
+    ``rows`` (row s of each is slot s). JAX vmaps one sequence's program
+    over the slots. A batch is the same math in every layer but MoE,
+    whose expert capacity is pooled over the rows of one call, so an MoE
+    model runs one slot at a time (writes through each row's view land in
+    the batch's buffers). Returns logits [slots, K, vocab]."""
+    if cfg.mlp != "moe":
+        return forward(cfg, params, tokens, positions=positions,
+                       kv_caches=rows)
+    return torch.cat([forward(
+        cfg, params, tokens[s:s + 1], positions=positions[s:s + 1],
+        kv_caches=[LayerKVCache(k=r.k[s:s + 1], v=r.v[s:s + 1],
+                                length=r.length[s:s + 1]) for r in rows])
+        for s in range(tokens.shape[0])])
+
+
 def slot_decode_step(cfg: TransformerConfig, params, tokens, active,
                      caches: List[SlotKVCache]) -> torch.Tensor:
     """One decode step over the WHOLE arena. tokens/active: [slots] int32.
     Every slot writes its token's k/v at its cursor and attends under its
     own mask row; inactive slots run on garbage: their logits are not read
     and their cursors do not advance. (JAX vmaps a one-sequence program
-    over the slots; here the slots are one batch.) Returns logits
-    [slots, vocab]."""
+    over the slots; here the slots are one batch, see ``_forward_slots``.)
+    Returns logits [slots, vocab]."""
     lengths = caches[0].lengths
     rows = [LayerKVCache(k=c.k, v=c.v, length=lengths) for c in caches]
     # a free slot's cursor may sit at the end of the arena: clamp its
     # position as XLA's gather would
     positions = torch.clamp(lengths, max=cfg.max_seq_len - 1)[:, None]
-    logits = forward(cfg, params, tokens[:, None], positions=positions,
-                     kv_caches=rows)
+    logits = _forward_slots(cfg, params, tokens[:, None], positions, rows)
     lengths += active
     return logits[:, 0]
 
@@ -272,10 +296,12 @@ class PagedKVCache:
 
 def init_paged_caches(cfg: TransformerConfig, slots: int, num_pages: int,
                       page_tokens: int, pages_per_slot: int,
-                      device: Optional[torch.device | str] = None
+                      device: Optional[torch.device | str] = None,
+                      dtype: Optional[torch.dtype] = None
                       ) -> List[PagedKVCache]:
-    """Zeroed pools in ``cfg.dtype``, one per layer, sharing one cursor
-    tensor, on ``device`` (the card unless ``"cpu"`` is asked for)."""
+    """Zeroed pools in ``dtype`` (default ``cfg.dtype``), one per layer,
+    sharing one cursor tensor, on ``device`` (the card unless ``"cpu"`` is
+    asked for)."""
     if page_tokens < 1:
         raise ValueError(f"page_tokens must be >= 1, got {page_tokens}")
     if num_pages < 2:
@@ -290,9 +316,10 @@ def init_paged_caches(cfg: TransformerConfig, slots: int, num_pages: int,
             f"exceeds cfg.max_seq_len ({cfg.max_seq_len})")
     device = resolve_device(device)
     shape = (num_pages, page_tokens, cfg.kv_heads, cfg.head_dim)
+    dtype = dtype or cfg.dtype
     lengths = torch.zeros(slots, dtype=torch.int32, device=device)
-    return [PagedKVCache(k=torch.zeros(shape, dtype=cfg.dtype, device=device),
-                         v=torch.zeros(shape, dtype=cfg.dtype, device=device),
+    return [PagedKVCache(k=torch.zeros(shape, dtype=dtype, device=device),
+                         v=torch.zeros(shape, dtype=dtype, device=device),
                          lengths=lengths)
             for _ in range(cfg.num_layers)]
 
@@ -305,6 +332,50 @@ def paged_reset_slot(caches: List[PagedKVCache], slot: int,
     caches[0].lengths[slot] = length
 
 
+def _gather_row(c: PagedKVCache, tables) -> Tuple[torch.Tensor,
+                                                  torch.Tensor]:
+    """[S, P] page tables -> the slots' logical [S, P*T, Hkv, D] k/v views
+    (JAX's ``_gather_row`` takes one [P] row; a batch of rows here)."""
+    S, P = tables.shape
+    T, H, D = c.k.shape[1:]
+    idx = tables.long()
+    return (c.k[idx].reshape(S, P * T, H, D),
+            c.v[idx].reshape(S, P * T, H, D))
+
+
+def _gathered_window(cfg: TransformerConfig, params, tokens, positions,
+                     slot_ids, read_tables, write_tables,
+                     caches: List[PagedKVCache]) -> torch.Tensor:
+    """The gather lane's K-token window over the slots ``slot_ids`` [S]:
+    gather each slot's logical view through its read table, run
+    ``forward`` over the views as contiguous caches (write at the slot's
+    cursor, then attend under its mask row), and scatter back the pages
+    the window wrote, ``min(P, ceil(K / T) + 1)`` of them from the page
+    holding the cursor, through the write table: shared and unallocated
+    entries land on the garbage page, and window pages clipped to the
+    table's end repeat a page with the same content. Returns the logits
+    [S, K, vocab]. Cursors are not moved here."""
+    S, K = tokens.shape
+    T = caches[0].k.shape[1]
+    P = read_tables.shape[1]
+    lengths = caches[0].lengths[slot_ids]
+    views = [_gather_row(c, read_tables) for c in caches]
+    rows = [LayerKVCache(k=k, v=v, length=lengths) for k, v in views]
+    logits = _forward_slots(cfg, params, tokens,
+                            positions.clamp(0, cfg.max_seq_len - 1), rows)
+    W = min(P, -(-K // T) + 1)
+    widx = torch.clamp(lengths.long()[:, None] // T
+                       + torch.arange(W, device=tokens.device), max=P - 1)
+    dest = write_tables.long().gather(1, widx)                 # [S, W]
+    Hkv, D = caches[0].k.shape[2:]
+    for c, r in zip(caches, rows):
+        for pool, view in ((c.k, r.k), (c.v, r.v)):
+            pages = view.reshape(S, P, T, Hkv, D)
+            src = pages[torch.arange(S, device=tokens.device)[:, None], widx]
+            pool[dest.reshape(-1)] = src.reshape(S * W, T, Hkv, D)
+    return logits
+
+
 def _paged_forward_inplace(cfg: TransformerConfig, params, tokens, positions,
                            lengths, read_tables, write_tables,
                            caches: List[PagedKVCache], rope: Rope
@@ -315,8 +386,9 @@ def _paged_forward_inplace(cfg: TransformerConfig, params, tokens, positions,
     tokens/positions: [S, K]; lengths: [S] attention cursors;
     read_tables/write_tables: [S, P] int32. Each layer (1) writes the
     window's k/v into its pages through the write table, in place, and
-    (2) attends through the read table. Layer math mirrors
-    ``ray_tpu.models.transformer._block``."""
+    (2) attends through the read table with the kernel's wrapper, which
+    runs the plain version on CPU tensors and only there. Layer math
+    mirrors ``ray_tpu.models.transformer._block``."""
     S, K = tokens.shape
     T = caches[0].k.shape[1]
     P = read_tables.shape[1]
@@ -354,48 +426,66 @@ def _paged_forward_inplace(cfg: TransformerConfig, params, tokens, positions,
 
 def paged_prefill_into_slot(cfg: TransformerConfig, params, tokens,
                             real_len: int, slot: int, read_row, write_row,
-                            caches: List[PagedKVCache], rope: Rope
-                            ) -> torch.Tensor:
+                            caches: List[PagedKVCache], rope: Rope, *,
+                            attn: str = "cuda") -> torch.Tensor:
     """One prefill chunk into ONE slot. tokens: [1, C], zero-padded past
     ``real_len``; read_row/write_row: [P] int32 (shared prefix-cache pages
     appear in read_row but redirect to the garbage page in write_row).
     The chunk attends from the slot's cursor BEFORE the chunk; the cursor
     then advances by ``real_len``. Returns the logits [vocab] at the last
-    real token.
+    real token. ``attn``: one of ``ops.attention.PAGED_ATTN_LANES`` (the
+    gather lane scatters back only the window of pages the chunk wrote).
 
     Caller contract (scheduler-enforced): every page covering the real
     tokens is allocated and owned; cursor + C fits the logical view."""
+    check_paged_attn_lane(attn, tokens.device)
     lengths = caches[0].lengths[slot:slot + 1]
     positions = lengths[:, None] + torch.arange(
         tokens.shape[1], dtype=torch.int32, device=tokens.device)[None]
-    x = _paged_forward_inplace(cfg, params, tokens, positions, lengths,
-                               read_row[None], write_row[None], caches, rope)
-    logits = _head(cfg, params, x[0, real_len - 1])
+    if attn == "gather":
+        logits = _gathered_window(
+            cfg, params, tokens, positions,
+            torch.tensor([slot], device=tokens.device), read_row[None],
+            write_row[None], caches)[0, real_len - 1]
+    else:
+        x = _paged_forward_inplace(cfg, params, tokens, positions, lengths,
+                                   read_row[None], write_row[None], caches,
+                                   rope)
+        logits = _head(cfg, params, x[0, real_len - 1])
     caches[0].lengths[slot] += real_len
     return logits
 
 
 def paged_decode_step(cfg: TransformerConfig, params, tokens, active,
                       read_tables, write_tables,
-                      caches: List[PagedKVCache], rope: Rope
-                      ) -> torch.Tensor:
+                      caches: List[PagedKVCache], rope: Rope, *,
+                      attn: str = "cuda") -> torch.Tensor:
     """One decode step over the whole arena. tokens/active: [slots] int32;
     read_tables/write_tables: [slots, P] int32. Inactive slots run on
     garbage: their logits are not read, their cursors do not advance, and
-    their write lands where the slot's next real write goes first.
-    Returns logits [slots, vocab]."""
+    their write lands where the slot's next real write goes first. On the
+    gather lane each slot's math is the contiguous arena's over its
+    gathered view (JAX vmaps it; a batch of slots here), and the page
+    holding each cursor is scattered back. Returns logits [slots, vocab]."""
+    check_paged_attn_lane(attn, tokens.device)
     lengths = caches[0].lengths
-    x = _paged_forward_inplace(cfg, params, tokens[:, None],
-                               lengths[:, None], lengths, read_tables,
-                               write_tables, caches, rope)
-    logits = _head(cfg, params, x[:, 0])
+    if attn == "gather":
+        slots = torch.arange(tokens.shape[0], device=tokens.device)
+        logits = _gathered_window(cfg, params, tokens[:, None],
+                                  lengths[:, None], slots, read_tables,
+                                  write_tables, caches)[:, 0]
+    else:
+        x = _paged_forward_inplace(cfg, params, tokens[:, None],
+                                   lengths[:, None], lengths, read_tables,
+                                   write_tables, caches, rope)
+        logits = _head(cfg, params, x[:, 0])
     lengths += active
     return logits
 
 
 def paged_verify_step(cfg: TransformerConfig, params, tokens, read_tables,
-                      write_tables, caches: List[PagedKVCache], rope: Rope
-                      ) -> torch.Tensor:
+                      write_tables, caches: List[PagedKVCache], rope: Rope,
+                      *, attn: str = "cuda") -> torch.Tensor:
     """Speculative-decoding verify: score K candidate tokens per slot in
     ONE call over all slots. tokens: [slots, K] int32, each slot's
     [next_token, d_1 .. d_{K-1}] at positions [cursor, cursor + K).
@@ -408,10 +498,17 @@ def paged_verify_step(cfg: TransformerConfig, params, tokens, read_tables,
     (acceptance is the host's decision, applied by ``paged_rewind_slots``).
     Rejected positions hold stale k/v past the cursor, masked until the
     next write covers them; shared and unallocated write entries redirect
-    to the garbage page. Returns logits [slots, K, vocab]."""
+    to the garbage page. On the gather lane the window runs over each
+    slot's gathered view, whose mask spans the full view, and its pages
+    are scattered back. Returns logits [slots, K, vocab]."""
+    check_paged_attn_lane(attn, tokens.device)
     lengths = caches[0].lengths
     positions = lengths[:, None] + torch.arange(
         tokens.shape[1], dtype=torch.int32, device=tokens.device)[None]
+    if attn == "gather":
+        slots = torch.arange(tokens.shape[0], device=tokens.device)
+        return _gathered_window(cfg, params, tokens, positions, slots,
+                                read_tables, write_tables, caches)
     x = _paged_forward_inplace(cfg, params, tokens, positions, lengths,
                                read_tables, write_tables, caches, rope)
     return _head(cfg, params, x)

@@ -10,11 +10,17 @@ slot's live tokens. No contiguous per-slot view is ever built.
     ``ops/_build.py``), or raises: one kernel over (slot, kv head, split of
     the page table, tile of query rows) into a float32 workspace, and one
     that merges each row's splits. The split kernel runs on the tensor
-    cores for bf16 pools at the head widths of ``MMA_HEAD_DIMS`` and pages
-    of a multiple of 16 tokens (llama3_8b's serve path), and float32 FMA
-    otherwise. ``split_plan`` is the host side of that split; it reads
-    shapes only, never ``lengths`` or ``tables``, which stay on the card.
-    ``paged_attention.launches`` counts the wrapper's calls.
+    cores for bf16 q and pools at the head widths of ``MMA_HEAD_DIMS`` and
+    pages of a multiple of 16 tokens (llama3_8b's serve path), and float32
+    FMA otherwise. q and the pools may differ in dtype, as the TPU kernel
+    allows (``cache_dtype``): float32 q over bf16 pools, or bf16 q over
+    float32 pools, both on the FMA kernel, which widens each to float32 as
+    it reads it; the output is in q's dtype. Any other pair raises.
+    ``split_plan`` is the host side of that split; it reads shapes only,
+    never ``lengths`` or ``tables``, which stay on the card.
+    ``paged_attention.launches`` counts the wrapper's launches, and
+    ``paged_attention.pair_launches`` the launches of each dtype pair's
+    entry (keyed ``"float32/bfloat16"``: q's dtype, then the pools').
   * On a CPU tensor it runs ``paged_attention_reference``, the plain PyTorch
     version with the same math: the same page order, the same -1e30 mask
     and the same online-softmax update, in float32.
@@ -54,8 +60,12 @@ RING_STEPS = 3     # steps of 4 pages in the tensor-core kernel's ring
 MMA_HEAD_DIMS = (32, 64, 128, 256)  # head widths of the tensor-core kernel
 MAX_SMEM = 232448  # bytes of shared memory a block can use
 
-_ENTRY = {torch.float32: "paged_attention_f32",
-          torch.bfloat16: "paged_attention_bf16"}
+# the C entry point of each (q dtype, pool dtype) pair the kernels take
+_ENTRY = {(torch.float32, torch.float32): "paged_attention_f32",
+          (torch.bfloat16, torch.bfloat16): "paged_attention_bf16",
+          (torch.float32, torch.bfloat16): "paged_attention_f32_bf16",
+          (torch.bfloat16, torch.float32): "paged_attention_bf16_f32"}
+_NAME = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
 _ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
              + [ctypes.c_float, ctypes.c_void_p])
 
@@ -65,8 +75,9 @@ class SplitPlan(NamedTuple):
     table, tiles of query rows, the split kernel's grid, the float32
     workspace (``[S, Hkv, splits, rows, D]`` sums and ``[..., 2]`` row max
     and sum), the split kernel's shared memory in bytes, and whether that
-    kernel is the tensor-core one (bf16, D in ``MMA_HEAD_DIMS``, pages of a
-    multiple of 16 tokens) or the float32 FMA one."""
+    kernel is the tensor-core one (bf16 q and pools, D in
+    ``MMA_HEAD_DIMS``, pages of a multiple of 16 tokens) or the float32
+    FMA one."""
     pages_per_split: int
     splits: int
     row_tiles: int
@@ -78,15 +89,18 @@ class SplitPlan(NamedTuple):
 
 @functools.lru_cache(maxsize=256)
 def split_plan(S: int, K: int, H: int, Hkv: int, D: int, T: int, P: int,
-               elem_bytes: int) -> SplitPlan:
+               elem_bytes: int, q_bytes: Optional[int] = None) -> SplitPlan:
     """The split plan of a call from its shapes alone: S slots, a K-token
     window, H query and Hkv kv heads of width D, T-token pages, P-page
-    tables, ``elem_bytes`` per pool element (2: bf16, 4: float32)."""
+    tables, ``elem_bytes`` per pool element and ``q_bytes`` per query
+    element (2: bf16, 4: float32; ``None``: the pool's)."""
+    q_bytes = elem_bytes if q_bytes is None else q_bytes
     pages = max(1, SPLIT_KEYS // T)
     splits = -(-P // pages)
     rows = K * (H // Hkv)
     tiles = -(-rows // ROW_TILE)
-    tensor_cores = elem_bytes == 2 and D in MMA_HEAD_DIMS and T % 16 == 0
+    tensor_cores = (elem_bytes == 2 and q_bytes == 2 and D in MMA_HEAD_DIMS
+                    and T % 16 == 0)
     if tensor_cores:
         # the ring of 4-page steps, the 16-row query tile (rows of D + 8
         # bf16), the scores (rows of pages * T + 8 floats), the page ids
@@ -94,11 +108,14 @@ def split_plan(S: int, K: int, H: int, Hkv: int, D: int, T: int, P: int,
         smem = ((RING_STEPS * 4 * T + ROW_TILE) * row
                 + ROW_TILE * (pages * T + 8) * 4 + pages * 4)
     else:
-        row = D * elem_bytes
-        row += (64 - row % 128) % 128  # the padded page and query row
+        def padded(elem):  # a page or query row, padded as the kernel's
+            row = D * elem
+            return row + (64 - row % 128) % 128
+
         rt = min(ROW_TILE, rows)
         # the page ring, the tile's query rows and scores, the page ids
-        smem = (RING_PAGES * T + rt) * row + rt * pages * T * 4 + pages * 4
+        smem = (RING_PAGES * T * padded(elem_bytes) + rt * padded(q_bytes)
+                + rt * pages * T * 4 + pages * 4)
     return SplitPlan(pages, splits, tiles, (S, Hkv, splits * tiles),
                      (S, Hkv, splits, rows, D), smem, tensor_cores)
 
@@ -112,7 +129,8 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     q: [S, K, H, D] queries (K = 1 decode, K > 1 a prefill window).
     k_pool/v_pool: [N, T, Hkv, D] page pools (page 0 = garbage page).
     tables: [S, P] int32 page tables; lengths: [S] int32 slot cursors.
-    Returns [S, K, H, D] in q's dtype.
+    Returns [S, K, H, D] in q's dtype. The pools may be in another dtype
+    than q (both are widened to float32, as in the TPU kernel).
 
     The new tokens' k/v must already be WRITTEN into their pages (write
     before attend); this op only reads.
@@ -136,6 +154,7 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
 
 
 paged_attention.launches = 0
+paged_attention.pair_launches = {}
 
 
 def paged_attention_reference(q, k_pool, v_pool, tables, lengths,
@@ -177,9 +196,9 @@ def paged_attention_reference(q, k_pool, v_pool, tables, lengths,
     return (acc / l[..., None]).reshape(S, K, H, D).to(q.dtype)
 
 
-def _kernel_entry(dtype: torch.dtype):
+def _kernel_entry(q_dtype: torch.dtype, pool_dtype: torch.dtype):
     lib = _build.load("paged_attention")
-    fn = getattr(lib, _ENTRY[dtype])
+    fn = getattr(lib, _ENTRY[q_dtype, pool_dtype])
     if fn.argtypes is None:
         fn.argtypes = _ARGTYPES
         fn.restype = ctypes.c_int
@@ -189,15 +208,14 @@ def _kernel_entry(dtype: torch.dtype):
 
 
 def _paged_attention_cuda(q, k_pool, v_pool, tables, lengths, sm_scale):
+    if (q.dtype, k_pool.dtype) not in _ENTRY or v_pool.dtype != k_pool.dtype:
+        raise TypeError(
+            f"paged_attention kernel takes float32 or bfloat16 q over k and "
+            f"v pools of one float32 or bfloat16 dtype, got q {q.dtype}, "
+            f"k {k_pool.dtype}, v {v_pool.dtype}")
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention runs on CPU or CUDA tensors, "
                          f"got {q.device}")
-    if q.dtype not in _ENTRY or k_pool.dtype != q.dtype \
-            or v_pool.dtype != q.dtype:
-        raise TypeError(
-            f"paged_attention kernel takes float32 or bfloat16 q and pools "
-            f"of one dtype, got q {q.dtype}, k {k_pool.dtype}, "
-            f"v {v_pool.dtype}")
     if tables.dtype != torch.int32 or lengths.dtype != torch.int32:
         raise TypeError(f"tables and lengths must be int32, got "
                         f"{tables.dtype} and {lengths.dtype}")
@@ -213,7 +231,7 @@ def _paged_attention_cuda(q, k_pool, v_pool, tables, lengths, sm_scale):
     S, K, H, D = q.shape
     N, T, Hkv, _ = k_pool.shape
     P = tables.shape[1]
-    vec = 16 // q.element_size()  # the kernel moves 16-byte vectors
+    vec = 16 // k_pool.element_size()  # the kernel moves 16-byte vectors
     if D > MAX_HEAD_DIM or D % 8 or T * D > MAX_PAGE_VECTORS * vec \
             or T > SPLIT_KEYS:
         raise ValueError(
@@ -221,7 +239,8 @@ def _paged_attention_cuda(q, k_pool, v_pool, tables, lengths, sm_scale):
             f"pages of at most {SPLIT_KEYS} tokens and "
             f"{MAX_PAGE_VECTORS * vec} elements per head; got head_dim {D}, "
             f"page_tokens {T}")
-    plan = split_plan(S, K, H, Hkv, D, T, P, q.element_size())
+    plan = split_plan(S, K, H, Hkv, D, T, P, k_pool.element_size(),
+                      q.element_size())
     if plan.smem_bytes > MAX_SMEM or plan.grid[2] > 65535 or S > 65535:
         raise ValueError(f"split plan {plan} does not fit one block's shared "
                          f"memory or the grid")
@@ -237,7 +256,7 @@ def _paged_attention_cuda(q, k_pool, v_pool, tables, lengths, sm_scale):
     n_acc = math.prod(plan.workspace)
     ws = torch.empty(n_acc + 2 * n_acc // D, dtype=torch.float32,
                      device=q.device)
-    lib, fn = _kernel_entry(q.dtype)
+    lib, fn = _kernel_entry(q.dtype, k_pool.dtype)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
@@ -249,4 +268,7 @@ def _paged_attention_cuda(q, k_pool, v_pool, tables, lengths, sm_scale):
         raise RuntimeError(f"paged_attention kernel launch failed: {msg} "
                            f"(cuda error {err})")
     paged_attention.launches += 1
+    pair = f"{_NAME[q.dtype]}/{_NAME[k_pool.dtype]}"
+    paged_attention.pair_launches[pair] = (
+        paged_attention.pair_launches.get(pair, 0) + 1)
     return out

@@ -1,31 +1,53 @@
-"""Continuous (iteration-level) batching scheduler over the paged KV arena.
+"""Continuous (iteration-level) batching scheduler over a KV arena.
 
-Counterpart: the paged path of ``ray_tpu/serve/_private/continuous.py``.
-The scheduler owns a pool of KV pages shared by ``slots`` sequence slots
-and, per iteration, runs at most ONE prefill chunk and ONE decode step (or,
-with a drafter, one speculative round) over every slot:
+Counterpart: ``ray_tpu/serve/_private/continuous.py``. With
+``kv_layout="paged"`` (the default) the scheduler owns a pool of KV pages
+shared by ``slots`` sequence slots; with ``"contiguous"`` (the measured
+baseline) a slot arena of ``arena_len`` tokens per slot. Per iteration it
+runs at most ONE prefill chunk and ONE decode step (or, with a drafter,
+one speculative round) over every slot:
 
   * new requests are admitted into free slots between iterations and
     prefilled in ``prefill_chunk``-token chunks, one chunk per iteration,
     so a long prompt never stalls the decodes in flight;
   * a radix prefix cache turns a prompt that shares a cached prefix into a
     page-table splice plus a cursor jump instead of a re-prefill;
-  * finished or cancelled sequences retire their slot and pages at once;
+  * finished, EOS (``eos_id``) or cancelled sequences retire their slot
+    and pages at once;
   * every sampled token streams to its request's asyncio queue in the
     iteration that produced it;
-  * with a ``speculative.Drafter``, each round the drafter proposes up to
-    ``spec_k`` tokens per slot and ONE ``paged_verify_step`` call scores
-    them all, with exact accept-prefix + corrected-resample semantics
-    (temperature-0 output is the sequential greedy path's, token for
-    token); the plain decode step then never runs.
+  * with a ``speculative.Drafter`` (paged layout only), each round the
+    drafter proposes up to ``spec_k`` tokens per slot and ONE
+    ``paged_verify_step`` call scores them all, with exact accept-prefix +
+    corrected-resample semantics; the plain decode step then never runs.
+    At temperature 0 the emitted tokens are the argmax of the verify
+    call's rows, which equal sequential decode steps' only up to rounding:
+    the kernel's window rows are 1-token calls bit for bit, but a verify
+    call's projections run over slots x (spec_k + 1) rows and a step's
+    over slots rows, and the two GEMMs round otherwise. In float32 the
+    gap is 5.04e-5 x RMS at llama3_8b and the texts equal the plain greedy
+    ones at llama_debug; in bf16 it reaches bf16's own error (0.21 x RMS),
+    and at llama3_8b 0 of 11 temperature-0 speculative texts equalled the
+    plain ones (``chip_smoke.py``, NVIDIA H100 80GB HBM3, 700 W).
+
+Knobs, as in the JAX scheduler, each validated at build: ``kv_layout``,
+``page_tokens``, ``kv_pages`` (0: the worst case, every slot's whole
+logical range plus the garbage page; a smaller pool also caps the
+admissible prompt), ``prefix_cache``, ``cache_dtype`` (the KV arena's
+dtype, which may differ from the model's: K4 widens both), ``eos_id`` and
+``attn`` (the paged lane, resolved once by
+``ops.attention.resolve_paged_attn_lane``: the kernel on the card, its
+plain version on the CPU, or the gathered-view baseline). The contiguous
+layout refuses ``attn``, ``prefix_cache=True`` and a drafter.
 
 All torch work runs on the scheduler's own thread (on CUDA, on that
 thread's current stream); the replica's event loop only touches queues.
 Logits go to the host for sampling, which is numpy, so equal logits draw
 equal tokens from equal seeds on the CPU and on the card.
 
-Not carried by the port yet: cross-replica page migration, the contiguous
-(non-paged) KV layout, EOS handling, flight spans and metrics.
+Not carried by the port yet: cross-replica page migration, flight spans
+and metrics (they come with the runtime). ``compiled_programs`` is left
+out: the port runs eagerly and compiles no program.
 """
 
 from __future__ import annotations
@@ -39,11 +61,15 @@ import numpy as np
 import torch
 
 from ray_tpu_torch.models.decode import (init_paged_caches,
+                                         init_slot_caches,
                                          paged_decode_step,
                                          paged_prefill_into_slot,
                                          paged_reset_slot,
                                          paged_rewind_slots,
-                                         paged_verify_step)
+                                         paged_verify_step,
+                                         prefill_into_slot, reset_slot,
+                                         slot_decode_step)
+from ray_tpu_torch.ops.attention import resolve_paged_attn_lane
 from ray_tpu_torch.ops.paged_attention import paged_attention
 from ray_tpu_torch.ops.rotary import rope_frequencies
 from ray_tpu_torch.serve._private.paging import (OutOfPagesError, PageArena,
@@ -99,17 +125,25 @@ class _Seq:
 
 
 class ContinuousScheduler:
-    """Paged-arena continuous-batching scheduler.
+    """Continuous-batching scheduler over a paged or contiguous KV arena.
 
     ``params`` are the model's parameters on ``device``, shared by its
-    programs. The scheduler owns the KV page pools, updated in place.
+    programs. The scheduler owns the KV arena, updated in place.
     ``drafter`` (a ``speculative.Drafter`` with the scheduler's slot count)
-    turns on speculative decoding with ``spec_k`` draft tokens a round."""
+    turns on speculative decoding with ``spec_k`` draft tokens a round.
+    The knobs take the JAX scheduler's values and refusals; where JAX reads
+    a config default for ``None``, the port takes the same default as the
+    argument's."""
 
     def __init__(self, cfg, params, *, device: torch.device,
                  slots: int = 8, prefill_chunk: int = 32,
-                 arena_len: Optional[int] = None, page_tokens: int = 16,
-                 drafter=None, spec_k: int = 4):
+                 arena_len: Optional[int] = None,
+                 eos_id: Optional[int] = None,
+                 cache_dtype: Optional[torch.dtype] = None,
+                 kv_layout: str = "paged", page_tokens: int = 16,
+                 kv_pages: int = 0, prefix_cache: Optional[bool] = None,
+                 drafter=None, spec_k: int = 4,
+                 attn: Optional[str] = None):
         self.cfg = cfg
         self.params = params
         self.device = torch.device(device)
@@ -117,7 +151,13 @@ class ContinuousScheduler:
         self.prefill_chunk = int(prefill_chunk)
         self.arena_len = int(cfg.max_seq_len if arena_len is None
                              else arena_len)
-        self.page_tokens = int(page_tokens)
+        self.eos_id = eos_id
+        self.kv_layout = kv_layout
+        if self.kv_layout not in ("paged", "contiguous"):
+            raise ValueError(
+                f"kv_layout must be 'paged' or 'contiguous', got "
+                f"{self.kv_layout!r}")
+        self._paged = self.kv_layout == "paged"
         if self.slots < 1:
             raise ValueError(f"slots must be >= 1, got {self.slots}")
         if self.prefill_chunk < 1:
@@ -127,45 +167,77 @@ class ContinuousScheduler:
             raise ValueError(
                 f"prefill_chunk ({self.prefill_chunk}) exceeds the arena "
                 f"length ({self.arena_len})")
-        if self.page_tokens < 1:
-            raise ValueError(
-                f"page_tokens must be >= 1, got {self.page_tokens}")
-        if self.arena_len % self.page_tokens != 0:
-            raise ValueError(
-                f"arena_len ({self.arena_len}) must be a multiple of "
-                f"page_tokens ({self.page_tokens})")
+        self._arena = None
+        self._radix = None
+        if self._paged:
+            self.page_tokens = int(page_tokens)
+            if self.page_tokens < 1:
+                raise ValueError(
+                    f"page_tokens must be >= 1, got {self.page_tokens}")
+            if self.arena_len % self.page_tokens != 0:
+                raise ValueError(
+                    f"arena_len ({self.arena_len}) must be a multiple of "
+                    f"page_tokens ({self.page_tokens})")
+            self._pages_per_slot = self.arena_len // self.page_tokens
+            kvp = int(kv_pages)
+            if kvp < 0:
+                raise ValueError(f"kv_pages must be >= 0, got {kvp}")
+            if kvp == 0:
+                # the worst case: every slot could fill its whole logical
+                # range, plus the reserved garbage page
+                kvp = self.slots * self._pages_per_slot + 1
+            self.num_pages = kvp
+            self._arena = PageArena(self.num_pages, self.page_tokens)
+            if prefix_cache is None or prefix_cache:
+                self._radix = RadixCache(self._arena)
+            # host-side page tables: logical page j of slot s lives at
+            # physical page read_tables[s, j]; 0 = the garbage page
+            self._read_tables = np.zeros(
+                (self.slots, self._pages_per_slot), np.int32)
+            self._write_tables = np.zeros(
+                (self.slots, self._pages_per_slot), np.int32)
+            # resolved once, at build: a typo fails the constructor, and
+            # stats() names the lane that runs
+            self.attn_lane = resolve_paged_attn_lane(attn, self.device)
+            self._caches = init_paged_caches(
+                cfg, self.slots, self.num_pages, self.page_tokens,
+                self._pages_per_slot, self.device, cache_dtype)
+        else:
+            if attn is not None:
+                # the lane picks between paged attention programs; the
+                # contiguous arena has no page tables to attend through
+                raise ValueError(
+                    "attn lane selection requires kv_layout='paged' "
+                    "(the contiguous arena has no page tables)")
+            if prefix_cache:
+                raise ValueError(
+                    "prefix_cache requires kv_layout='paged' (the "
+                    "contiguous arena has no shareable pages)")
+            self.attn_lane = None
+            self.page_tokens = 0
+            self._pages_per_slot = 0
+            self.num_pages = 0
+            self._caches = init_slot_caches(cfg, self.slots, self.arena_len,
+                                            self.device, cache_dtype)
+        self._kv_itemsize = self._caches[0].k.element_size()
         self.spec_k = int(spec_k)
         if self.spec_k < 1:
             raise ValueError(f"spec_k must be >= 1, got {self.spec_k}")
-        if drafter is not None and drafter.slots != self.slots:
-            raise ValueError(
-                f"drafter has {drafter.slots} slots, scheduler has "
-                f"{self.slots}: they must share the slot numbering")
+        if drafter is not None:
+            if not self._paged:
+                raise ValueError(
+                    "speculative decoding requires kv_layout='paged' (the "
+                    "verify step scores K tokens through page tables)")
+            if drafter.slots != self.slots:
+                raise ValueError(
+                    f"drafter has {drafter.slots} slots, scheduler has "
+                    f"{self.slots}: they must share the slot numbering")
         self._drafter = drafter
-        self._pages_per_slot = self.arena_len // self.page_tokens
-        # every slot could fill its whole logical range, plus the reserved
-        # garbage page; prefix-cache pages beyond that are evicted LRU
-        self.num_pages = self.slots * self._pages_per_slot + 1
-        self._arena = PageArena(self.num_pages, self.page_tokens)
-        self._radix = RadixCache(self._arena)
-        # host-side page tables: logical page j of slot s lives at physical
-        # page read_tables[s, j]; 0 = the garbage page
-        self._read_tables = np.zeros(
-            (self.slots, self._pages_per_slot), np.int32)
-        self._write_tables = np.zeros(
-            (self.slots, self._pages_per_slot), np.int32)
-        # the attention lane follows the device: the CUDA kernel on the
-        # card, its plain PyTorch version on the CPU
-        self.attn_lane = "cuda" if self.device.type == "cuda" \
-            else "reference"
         self._rope = None
         if cfg.pos == "rope":
             # built once per scheduler, on the CPU, then moved
             self._rope = tuple(t.to(self.device) for t in rope_frequencies(
                 cfg.head_dim, cfg.max_seq_len, cfg.rope_theta))
-        self._caches = init_paged_caches(
-            cfg, self.slots, self.num_pages, self.page_tokens,
-            self._pages_per_slot, self.device)
         self._slot_seqs: List[Optional[_Seq]] = [None] * self.slots
         self._prefill_rr = 0  # round-robin cursor over prefilling slots
         self._pending: deque = deque()
@@ -185,7 +257,9 @@ class ContinuousScheduler:
         self._n_prefill_chunks = 0
         self._n_admitted = 0
         self._n_retired = 0
+        self._n_retired_eos = 0
         self._n_tokens = 0
+        self._n_attn_bytes = 0
         self._n_prefix_hit_tokens = 0
         self._n_kernel_launches = 0
         self._decode_seconds = 0.0
@@ -200,13 +274,17 @@ class ContinuousScheduler:
 
     def max_prompt_len(self, max_new: int) -> int:
         """Longest admissible prompt for a generation budget: the padded
-        prefill chunks AND prompt + new tokens must fit the arena, and the
-        whole pool's pages cap one sequence. With speculation on, a verify
-        round near the end of a generation writes up to ``spec_k``
+        prefill chunks AND prompt + new tokens must fit the arena. With a
+        paged pool smaller than one slot's worst case, the whole pool's
+        pages cap one sequence too, so an over-budget request is refused
+        at submit, before any page is allocated. With speculation on, a
+        verify round near the end of a generation writes up to ``spec_k``
         positions past the final cursor; they are reserved too."""
         c = self.prefill_chunk
-        effective = min(self.arena_len,
-                        self._arena.usable_pages * self.page_tokens)
+        effective = self.arena_len
+        if self._paged:
+            effective = min(effective,
+                            self._arena.usable_pages * self.page_tokens)
         reserve = self.spec_k if self._drafter is not None else 0
         return min((effective // c) * c, effective - max_new - reserve)
 
@@ -257,9 +335,10 @@ class ContinuousScheduler:
             seq.cancelled = True
 
     def _release_slot_resources(self, seq: _Seq) -> None:
-        """Drop the prefix-cache ref, free owned pages and zero the
-        page-table rows (an inactive slot then touches only page 0)."""
-        if seq.slot is None:
+        """Paged teardown of one slot: drop the prefix-cache ref, free
+        owned pages and zero the page-table rows (an inactive slot then
+        touches only page 0)."""
+        if not self._paged or seq.slot is None:
             return
         if seq.radix_node is not None:
             self._radix.release(seq.radix_node)
@@ -297,7 +376,8 @@ class ContinuousScheduler:
         try:
             pages = self._arena.alloc(missing)
         except OutOfPagesError:
-            self._radix.evict(missing - self._arena.free_pages)
+            if self._radix is not None:
+                self._radix.evict(missing - self._arena.free_pages)
             try:
                 pages = self._arena.alloc(missing)
             except OutOfPagesError:
@@ -326,12 +406,22 @@ class ContinuousScheduler:
         return int(seq.rng.choice(len(p), p=p))
 
     def _emit_token(self, seq: _Seq, tok: int) -> bool:
-        """Record and stream one sampled token; True if the sequence has
-        used its budget."""
+        """Record and stream one sampled token; True if the sequence is
+        finished (its budget used, or the token is ``eos_id``)."""
         seq.n_generated += 1
         self._n_tokens += 1
         self._emit(seq, ("tok", tok))
+        if self.eos_id is not None and tok == self.eos_id:
+            return True
         return seq.n_generated >= seq.max_new
+
+    def _retire_finished(self, seq: _Seq, tok: int) -> None:
+        """Retire a sequence whose last token ``tok`` finished it."""
+        if self.eos_id is not None and tok == self.eos_id:
+            self._n_retired_eos += 1
+            self._retire(seq, "eos")
+        else:
+            self._retire(seq, "length")
 
     def _splice_prefix(self, seq: _Seq) -> None:
         """Prefix-cache lookup at admission: splice the longest cached
@@ -380,18 +470,48 @@ class ContinuousScheduler:
             seq.slot = free
             seq.state = _PREFILL
             self._slot_seqs[free] = seq
-            self._read_tables[free, :] = 0
-            self._write_tables[free, :] = 0
-            self._splice_prefix(seq)
-            seq.cursor = seq.cached_len
-            seq.remaining_prompt = seq.prompt[seq.cached_len:]
-            paged_reset_slot(self._caches, free, seq.cached_len)
+            if self._paged:
+                self._read_tables[free, :] = 0
+                self._write_tables[free, :] = 0
+                if self._radix is not None:
+                    self._splice_prefix(seq)
+                seq.cursor = seq.cached_len
+                seq.remaining_prompt = seq.prompt[seq.cached_len:]
+                paged_reset_slot(self._caches, free, seq.cached_len)
+            else:
+                reset_slot(self._caches, free)
             self._n_admitted += 1
             if in_flight:
                 self._admitted_mid_flight += 1
 
     def _upload(self, a: np.ndarray) -> torch.Tensor:
         return torch.tensor(a, dtype=torch.int32, device=self.device)
+
+    def _record_attn(self, qk: int, n_slots: int,
+                     longest: Optional[int] = None) -> None:
+        """Account the KV bytes the paged attention lane streamed for one
+        attention-bearing program call, from host mirrors alone (cursors,
+        table shapes). The gather lane builds a contiguous
+        ``[pages_per_slot * page_tokens]`` view per slot and layer however
+        little of it is live; the in-place lanes read only the pages that
+        cover the longest live sequence."""
+        if not self._paged:
+            return
+        cfg = self.cfg
+        T = self.page_tokens
+        row = cfg.kv_heads * cfg.head_dim * self._kv_itemsize
+        if self.attn_lane == "gather":
+            pages = n_slots * self._pages_per_slot
+        else:
+            if longest is None:
+                longest = max((s.cursor for s in self._slot_seqs
+                               if s is not None), default=0)
+            pages = n_slots * min(-(-(longest + qk) // T),
+                                  self._pages_per_slot)
+        # k + v pools, every layer: pages read through the table plus the
+        # qk freshly written rows per slot
+        self._n_attn_bytes += 2 * cfg.num_layers * row * (
+            pages * T + n_slots * qk)
 
     def _prefill_one(self) -> bool:
         """Advance ONE prefilling sequence by one chunk, round-robin over
@@ -408,7 +528,7 @@ class ContinuousScheduler:
                 continue
             # pages only up to the REAL tokens of this chunk: pad positions
             # past them land on unallocated entries, i.e. page 0
-            if not self._ensure_pages(
+            if self._paged and not self._ensure_pages(
                     seq, seq.cursor + min(len(seq.remaining_prompt),
                                           self.prefill_chunk)):
                 continue
@@ -416,23 +536,30 @@ class ContinuousScheduler:
             seq.remaining_prompt = seq.remaining_prompt[self.prefill_chunk:]
             real = len(chunk)
             padded = chunk + [0] * (self.prefill_chunk - real)
+            tokens = self._upload(np.asarray([padded]))
             n0 = paged_attention.launches
-            logits = paged_prefill_into_slot(
-                self.cfg, self.params, self._upload(np.asarray([padded])),
-                real, seq.slot, self._upload(self._read_tables[seq.slot]),
-                self._upload(self._write_tables[seq.slot]), self._caches,
-                self._rope)
+            if self._paged:
+                logits = paged_prefill_into_slot(
+                    self.cfg, self.params, tokens, real, seq.slot,
+                    self._upload(self._read_tables[seq.slot]),
+                    self._upload(self._write_tables[seq.slot]),
+                    self._caches, self._rope, attn=self.attn_lane)
+            else:
+                logits = prefill_into_slot(self.cfg, self.params, tokens,
+                                           real, seq.slot, self._caches)
             row = logits.float().cpu().numpy()
             self._n_kernel_launches += paged_attention.launches - n0
+            self._record_attn(self.prefill_chunk, 1, longest=seq.cursor)
             seq.cursor += real
             self._n_prefill_chunks += 1
             if not seq.remaining_prompt:
-                self._offer_prompt_pages(seq)
+                if self._radix is not None:
+                    self._offer_prompt_pages(seq)
                 # prompt resident: sample the first token now (TTFT)
                 tok = self._sample(seq, row)
                 seq.state = _DECODE
                 if self._emit_token(seq, tok):
-                    self._retire(seq, "length")
+                    self._retire_finished(seq, tok)
                 else:
                     seq.next_token = tok
             return True
@@ -476,7 +603,7 @@ class ContinuousScheduler:
             if seq.cancelled:
                 self._retire(seq, "cancelled")
                 continue
-            if not self._ensure_pages(seq, seq.cursor + 1):
+            if self._paged and not self._ensure_pages(seq, seq.cursor + 1):
                 continue
             toks[i] = seq.next_token
             active[i] = 1
@@ -485,13 +612,20 @@ class ContinuousScheduler:
             return False
         t0 = time.perf_counter()
         n0 = paged_attention.launches
-        logits = paged_decode_step(
-            self.cfg, self.params, self._upload(toks), self._upload(active),
-            self._upload(self._read_tables), self._upload(self._write_tables),
-            self._caches, self._rope)
+        if self._paged:
+            logits = paged_decode_step(
+                self.cfg, self.params, self._upload(toks),
+                self._upload(active), self._upload(self._read_tables),
+                self._upload(self._write_tables), self._caches, self._rope,
+                attn=self.attn_lane)
+        else:
+            logits = slot_decode_step(self.cfg, self.params,
+                                      self._upload(toks),
+                                      self._upload(active), self._caches)
         la = logits.float().cpu().numpy()  # waits for the step to finish
         self._n_kernel_launches += paged_attention.launches - n0
         self._decode_seconds += time.perf_counter() - t0
+        self._record_attn(1, self.slots)
         self._n_steps += 1
         self._n_plain_steps += 1
         self._max_active_slots = max(self._max_active_slots, len(live))
@@ -499,7 +633,7 @@ class ContinuousScheduler:
             seq.cursor += 1
             tok = self._sample(seq, la[seq.slot])
             if self._emit_token(seq, tok):
-                self._retire(seq, "length")
+                self._retire_finished(seq, tok)
             else:
                 seq.next_token = tok
         return True
@@ -591,10 +725,11 @@ class ContinuousScheduler:
         vlogits = paged_verify_step(
             self.cfg, self.params, self._upload(vt),
             self._upload(self._read_tables), self._upload(self._write_tables),
-            self._caches, self._rope)
+            self._caches, self._rope, attn=self.attn_lane)
         va = vlogits.float().cpu().numpy()  # waits for the call to finish
         self._n_kernel_launches += paged_attention.launches - n0
         t2 = time.perf_counter()
+        self._record_attn(K, self.slots)
         self._n_steps += 1
         self._n_spec_rounds += 1
         self._max_active_slots = max(self._max_active_slots, len(live))
@@ -633,7 +768,7 @@ class ContinuousScheduler:
                 s.next_token = tok
                 self._n_spec_emitted += 1
                 if self._emit_token(s, tok):
-                    self._retire(s, "length")
+                    self._retire_finished(s, tok)
                     break
         paged_rewind_slots(self._caches, new_lengths)
         self._drafter.set_lengths(dlen)
@@ -692,18 +827,39 @@ class ContinuousScheduler:
         for seq in pending + list(self._slot_seqs):
             if seq is not None:
                 self._fail(seq, "scheduler shut down")
-        self._radix.clear()
+        if self._radix is not None:
+            self._radix.clear()
 
     @property
     def closed(self) -> bool:
         return self._closed
+
+    def queue_depth(self) -> int:
+        """Requests waiting for a free slot."""
+        with self._lock:
+            return len(self._pending)
+
+    def prefix_digest(self) -> Dict[str, Any]:
+        """The radix cache's chain-hash digest, for a router. Read off the
+        scheduler's thread, so a rare read during a change of the tree is
+        retried rather than locked: the digest is advisory, and a stale
+        one costs one cold prefill at most. Empty with the contiguous
+        layout or the prefix cache off."""
+        if self._radix is None:
+            return {}
+        for _ in range(8):
+            try:
+                return self._radix.digest()
+            except RuntimeError:
+                continue
+        return {}
 
     def stats(self) -> Dict[str, Any]:
         with self._lock:
             q = len(self._pending)
         out = {
             "mode": "continuous",
-            "kv_layout": "paged",
+            "kv_layout": self.kv_layout,
             "slots": self.slots,
             "prefill_chunk": self.prefill_chunk,
             "arena_len": self.arena_len,
@@ -712,20 +868,24 @@ class ContinuousScheduler:
             "prefill_chunks": self._n_prefill_chunks,
             "admitted": self._n_admitted,
             "retired": self._n_retired,
+            "retired_eos": self._n_retired_eos,
             "tokens_generated": self._n_tokens,
             "admitted_mid_flight": self._admitted_mid_flight,
             "max_active_slots": self._max_active_slots,
             "peak_queue_depth": self._peak_queue_depth,
             "queue_depth": q,
             "active_slots": sum(1 for s in self._slot_seqs if s is not None),
-            "page_tokens": self.page_tokens,
-            "pages_per_slot": self._pages_per_slot,
-            "attn_lane": self.attn_lane,
             "kernel_launches": self._n_kernel_launches,
         }
-        out.update(self._arena.stats())
-        out.update(self._radix.stats())
-        out["prefix_hit_tokens"] = self._n_prefix_hit_tokens
+        if self._paged:
+            out["page_tokens"] = self.page_tokens
+            out["pages_per_slot"] = self._pages_per_slot
+            out["attn_lane"] = self.attn_lane
+            out["attn_bytes_moved"] = self._n_attn_bytes
+            out.update(self._arena.stats())
+            if self._radix is not None:
+                out.update(self._radix.stats())
+                out["prefix_hit_tokens"] = self._n_prefix_hit_tokens
         out["plain_decode_steps"] = self._n_plain_steps
         out["verify_rounds"] = self._n_spec_rounds
         if self._drafter is not None:

@@ -1,8 +1,8 @@
 """Paged KV arena allocator and prefix/radix cache.
 
 Counterpart: ``ray_tpu/serve/_private/paging.py`` (``PageArena``,
-``RadixCache``), without the flight spans, the metrics registry and the
-affinity chain-hash digest, which the port does not carry yet.
+``RadixCache``), without the flight spans and the metrics registry, which
+come with the runtime.
 
   * ``PageArena``: a free-list allocator over the fixed pool of
     ``page_tokens``-sized KV pages. Page 0 is RESERVED as the garbage page.
@@ -11,7 +11,10 @@ affinity chain-hash digest, which the port does not carry yet.
     shares a cached prefix becomes a page-table splice plus a cursor jump
     instead of a re-prefill. Every node covers a whole number of pages, so
     a partial match splits an edge at a page boundary. Eviction is LRU over
-    refcount-0 leaves under arena pressure.
+    refcount-0 leaves under arena pressure. Each node carries the chain
+    hash of every page it holds (``affinity.chain_hashes``), and the cache
+    keeps a digest of the resident hashes up to date at insert and evict
+    (a split keeps the set as it is), for a router to steer prompts by.
 
 Both are single-thread structures: the continuous scheduler touches them
 only from its own loop thread.
@@ -21,6 +24,8 @@ from __future__ import annotations
 
 import time
 from typing import Dict, List, Optional, Tuple
+
+from ray_tpu_torch.serve._private.affinity import CHAIN_SEED, chain_hashes
 
 GARBAGE_PAGE = 0
 
@@ -106,16 +111,24 @@ class PageArena:
 
 class _RadixNode:
     __slots__ = ("tokens", "pages", "children", "parent", "refs",
-                 "last_used")
+                 "last_used", "hashes")
 
     def __init__(self, tokens: Tuple[int, ...], pages: List[int],
-                 parent: Optional["_RadixNode"]):
+                 parent: Optional["_RadixNode"],
+                 hashes: Optional[List[int]] = None):
         self.tokens = tokens          # this EDGE's token span
         self.pages = pages            # pages backing exactly that span
         self.children: Dict[int, "_RadixNode"] = {}  # first token -> child
         self.parent = parent
         self.refs = 0                 # live slots holding this node
         self.last_used = 0.0
+        # per-page chain hashes, parallel to ``pages``: hashes[i] commits
+        # to the whole root path through page i; a split slices them
+        self.hashes: List[int] = hashes if hashes is not None else []
+
+    def chain_end(self) -> int:
+        """The chain value new children extend from."""
+        return self.hashes[-1] if self.hashes else CHAIN_SEED
 
 
 class RadixCache:
@@ -135,6 +148,10 @@ class RadixCache:
         self._hits = 0
         self._misses = 0
         self._evicted_pages = 0
+        # the digest: a count per resident chain hash (a hash evicted and
+        # inserted again must not flicker) and a version stamp
+        self._digest: Dict[int, int] = {}
+        self._digest_version = 0
 
     def match(self, tokens: List[int]) -> Tuple[List[int], int,
                                                 Optional[_RadixNode]]:
@@ -196,12 +213,15 @@ class RadixCache:
         the refs."""
         T = self.page_tokens
         upper = _RadixNode(tuple(node.tokens[:at]), node.pages[: at // T],
-                           node.parent)
+                           node.parent, hashes=node.hashes[: at // T])
         upper.last_used = node.last_used
         node.parent.children[upper.tokens[0]] = upper
         lower_tokens = tuple(node.tokens[at:])
         node.tokens = lower_tokens
         node.pages = node.pages[at // T:]
+        # the hashes commit to the whole root path: the split moves them,
+        # the digest's set is unchanged
+        node.hashes = node.hashes[at // T:]
         node.parent = upper
         upper.children[lower_tokens[0]] = node
         return upper
@@ -225,9 +245,12 @@ class RadixCache:
         while rest:
             child, n = self._advance(node, rest, now)
             if child is None:
-                new = _RadixNode(tuple(rest), rest_pages, node)
+                new = _RadixNode(
+                    tuple(rest), rest_pages, node,
+                    hashes=chain_hashes(rest, T, seed=node.chain_end()))
                 new.last_used = now
                 node.children[rest[0]] = new
+                self._digest_add(new.hashes)
                 node = new
                 rest, rest_pages = [], []
                 break
@@ -275,6 +298,7 @@ class RadixCache:
                 if freed >= need_pages:
                     break
                 victim.parent.children.pop(victim.tokens[0])
+                self._digest_remove(victim.hashes)
                 self.arena.free(victim.pages)
                 freed += len(victim.pages)
                 self._evicted_pages += len(victim.pages)
@@ -284,7 +308,34 @@ class RadixCache:
         """Drop every unreferenced node. Returns pages freed."""
         return self.evict(1 << 30)
 
-    def stats(self) -> Dict[str, int]:
+    def _digest_add(self, hashes: List[int]) -> None:
+        for h in hashes:
+            self._digest[h] = self._digest.get(h, 0) + 1
+        if hashes:
+            self._digest_version += 1
+
+    def _digest_remove(self, hashes: List[int]) -> None:
+        for h in hashes:
+            n = self._digest.get(h, 0) - 1
+            if n <= 0:
+                self._digest.pop(h, None)
+            else:
+                self._digest[h] = n
+        if hashes:
+            self._digest_version += 1
+
+    def digest(self) -> Dict:
+        """Every resident page-boundary chain hash and a version stamp,
+        kept up to date by insert, evict and split: a copy of the keys,
+        cheap at poll rates."""
+        return {
+            "page_tokens": self.page_tokens,
+            "hashes": list(self._digest.keys()),
+            "version": self._digest_version,
+        }
+
+    def _walk_totals(self) -> Tuple[int, int, int]:
+        """(nodes, resident_pages, active_refs) in one tree walk."""
         nodes, pages, refs = -1, 0, 0  # -1: exclude the root sentinel
         stack = [self._root]
         while stack:
@@ -293,6 +344,19 @@ class RadixCache:
             pages += len(n.pages)
             refs += n.refs
             stack.extend(n.children.values())
+        return nodes, pages, refs
+
+    def resident_pages(self) -> int:
+        return self._walk_totals()[1]
+
+    def active_refs(self) -> int:
+        return self._walk_totals()[2]
+
+    def node_count(self) -> int:
+        return self._walk_totals()[0]
+
+    def stats(self) -> Dict[str, int]:
+        nodes, pages, refs = self._walk_totals()
         hits, misses = self._hits, self._misses
         return {
             "prefix_hits": hits,

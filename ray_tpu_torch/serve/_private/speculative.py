@@ -7,8 +7,10 @@ Acceptance is the exact algorithm of arXiv:2211.17192: accept the longest
 draft prefix whose tokens survive the q/p coin flips, resample the first
 rejection from the corrected distribution max(q - p, 0), and sample the
 bonus token from the target when every draft survives. The output
-distribution is the target model's; at temperature 0 the emitted tokens
-are the sequential greedy loop's.
+distribution is the target model's, as far as the verify call's logits
+are the single-token program's: at temperature 0 the emitted tokens are
+the sequential greedy loop's up to the rounding of the verify call's
+wider GEMMs (the scheduler's docstring gives the measured gap).
 
 The ``Drafter`` owns a contiguous slot arena (``models/decode.py``
 ``SlotKVCache``) that mirrors the scheduler's slot numbering. The drafter
@@ -83,9 +85,10 @@ def accept_greedy(draft_tokens: Sequence[int],
                   target_logits) -> Tuple[int, List[int]]:
     """Temperature-0 acceptance: accept the longest prefix where each
     draft equals the target argmax, then emit the target argmax at the
-    first divergence (or the bonus argmax after a full accept). This IS
-    what the sequential greedy loop emits, token for token: argmax over
-    the same logits rows the single-token program would produce."""
+    first divergence (or the bonus argmax after a full accept). Over the
+    logits rows the single-token program produces, this is what the
+    sequential greedy loop emits, token for token; a verify call's rows
+    equal those up to its GEMMs' rounding."""
     k = len(draft_tokens)
     emitted: List[int] = []
     for j in range(k):

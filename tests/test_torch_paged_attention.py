@@ -196,3 +196,69 @@ def test_cpu_tensors_never_count_as_kernel_launches():
     n0 = paged_attention.launches
     _port(args)
     assert paged_attention.launches == n0
+
+
+# a pool of another dtype than q's (``cache_dtype``): both sides widen q
+# and every page to float32 and write q's dtype, so a float32 output holds
+# to TOL and a bf16 one to one bf16 rounding step (2^-7 of the value)
+MIXED = {"f32_q_bf16_pool": (torch.float32, jnp.float32, torch.bfloat16,
+                             jnp.bfloat16, TOL),
+         "bf16_q_f32_pool": (torch.bfloat16, jnp.bfloat16, torch.float32,
+                             jnp.float32, dict(atol=1e-5, rtol=2.0 ** -7))}
+
+
+@pytest.mark.parametrize("pair", sorted(MIXED))
+@pytest.mark.parametrize("K", [1, 3])
+def test_mixed_dtype_pool_matches_jax_reference(pair, K):
+    """The plain version over a pool of another dtype than q's, against
+    JAX's ``_paged_attention_reference`` on the same numpy inputs."""
+    tq, jq, tp, jp, tol = MIXED[pair]
+    rng = np.random.default_rng(20 + K)
+    q, kp, vp, tables, lengths = _mk_pools(
+        rng, S=4, K=K, H=4, Hkv=2, D=8, T=4, P=6, lengths=[0, 5, 8, 13],
+        garbage_fill=1e4, shared_prefix=1)
+    got = paged_attention(
+        torch.from_numpy(q).to(tq), torch.from_numpy(kp).to(tp),
+        torch.from_numpy(vp).to(tp), torch.from_numpy(tables),
+        torch.from_numpy(lengths))
+    assert got.dtype == tq
+    want = jax_paged_attention(
+        jnp.asarray(q, jq), jnp.asarray(kp, jp), jnp.asarray(vp, jp),
+        jnp.asarray(tables), jnp.asarray(lengths), impl="reference")
+    assert want.dtype == jq
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), **tol)
+
+
+def test_mixed_pairs_take_the_fma_kernel():
+    """A pool of another dtype than q's goes to the float32 FMA split
+    kernel, whose page ring holds the pool's rows and whose query tile
+    holds q's (the shared memory the kernel takes, as the card ran it)."""
+    dec = dict(S=8, K=1, H=32, Hkv=8, D=128, T=16, P=128)
+    pre = dict(dec, S=1, K=32)
+    for shapes, pool, qb, smem in ((dec, 2, 4, 47424), (pre, 2, 4, 66624),
+                                   (dec, 4, 2, 79168), (pre, 4, 2, 95296)):
+        plan = split_plan(**shapes, elem_bytes=pool, q_bytes=qb)
+        assert plan.tensor_cores is False
+        assert plan.smem_bytes == smem
+    assert split_plan(**dec, elem_bytes=2, q_bytes=2).tensor_cores
+
+
+@pytest.mark.parametrize("qd,kd,vd", [
+    (torch.float16, torch.float16, torch.float16),
+    (torch.float32, torch.float16, torch.float16),
+    (torch.float32, torch.bfloat16, torch.float32),
+    (torch.float64, torch.float32, torch.float32)])
+def test_unsupported_dtype_pair_raises_before_any_launch(qd, kd, vd):
+    """The kernel's wrapper refuses a dtype pair it has no entry for (and
+    a k pool unlike the v pool) before it touches the card."""
+    from ray_tpu_torch.ops.paged_attention import _paged_attention_cuda
+
+    q, kp, vp, tables, lengths = [torch.from_numpy(a) for a in _mk_pools(
+        np.random.default_rng(8), S=1, K=1, H=4, Hkv=2, D=8, T=4, P=4,
+        lengths=[2])]
+    n0 = paged_attention.launches
+    with pytest.raises(TypeError, match="dtype"):
+        _paged_attention_cuda(q.to(qd), kp.to(kd), vp.to(vd), tables,
+                              lengths, 1.0)
+    assert paged_attention.launches == n0
