@@ -99,6 +99,30 @@ of its checks fails:
      against five on the CPU from the same weights on the same batches:
      losses, grad norms and moe_debug's routing losses within the stated
      tolerance.
+ 11. runtime (run after serve-lanes, before parity): the port's runtime
+     (``ray_tpu_torch.init``, a controller, a supervisor and worker
+     processes): ``rt.init()`` counts one GPU; 200 no-op actor calls
+     (median round trip); a GPU-less actor sees
+     ``CUDA_VISIBLE_DEVICES=""`` and its ``LLMServerImpl()`` refuses, a
+     ``num_gpus=1`` actor sees the card and builds its replica there;
+     llama3_8b at full width and 32 layers in a ``num_gpus=1`` actor
+     (``ReplicaHost``) on the serve phase's seed-0 weights and settings,
+     its warm-up and 12 requests streamed through
+     ``num_returns="streaming"``, arriving together, request 5 sampled at
+     0.7, pings to the actor while it serves: every request returns all
+     its tokens, K4's launches counted in the worker are exactly layers x
+     (prefill chunks + decode steps), a request's stream equals its whole
+     text, temperature-0 texts equal to the serve phase's counted (bf16:
+     not gated); the same 12 again on the warm prefix cache, whole,
+     streamed, whole (all tokens each; tokens/s, decode-step ms, prefill
+     chunks and prefix hits per pass, so streaming's cost is read apart
+     from the cache); float32 llama_debug texts from a GPU actor equal the
+     in-process replica's on the card; 1 GiB tensors through the object
+     store bit for bit (a host tensor through the arena, here and in an
+     actor; a bf16 CUDA tensor put as a device object, registry count
+     +1, the source then written in place, the owner's get a copy equal
+     to the value put and writing it changing nothing, fetched by a GPU
+     actor; a task's 1 GiB CUDA return fetched here), with GB/s. Every get has a timeout; its expiry fails the run.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Details go to
@@ -1779,6 +1803,508 @@ def parity_lanes(torch, cfg, host, base) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ runtime
+# The port's runtime: a cluster started by rt.init() on this machine, the
+# replica in a worker process that holds the card. Every get takes
+# RT_TIMEOUT; its expiry (an actor that never starts, a hung stream) fails
+# the run.
+RT_TIMEOUT = 600.0
+TRANSFER_BYTES = 1 << 30  # each transfer: a 1 GiB tensor
+NOOP_CALLS = 200
+
+
+def _payload(torch, seed: int, device="cuda"):
+    """TRANSFER_BYTES of bf16 from a seeded generator on ``device``: the
+    same bits in every process on the same card."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn(TRANSFER_BYTES // 2, generator=g, device=device,
+                       dtype=torch.bfloat16)
+
+
+def _same_bits(torch, a, b) -> bool:
+    return (a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.reshape(-1).view(torch.int16), b.reshape(-1).view(torch.int16)))
+
+
+class ReplicaHost:
+    """One ``LLMServerImpl`` in an async actor of the port's runtime. It
+    stands in for the serve control plane's replica actor, which is not
+    ported yet. ``expect(n)`` holds the next n requests until all n have
+    arrived, then submits them in arrival order, so requests that come over
+    RPC one by one reach the scheduler together, as an in-process
+    ``gather`` of them does. K4's launch counter is read here, in the
+    worker: this process's counter does not see the worker's launches."""
+
+    def __init__(self, params=None, **server_kw):
+        import torch
+
+        from ray_tpu_torch import LLMServerImpl
+
+        t0 = time.perf_counter()
+        self.srv = LLMServerImpl(
+            params_loader=None if params is None else (lambda cfg: params),
+            **server_kw)
+        if self.srv.device.type == "cuda":
+            torch.cuda.synchronize()
+        self.init_s = time.perf_counter() - t0
+        self._expect = 0
+        self._arrived = 0
+        self._all_in = None
+
+    async def expect(self, n: int) -> None:
+        self._expect, self._arrived = n, 0
+        self._all_in = asyncio.Event()
+
+    async def _arrive(self) -> None:
+        if self._all_in is None:
+            return
+        ev = self._all_in
+        self._arrived += 1
+        if self._arrived == self._expect:
+            self._all_in = None
+            ev.set()
+            # the waiters wake in arrival order, queued before this yield
+            await asyncio.sleep(0)
+        else:
+            await ev.wait()
+
+    async def generate(self, req):
+        await self._arrive()
+        return await self.srv(req)
+
+    async def stream(self, req):
+        await self._arrive()
+        async for piece in await self.srv(dict(req, stream=True)):
+            yield piece
+
+    async def stats(self):
+        return self.srv.scheduler_stats()
+
+    async def launches(self, reset: bool = False):
+        from ray_tpu_torch.ops.paged_attention import paged_attention
+
+        out = (paged_attention.launches, dict(paged_attention.pair_launches))
+        if reset:
+            paged_attention.launches = 0
+            paged_attention.pair_launches.clear()
+        return out
+
+    async def ping(self):
+        return None
+
+    async def info(self):
+        import os
+
+        import torch
+
+        from ray_tpu_torch.models.transformer import map_params
+
+        devices = set()
+        map_params(lambda _p, t: devices.add(str(t.device)), self.srv.params)
+        return {"init_s": self.init_s, "layers": self.srv.cfg.num_layers,
+                "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                "card": torch.cuda.get_device_name(),
+                "param_devices": sorted(devices),
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+    async def shutdown(self):
+        self.srv.shutdown()
+
+
+class CardProbe:
+    """What a worker sees of the card, and the transfers' far end."""
+
+    def info(self):
+        import os
+
+        import torch
+
+        return {"visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                "cuda": torch.cuda.is_available(),
+                "card": (torch.cuda.get_device_name()
+                         if torch.cuda.is_available() else None)}
+
+    def build_replica(self):
+        """A llama_debug replica with no device named: on the card, or a
+        refusal where the worker sees none."""
+        from ray_tpu_torch import LLMServerImpl
+        from ray_tpu_torch.models.transformer import map_params
+
+        srv = LLMServerImpl(preset="llama_debug")
+        try:
+            devices = set()
+            map_params(lambda _p, t: devices.add(str(t.device)), srv.params)
+            return sorted(devices)
+        finally:
+            srv.shutdown()
+
+    def fetch(self, boxed, seed):
+        """Get the tensor behind ``boxed[0]`` (timed here) and hold it bit
+        for bit against the seeded payload regenerated on this card."""
+        import torch
+
+        import ray_tpu_torch as rt
+
+        t0 = time.perf_counter()
+        t = rt.get(boxed[0], timeout=RT_TIMEOUT)
+        if t.is_cuda:
+            torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        want = _payload(torch, seed)
+        return {"seconds": dt, "device": str(t.device),
+                "equal": _same_bits(torch, t.to(want.device), want)}
+
+
+
+def _made_on_card(seed):
+    """A task's return: a 1 GiB CUDA tensor, left on the worker's card."""
+    import torch
+
+    t = _payload(torch, seed)
+    torch.cuda.synchronize()
+    return t
+
+
+class Noop:
+    def ping(self):
+        return None
+
+
+def _consume(rt, gen):
+    """A stream's pieces and the time its first arrived, every wait bounded
+    by RT_TIMEOUT."""
+    first, pieces = None, []
+    while True:
+        try:
+            ref = gen.next(timeout=RT_TIMEOUT)
+        except StopIteration:
+            return first, pieces
+        pieces.append(rt.get(ref, timeout=RT_TIMEOUT))
+        if first is None:
+            first = time.perf_counter()
+
+
+def _actor_serve(torch, rt, serve) -> dict:
+    """llama3_8b at full width and 32 layers in a num_gpus=1 actor, the
+    serve phase's arena, slots, chunks and pages and its seed-0 bf16
+    weights: the warm-up, then the 12 requests streamed, arriving
+    together, request 5 sampled at 0.7; pings to the actor while it
+    serves; K4's launches counted in the worker."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    Host = rt.remote(ReplicaHost).options(num_gpus=1, max_concurrency=64)
+    t0 = time.perf_counter()
+    h = Host.remote(preset="llama3_8b", arena_len=ARENA_LEN,
+                    max_new_tokens=SERVE_NEW_TOKENS, detokenize=_ids_text)
+    info = rt.get(h.info.remote(), timeout=RT_TIMEOUT)
+    start_s = time.perf_counter() - t0
+    try:
+        rt.get(h.generate.remote({"prompt": "warm up", "max_new_tokens": 2}),
+               timeout=RT_TIMEOUT)
+        reqs = [{"prompt": p} for p in _serve_prompts()]
+        reqs[SAMPLED]["temperature"] = 0.7
+        rt.get(h.launches.remote(reset=True), timeout=RT_TIMEOUT)
+        before = rt.get(h.stats.remote(), timeout=RT_TIMEOUT)
+        rt.get(h.expect.remote(len(reqs)), timeout=RT_TIMEOUT)
+        pings = []
+        with ThreadPoolExecutor(len(reqs)) as pool:
+            t1 = time.perf_counter()
+            gens = [h.stream.options(num_returns="streaming").remote(r)
+                    for r in reqs]
+            futs = [pool.submit(_consume, rt, g) for g in gens]
+            while not all(f.done() for f in futs):
+                p0 = time.perf_counter()
+                rt.get(h.ping.remote(), timeout=RT_TIMEOUT)
+                pings.append(time.perf_counter() - p0)
+                time.sleep(0.05)
+            outs = [f.result(timeout=RT_TIMEOUT) for f in futs]
+        wall = time.perf_counter() - t1
+        launches, pairs = rt.get(h.launches.remote(), timeout=RT_TIMEOUT)
+        st = rt.get(h.stats.remote(), timeout=RT_TIMEOUT)
+        texts = ["".join(pieces) for _, pieces in outs]
+        # the same 12 again, whole, streamed, whole: the first pass left
+        # their shared prefix in the cache, so these three start from the
+        # same cache state, and the streamed pass between two whole ones
+        # shows what the per-token reports to this process cost the
+        # worker's scheduler thread, apart from the prefix cache and order
+        again = [_actor_pass(rt, h, reqs, stream)
+                 for stream in (False, True, False)]
+        # one request alone, streamed and whole: the same batch and cache
+        # state (a prompt under one page is never cached), so the same text
+        solo = {"prompt": "warm up", "max_new_tokens": 8}
+        g = h.stream.options(num_returns="streaming").remote(solo)
+        streamed = "".join(_consume(rt, g)[1])
+        whole = rt.get(h.generate.remote(solo), timeout=RT_TIMEOUT)["text"]
+        info_after = rt.get(h.info.remote(), timeout=RT_TIMEOUT)
+        rt.get(h.shutdown.remote(), timeout=RT_TIMEOUT)
+    finally:
+        rt.kill(h)
+    _check_paged_run(texts, st)
+    layers = info["layers"]
+    steps = st["decode_steps"] - before["decode_steps"]
+    chunks = st["prefill_chunks"] - before["prefill_chunks"]
+    if not 0 < launches == layers * (chunks + steps):
+        raise AssertionError(
+            f"{launches} K4 launches in the worker, expected {layers} x "
+            f"({chunks} prefill chunks + {steps} decode steps), above 0")
+    if streamed != whole or len(_text_ids(whole)) != 8:
+        raise AssertionError(f"streamed {streamed!r} != whole {whole!r}")
+    if info["visible"] != "0" or info["param_devices"] != ["cuda:0"]:
+        raise AssertionError(f"the replica's worker: {info}")
+    equal = _equal_greedy(texts, serve["texts"])
+    tokens = len(texts) * SERVE_NEW_TOKENS
+    ttfts = [first - t1 for first, _ in outs]
+    pings.sort()
+    r = dict(start_s=start_s, weight_init_s=info["init_s"],
+             requests=len(texts), tokens=tokens, wall_s=wall,
+             tokens_per_s=tokens / wall,
+             decode_step_ms=(st["decode_seconds"]
+                             - before["decode_seconds"]) / steps * 1e3,
+             ttft_mean_s=sum(ttfts) / len(ttfts), ttft_max_s=max(ttfts),
+             decode_steps=steps, prefill_chunks=chunks, launches=launches,
+             pair_launches=pairs,
+             prefix_hits=st["prefix_hits"] - before.get("prefix_hits", 0),
+             warm_passes=again,
+             texts_equal_serve=equal,
+             ping_during_serve_median_s=pings[len(pings) // 2],
+             ping_during_serve_max_s=pings[-1], pings=len(pings),
+             peak_mem_gb=info_after["peak_mem_gb"], worker=info)
+    print(f"runtime serve: llama3_8b, {layers} layers, in a num_gpus=1 actor "
+          f"(CUDA_VISIBLE_DEVICES={info['visible']}, {info['card']}, "
+          f"params on {info['param_devices']}); up in {start_s:.2f} s "
+          f"(weights {info['init_s']:.2f} s); {tokens} tokens in "
+          f"{wall:.2f} s = {r['tokens_per_s']:.1f} tokens/s (in-process "
+          f"{serve['tokens_per_s']:.1f}); decode step "
+          f"{r['decode_step_ms']:.2f} ms (in-process "
+          f"{serve['decode_step_ms']:.2f}); TTFT mean "
+          f"{r['ttft_mean_s']:.3f} s, max {r['ttft_max_s']:.3f} s; "
+          f"{launches} K4 launches in the worker = {layers} x ({chunks} + "
+          f"{steps}); streamed = whole; {equal} of 11 temperature-0 texts "
+          f"equal the serve phase's; {len(pings)} pings while serving, "
+          f"median {r['ping_during_serve_median_s'] * 1e3:.2f} ms, max "
+          f"{r['ping_during_serve_max_s'] * 1e3:.2f} ms; this pass "
+          f"{chunks} prefill chunks, {r['prefix_hits']} prefix hits",
+          flush=True)
+    print("runtime serve, the same 12 again on the warm cache: " + "; ".join(
+        f"{p['kind']} {p['tokens_per_s']:.1f} tokens/s, decode step "
+        f"{p['decode_step_ms']:.2f} ms ({p['decode_steps']} steps), "
+        f"{p['prefill_chunks']} prefill chunks, {p['prefix_hits']} prefix "
+        f"hits" for p in again), flush=True)
+    return r
+
+
+def _actor_pass(rt, h, reqs, stream: bool) -> dict:
+    """The requests once more through the host, arriving together,
+    streamed or whole; every request must return all its tokens. Its
+    tokens/s, decode-step ms and the scheduler's work in this pass."""
+    before = rt.get(h.stats.remote(), timeout=RT_TIMEOUT)
+    rt.get(h.expect.remote(len(reqs)), timeout=RT_TIMEOUT)
+    t0 = time.perf_counter()
+    if stream:
+        from concurrent.futures import ThreadPoolExecutor
+
+        gens = [h.stream.options(num_returns="streaming").remote(r)
+                for r in reqs]
+        with ThreadPoolExecutor(len(gens)) as pool:
+            texts = ["".join(pieces) for _, pieces in pool.map(
+                lambda g: _consume(rt, g), gens)]
+    else:
+        texts = [o["text"] for o in rt.get(
+            [h.generate.remote(r) for r in reqs], timeout=RT_TIMEOUT)]
+    wall = time.perf_counter() - t0
+    st = rt.get(h.stats.remote(), timeout=RT_TIMEOUT)
+    _check_paged_run(texts, st)
+    steps = st["decode_steps"] - before["decode_steps"]
+    return dict(kind="streamed" if stream else "whole", wall_s=wall,
+                tokens_per_s=len(texts) * SERVE_NEW_TOKENS / wall,
+                decode_step_ms=(st["decode_seconds"]
+                                - before["decode_seconds"]) / steps * 1e3,
+                decode_steps=steps,
+                prefill_chunks=st["prefill_chunks"]
+                - before["prefill_chunks"],
+                prefix_hits=st["prefix_hits"] - before["prefix_hits"])
+
+
+def _actor_parity(torch, rt) -> dict:
+    """float32 llama_debug: an actor's texts on the card equal the
+    in-process replica's on the card, on the same seeded weights."""
+    from ray_tpu_torch import presets
+    from ray_tpu_torch.models.transformer import init_params
+
+    host = init_params(presets.llama_debug(), seed=0, device="cpu")
+    local, _ = _parity_texts("llama_debug", host, "cuda")
+    Host = rt.remote(ReplicaHost).options(num_gpus=1, max_concurrency=16)
+    h = Host.remote(params=host, preset="llama_debug", max_new_tokens=8,
+                    slots=4, prefill_chunk=8, page_tokens=4,
+                    detokenize=_ids_text)
+    prompts = ["hi", "hello 123", "a much longer prompt than the others!"]
+    try:
+        rt.get(h.expect.remote(len(prompts) * 3), timeout=RT_TIMEOUT)
+        refs = [h.generate.remote({"prompt": p}) for p in prompts * 3]
+        texts = [o["text"] for o in rt.get(refs, timeout=RT_TIMEOUT)]
+        launches, _ = rt.get(h.launches.remote(), timeout=RT_TIMEOUT)
+        rt.get(h.shutdown.remote(), timeout=RT_TIMEOUT)
+    finally:
+        rt.kill(h)
+    if texts != local:
+        raise AssertionError(f"actor texts {texts} != in-process {local}")
+    if launches <= 0:
+        raise AssertionError("the actor's llama_debug ran no K4 launch")
+    print(f"runtime parity: float32 llama_debug, {len(texts)} texts from a "
+          f"num_gpus=1 actor equal the in-process replica's on the card "
+          f"({launches} K4 launches in the worker)", flush=True)
+    return dict(texts_equal=True, requests=len(texts), launches=launches)
+
+
+def _transfers(torch, rt, rt_api) -> dict:
+    """1 GiB tensors through the object store, each bit for bit: a host
+    tensor through the arena (put, get here, get in an actor); a CUDA
+    tensor through put, whose copy stays on the card in this process's
+    registry (the source is then written), then fetched by a GPU actor; a CUDA tensor returned by a
+    num_gpus=1 task, fetched here."""
+    gb = TRANSFER_BYTES / 1e9
+    probe = rt.remote(CardProbe).options(num_gpus=1).remote()
+    try:
+        rt.get(probe.info.remote(), timeout=RT_TIMEOUT)  # up
+        host = _payload(torch, 1).cpu()
+        t0 = time.perf_counter()
+        ref = rt.put(host)
+        put_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = rt.get(ref, timeout=RT_TIMEOUT)
+        get_s = time.perf_counter() - t0
+        if not _same_bits(torch, back, host):
+            raise AssertionError("the host tensor came back changed")
+        del back
+        far = rt.get(probe.fetch.remote([ref], 1), timeout=RT_TIMEOUT)
+        if not far["equal"]:
+            raise AssertionError(f"the actor's host tensor differs: {far}")
+        del ref, host
+        dev = _payload(torch, 2)
+        n0 = len(rt_api._core.device_objects)
+        t0 = time.perf_counter()
+        dref = rt.put(dev)
+        dput_s = time.perf_counter() - t0
+        if len(rt_api._core.device_objects) != n0 + 1:
+            raise AssertionError("put of a CUDA tensor did not register a "
+                                 "device object")
+        # the registry holds a copy taken at put: writing the source in
+        # place, or the owner's result, changes neither the owner's next
+        # get nor the actor's fetch
+        dev.add_(1)
+        mine = rt.get(dref, timeout=RT_TIMEOUT)
+        if mine.data_ptr() == dev.data_ptr() or not _same_bits(
+                torch, mine, _payload(torch, 2)):
+            raise AssertionError("the owner's get of its device object is "
+                                 "not the value put")
+        mine.zero_()
+        if not _same_bits(torch, rt.get(dref, timeout=RT_TIMEOUT),
+                          _payload(torch, 2)):
+            raise AssertionError("a write to the owner's get reached the "
+                                 "device object")
+        del mine
+        dfar = rt.get(probe.fetch.remote([dref], 2), timeout=RT_TIMEOUT)
+        if not dfar["equal"] or not dfar["device"].startswith("cuda"):
+            raise AssertionError(f"the actor's CUDA tensor: {dfar}")
+        del dref, dev
+    finally:
+        rt.kill(probe)
+    # the task's worker holds the card once the probe has let it go
+    mref = rt.remote(num_gpus=1)(_made_on_card).remote(3)
+    rt.wait([mref], timeout=RT_TIMEOUT)
+    t0 = time.perf_counter()
+    made = rt.get(mref, timeout=RT_TIMEOUT)
+    torch.cuda.synchronize()
+    ret_s = time.perf_counter() - t0
+    if not made.is_cuda or not _same_bits(torch, made, _payload(torch, 3)):
+        raise AssertionError("the task's CUDA tensor came back changed")
+    del made, mref
+    r = dict(bytes=TRANSFER_BYTES,
+             host_put_gb_s=gb / put_s, host_get_gb_s=gb / get_s,
+             host_actor_get_gb_s=gb / far["seconds"],
+             device_put_s=dput_s,
+             device_actor_get_gb_s=gb / dfar["seconds"],
+             device_return_get_gb_s=gb / ret_s)
+    print(f"runtime transfers, 1 GiB each, bit for bit: host tensor put "
+          f"{r['host_put_gb_s']:.2f} GB/s, get {r['host_get_gb_s']:.2f} "
+          f"GB/s, actor get {r['host_actor_get_gb_s']:.2f} GB/s (the "
+          f"arena); CUDA tensor put {dput_s * 1e3:.2f} ms (a device object,"
+          f" registry +1), actor get {r['device_actor_get_gb_s']:.2f} GB/s;"
+          f" a task's 1 GiB CUDA return fetched at "
+          f"{r['device_return_get_gb_s']:.2f} GB/s", flush=True)
+    return r
+
+
+def runtime_phase(torch, serve) -> dict:
+    """The port's runtime on this machine: ``rt.init()`` finds one GPU; a
+    GPU-less actor refuses to build a replica with no device, a GPU actor
+    sees the card; llama3_8b served from a num_gpus=1 actor; float32
+    parity of an actor's texts at llama_debug; 1 GiB tensors through the
+    object store; the round trip of a no-op actor call."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch._private import api as rt_api
+
+    t0 = time.perf_counter()
+    rt.init(object_store_memory=3 * 2 ** 30)
+    try:
+        init_s = time.perf_counter() - t0
+        res = rt.cluster_resources()
+        if res.get("GPU") != 1:
+            raise AssertionError(f"cluster resources {res}: not one GPU")
+        noop = rt.remote(Noop).remote()
+        rt.get(noop.ping.remote(), timeout=RT_TIMEOUT)
+        trips = []
+        for _ in range(NOOP_CALLS):
+            p0 = time.perf_counter()
+            rt.get(noop.ping.remote(), timeout=RT_TIMEOUT)
+            trips.append(time.perf_counter() - p0)
+        rt.kill(noop)
+        trips.sort()
+        cpu_probe = rt.remote(CardProbe).remote()
+        seen = rt.get(cpu_probe.info.remote(), timeout=RT_TIMEOUT)
+        if seen["visible"] != "" or seen["cuda"]:
+            raise AssertionError(f"a GPU-less actor sees a card: {seen}")
+        try:
+            rt.get(cpu_probe.build_replica.remote(), timeout=RT_TIMEOUT)
+        except rt.TaskError as e:
+            if "no CUDA device" not in str(e):
+                raise
+        else:
+            raise AssertionError("a GPU-less actor built a replica")
+        rt.kill(cpu_probe)
+        gpu_probe = rt.remote(CardProbe).options(num_gpus=1).remote()
+        seen = rt.get(gpu_probe.info.remote(), timeout=RT_TIMEOUT)
+        built = rt.get(gpu_probe.build_replica.remote(), timeout=RT_TIMEOUT)
+        rt.kill(gpu_probe)
+        if (seen["visible"] != "0" or seen["card"]
+                != torch.cuda.get_device_name(0) or built != ["cuda:0"]):
+            raise AssertionError(f"the GPU actor sees {seen}, its replica's "
+                                 f"params are on {built}")
+        store = rt_api._core._run(rt_api._core.clients.get(
+            rt_api._core.supervisor_addr).call("store_stats"),
+            timeout=RT_TIMEOUT)
+        free_list = ("the C++ one (_native/allocator.cpp)"
+                     if store["native_allocator"] else "the Python one")
+        print(f"runtime: cluster up in {init_s:.2f} s, resources GPU "
+              f"{res['GPU']:g}, CPU {res['CPU']:g}; a no-op actor call's "
+              f"round trip median {trips[NOOP_CALLS // 2] * 1e3:.3f} ms "
+              f"({NOOP_CALLS} calls); a GPU-less actor sees "
+              f"CUDA_VISIBLE_DEVICES='' and its replica refuses; the GPU "
+              f"actor sees '{seen['visible']}' ({seen['card']}), replica "
+              f"params on {built}; object store free list: {free_list}",
+              flush=True)
+        r = dict(init_s=init_s, resources=res,
+                 noop_median_ms=trips[NOOP_CALLS // 2] * 1e3,
+                 noop_p90_ms=trips[int(NOOP_CALLS * 0.9)] * 1e3,
+                 free_list=free_list)
+        r["serve"] = _actor_serve(torch, rt, serve)
+        r["parity"] = _actor_parity(torch, rt)
+        r["transfers"] = _transfers(torch, rt, rt_api)
+    finally:
+        rt.shutdown()
+    return r
+
+
 def _free(torch):
     """Drop a finished phase's server (16 GB of llama3_8b weights) from the
     card before the next phase builds its own."""
@@ -1813,6 +2339,7 @@ def main() -> int:
     _free(torch)
     lanes = serve_lanes_phase(torch, serve["texts"])
     _free(torch)
+    runtime = runtime_phase(torch, serve)
     parity = parity_phase(torch)
     train = train_phase(torch)
     train_parity = train_parity_phase(torch)
@@ -1849,6 +2376,10 @@ def main() -> int:
             "bound_by": case["bound_by"],
             "library_ms": case["library_ms"],
         })
+    # K4 inside the runtime's worker process: llama3_8b served from an actor
+    kernels["kernels"].append(dict(
+        kernels["kernels"][0], name="paged_attention_in_actor",
+        launches=runtime["serve"]["launches"]))
     # the flash kernels at the main path's shapes: gpt2_small, bf16
     fcase = flash["gpt2_small_bfloat16"]
     launches = train["gpt2_small"]["launches"]
@@ -1873,7 +2404,7 @@ def main() -> int:
         })
     detail = {"card": card, "build": build, "kernel": kern, "flash": flash,
               "serve": serve, "spec_serve": spec_serve,
-              "serve_lanes": lanes, "parity": parity,
+              "serve_lanes": lanes, "runtime": runtime, "parity": parity,
               "train": train,
               "train_parity": train_parity,
               "seconds": time.perf_counter() - t_start}
