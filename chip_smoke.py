@@ -106,8 +106,9 @@ of its checks fails:
      ``CUDA_VISIBLE_DEVICES=""`` and its ``LLMServerImpl()`` refuses, a
      ``num_gpus=1`` actor sees the card and builds its replica there;
      llama3_8b at full width and 32 layers in a ``num_gpus=1`` actor
-     (``ReplicaHost``) on the serve phase's seed-0 weights and settings,
-     its warm-up and 12 requests streamed through
+     (``ReplicaHost``: no control plane and no weights in the arena, the
+     yardstick for phase 12) on the serve phase's seed-0 weights and
+     settings, its warm-up and 12 requests streamed through
      ``num_returns="streaming"``, arriving together, request 5 sampled at
      0.7, pings to the actor while it serves: every request returns all
      its tokens, K4's launches counted in the worker are exactly layers x
@@ -123,6 +124,29 @@ of its checks fails:
      +1, the source then written in place, the owner's get a copy equal
      to the value put and writing it changing nothing, fetched by a GPU
      actor; a task's 1 GiB CUDA return fetched here), with GB/s. Every get has a timeout; its expiry fails the run.
+ 12. serve-app (run after runtime): the serve library on the card.
+     ``rt.init`` with a 24 GiB arena; ``serve.run`` of ``LLMServer``
+     (a subclass defined here that reads K4's counter in the replica's
+     worker) with ``num_replicas=1, num_gpus=1``: llama3_8b at full width
+     and 32 layers, the serve phase's arena, slots, chunks and pages,
+     random bf16 weights from seed 0, shared through the node's arena.
+     Gates: ``serve.status()`` RUNNING; ``weights_info()`` "published" and
+     shared; the params on ``cuda:0``; the serve controller's worker given
+     no card (``CUDA_VISIBLE_DEVICES=""``); a GPU-less task attaches to the
+     published tree with a loader that refuses ("attached", the arena's
+     used bytes do not grow, per-leaf sums equal the replica's); the
+     warm-up and the 12 requests streamed through the
+     ``DeploymentHandle`` (``options(stream=True)``), sent together,
+     request 5 sampled at 0.7: every request returns all its tokens, K4's
+     launches in the replica's worker exactly layers x (prefill chunks +
+     decode steps); a streamed request equals its whole text; counted, not
+     gated, the bf16 texts equal to the serve phase's. Then whole,
+     streamed, whole, streamed on the warm cache (tokens/s, decode-step
+     ms, chunks, prefix hits each, and the streamed/whole step ratio),
+     against the serve phase and the runtime phase's ``ReplicaHost``.
+     float32 llama_debug one request at a time through the handle from a
+     ``num_gpus=1`` replica equals the in-process replica's on the card;
+     after ``serve.shutdown()`` a ``num_gpus=1`` actor starts within 120 s.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Details go to
@@ -1827,12 +1851,13 @@ def _same_bits(torch, a, b) -> bool:
 
 
 class ReplicaHost:
-    """One ``LLMServerImpl`` in an async actor of the port's runtime. It
-    stands in for the serve control plane's replica actor, which is not
-    ported yet. ``expect(n)`` holds the next n requests until all n have
-    arrived, then submits them in arrival order, so requests that come over
-    RPC one by one reach the scheduler together, as an in-process
-    ``gather`` of them does. K4's launch counter is read here, in the
+    """One ``LLMServerImpl`` in an async actor of the port's runtime, with
+    no serve control plane around it and no weights in the arena: the
+    yardstick for the serve-app phase's ``ReplicaActor``, which
+    ``serve.run`` starts behind the router. ``expect(n)`` holds the next n
+    requests until all n have arrived, then submits them in arrival order,
+    so requests that come over RPC one by one reach the scheduler together,
+    as an in-process ``gather`` of them does. K4's launch counter is read here, in the
     worker: this process's counter does not see the worker's launches."""
 
     def __init__(self, params=None, **server_kw):
@@ -1843,7 +1868,7 @@ class ReplicaHost:
         t0 = time.perf_counter()
         self.srv = LLMServerImpl(
             params_loader=None if params is None else (lambda cfg: params),
-            **server_kw)
+            share_weights=False, **server_kw)
         if self.srv.device.type == "cuda":
             torch.cuda.synchronize()
         self.init_s = time.perf_counter() - t0
@@ -1930,7 +1955,7 @@ class CardProbe:
         from ray_tpu_torch import LLMServerImpl
         from ray_tpu_torch.models.transformer import map_params
 
-        srv = LLMServerImpl(preset="llama_debug")
+        srv = LLMServerImpl(preset="llama_debug", share_weights=False)
         try:
             devices = set()
             map_params(lambda _p, t: devices.add(str(t.device)), srv.params)
@@ -2305,6 +2330,361 @@ def runtime_phase(torch, serve) -> dict:
     return r
 
 
+# ------------------------------------------------------------- serve-app
+
+# the serve-app phase's arena: llama3_8b's 16.06 GB tree once, plus room
+# for the phase's other objects (requests, the float32 llama_debug tree),
+# and below the store's 0.8 spilling threshold with the tree in it
+SERVE_APP_STORE = 24 * 2 ** 30
+SERVE_APP_KEY = "llm:llama3_8b:seed0"   # LLMServerImpl's default key
+PARITY_PROMPTS = ["hi", "hello 123", "a much longer prompt than the others!"]
+
+
+def _leaf_sums(torch, params) -> dict:
+    """Per leaf: the sum of its bytes read as int32 words (int16, then
+    bytes, where the size does not divide), in int64, on the leaf's
+    device. Equal trees give equal sums."""
+    from ray_tpu_torch.models.transformer import map_params
+
+    out = {}
+
+    def leaf(path, t):
+        raw = t.detach().contiguous().reshape(-1).view(torch.uint8)
+        for dt, size in ((torch.int32, 4), (torch.int16, 2),
+                         (torch.uint8, 1)):
+            if raw.numel() % size == 0:
+                break
+        out[path] = int(raw.view(dt).sum(dtype=torch.int64))
+
+    map_params(leaf, params)
+    return out
+
+
+def _make_serve_app_llm():
+    """The LLM deployment's class with probes into its replica process:
+    K4's launch counter (this process's counter does not see the worker's
+    launches), where the params live, the init time and per-leaf sums."""
+    from ray_tpu_torch.serve.llm import LLMServerImpl
+
+    class ServeAppLLM(LLMServerImpl):
+        def __init__(self, **kw):
+            import torch
+
+            t0 = time.perf_counter()
+            super().__init__(**kw)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize()
+            self.init_s = time.perf_counter() - t0
+
+        def launches(self, reset: bool = False):
+            from ray_tpu_torch.ops.paged_attention import paged_attention
+
+            out = (paged_attention.launches,
+                   dict(paged_attention.pair_launches))
+            if reset:
+                paged_attention.launches = 0
+                paged_attention.pair_launches.clear()
+            return out
+
+        def info(self):
+            import os
+
+            import torch
+
+            from ray_tpu_torch.models.transformer import map_params
+
+            devices = set()
+            map_params(lambda _p, t: devices.add(str(t.device)), self.params)
+            return {"init_s": self.init_s, "layers": self.cfg.num_layers,
+                    "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                    "card": torch.cuda.get_device_name(),
+                    "param_devices": sorted(devices),
+                    "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+        def leaf_sums(self):
+            import torch
+
+            return _leaf_sums(torch, self.params)
+
+    return ServeAppLLM
+
+
+def _attach_shared(key):
+    """A GPU-less task: attach to the node's published tree under ``key``
+    with a loader that refuses, and sum its leaves on the CPU."""
+    import os
+
+    import torch
+
+    from ray_tpu_torch.serve._private import weights
+
+    def refuse():
+        raise AssertionError("the attach must not run the loader")
+
+    t0 = time.perf_counter()
+    params, info = weights.get_or_publish(key, refuse)
+    attach_s = time.perf_counter() - t0
+    return {"info": info, "attach_s": attach_s,
+            "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+            "sums": _leaf_sums(torch, params)}
+
+
+def _store_used(rt_api) -> int:
+    core = rt_api._core
+    st = core._run(core.clients.get(core.supervisor_addr).call(
+        "store_stats"), timeout=RT_TIMEOUT)
+    return int(st["capacity"] - st["free_bytes"])
+
+
+def _controller_worker(rt_api) -> dict:
+    """The serve controller's worker: the cards its supervisor gave it and
+    the CUDA_VISIBLE_DEVICES its process runs under."""
+    from ray_tpu_torch.serve._private.controller import CONTROLLER_NAME
+
+    core = rt_api._core
+    rec = core._run(core.clients.get(core.controller_addr).call(
+        "actor_by_name", {"name": CONTROLLER_NAME, "namespace": "default"}),
+        timeout=RT_TIMEOUT)
+    sup = core.clients.get(core.supervisor_addr)
+    wid = rec["worker_id_hex"]
+    gpus = core._run(sup.call("gpu_visible_devices",
+                              {"worker_id_hex": wid}), timeout=RT_TIMEOUT)
+    workers = core._run(sup.call("worker_profile", {}),
+                        timeout=RT_TIMEOUT)["workers"]
+    pid = next(w["pid"] for w in workers if w["worker_id_hex"] == wid)
+    env = Path(f"/proc/{pid}/environ").read_bytes().split(b"\0")
+    visible = next((e.split(b"=", 1)[1].decode() for e in env
+                    if e.startswith(b"CUDA_VISIBLE_DEVICES=")), None)
+    return {"gpus": gpus, "visible": visible, "detached": rec["detached"]}
+
+
+def _handle_pass(rt, h, reqs, stream: bool) -> dict:
+    """The requests through the handle, sent together, streamed
+    (``options(stream=True)``) or whole; every request must return all its
+    tokens. Its tokens/s, TTFT (streams), decode-step ms and the
+    scheduler's work in this pass."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    before = h.scheduler_stats.remote().result(timeout=RT_TIMEOUT)
+    t0 = time.perf_counter()
+    if stream:
+        sh = h.options(stream=True)
+        gens = [sh.remote(dict(r, stream=True)).ref for r in reqs]
+        with ThreadPoolExecutor(len(gens)) as pool:
+            outs = list(pool.map(lambda g: _consume(rt, g), gens))
+        texts = ["".join(pieces) for _, pieces in outs]
+        ttfts = [first - t0 for first, _ in outs]
+    else:
+        resps = [h.remote(r) for r in reqs]
+        texts = [r.result(timeout=RT_TIMEOUT)["text"] for r in resps]
+        ttfts = []
+    wall = time.perf_counter() - t0
+    st = h.scheduler_stats.remote().result(timeout=RT_TIMEOUT)
+    _check_paged_run(texts, st)
+    steps = st["decode_steps"] - before["decode_steps"]
+    r = dict(kind="streamed" if stream else "whole", wall_s=wall,
+             tokens_per_s=len(texts) * SERVE_NEW_TOKENS / wall,
+             decode_step_ms=(st["decode_seconds"]
+                             - before["decode_seconds"]) / steps * 1e3,
+             decode_steps=steps,
+             prefill_chunks=st["prefill_chunks"] - before["prefill_chunks"],
+             prefix_hits=st["prefix_hits"] - before["prefix_hits"],
+             texts=texts)
+    if ttfts:
+        r.update(ttft_mean_s=sum(ttfts) / len(ttfts), ttft_max_s=max(ttfts))
+    return r
+
+
+def _serve_app_llama3_8b(torch, rt, rt_api, serve, LLM, cls, serve_ref,
+                         runtime) -> dict:
+    """llama3_8b through serve.run in a num_gpus=1 ReplicaActor: deploy,
+    the GPU-less attach, the 12 requests through the handle and the warm
+    alternating passes."""
+    t0 = time.perf_counter()
+    app = LLM.options(func_or_class=cls, num_replicas=1,
+                      ray_actor_options={"num_gpus": 1}).bind(
+        preset="llama3_8b", arena_len=ARENA_LEN,
+        max_new_tokens=SERVE_NEW_TOKENS, detokenize=_ids_text)
+    h = serve.run(app, name="llama3_8b", route_prefix="/llama3_8b",
+                  timeout_s=RT_TIMEOUT)
+    deploy_s = time.perf_counter() - t0
+    status = serve.status()["llama3_8b"]["llm"]
+    winfo = h.weights_info.remote().result(timeout=RT_TIMEOUT)
+    info = h.info.remote().result(timeout=RT_TIMEOUT)
+    ctl = _controller_worker(rt_api)
+    if status["status"] != "RUNNING" or status["replicas"] != 1:
+        raise AssertionError(f"serve.status(): {status}")
+    if winfo["mode"] != "published" or not winfo["shared"] or \
+            winfo["key"] != SERVE_APP_KEY:
+        raise AssertionError(f"the replica's weights: {winfo}")
+    if info["visible"] != "0" or info["param_devices"] != ["cuda:0"]:
+        raise AssertionError(f"the replica's worker: {info}")
+    if ctl["gpus"] != [] or ctl["visible"] != "" or not ctl["detached"]:
+        raise AssertionError(f"the controller's worker: {ctl}")
+    # ---- the published tree, attached by a GPU-less task on the node
+    used0 = _store_used(rt_api)
+    att = rt.get(rt.remote(_attach_shared).remote(SERVE_APP_KEY),
+                 timeout=RT_TIMEOUT)
+    used1 = _store_used(rt_api)
+    sums = h.leaf_sums.remote().result(timeout=RT_TIMEOUT)
+    if att["info"]["mode"] != "attached" or att["visible"] != "":
+        raise AssertionError(f"the GPU-less attach: {att['info']}, "
+                             f"CUDA_VISIBLE_DEVICES={att['visible']!r}")
+    if used1 > used0:
+        raise AssertionError(f"the attach grew the arena: {used0} -> "
+                             f"{used1} bytes")
+    if att["sums"] != sums:
+        bad = [k for k in sums if att["sums"].get(k) != sums[k]]
+        raise AssertionError(f"{len(bad)} leaves differ, e.g. {bad[:3]}")
+    print(f"serve-app: serve.run(LLMServer llama3_8b, {info['layers']} "
+          f"layers, num_gpus=1) RUNNING in {deploy_s:.2f} s (the replica's "
+          f"__init__ {info['init_s']:.2f} s: get_or_publish "
+          f"{winfo['seconds']:.2f} s = loader and copy to the host "
+          f"{winfo['load_seconds']:.2f} s + arena put "
+          f"{winfo['put_seconds']:.2f} s + views); weights {winfo['mode']},"
+          f" {winfo['nbytes'] / 1e9:.2f} GB in the arena ({used0 / 1e9:.2f}"
+          f" GB used); replica CUDA_VISIBLE_DEVICES={info['visible']} "
+          f"params on {info['param_devices']}; controller worker cards "
+          f"{ctl['gpus']}, CUDA_VISIBLE_DEVICES={ctl['visible']!r}; a "
+          f"GPU-less task attached in {att['attach_s']:.2f} s, arena "
+          f"{used1 / 1e9:.2f} GB used after, {len(sums)} leaf sums equal",
+          flush=True)
+    # ---- the serve phase's warm-up and 12 requests through the handle
+    h.remote({"prompt": "warm up", "max_new_tokens": 2}).result(
+        timeout=RT_TIMEOUT)
+    reqs = [{"prompt": p} for p in _serve_prompts()]
+    reqs[SAMPLED]["temperature"] = 0.7
+    h.launches.remote(reset=True).result(timeout=RT_TIMEOUT)
+    first = _handle_pass(rt, h, reqs, stream=True)
+    launches, pairs = h.launches.remote().result(timeout=RT_TIMEOUT)
+    layers = info["layers"]
+    steps, chunks = first["decode_steps"], first["prefill_chunks"]
+    if not 0 < launches == layers * (chunks + steps):
+        raise AssertionError(
+            f"{launches} K4 launches in the replica, expected {layers} x "
+            f"({chunks} prefill chunks + {steps} decode steps), above 0")
+    # warm cache: whole, streamed, whole, streamed; each pass starts from
+    # the same cached prefix, so pairs read streaming's cost apart from it
+    warm = [_handle_pass(rt, h, reqs, stream)
+            for stream in (False, True, False, True)]
+    solo = {"prompt": "warm up", "max_new_tokens": 8}
+    streamed = "".join(_consume(rt, h.options(stream=True).remote(
+        dict(solo, stream=True)).ref)[1])
+    whole = h.remote(solo).result(timeout=RT_TIMEOUT)["text"]
+    if streamed != whole or len(_text_ids(whole)) != 8:
+        raise AssertionError(f"streamed {streamed!r} != whole {whole!r}")
+    peak = h.info.remote().result(timeout=RT_TIMEOUT)["peak_mem_gb"]
+    serve.delete("llama3_8b")
+    equal = _equal_greedy(first["texts"], serve_ref["texts"])
+    ratio = (sum(p["decode_step_ms"] for p in warm if p["kind"] ==
+                 "streamed") / sum(p["decode_step_ms"] for p in warm
+                                   if p["kind"] == "whole"))
+    rtx = runtime["serve"]
+    r = dict(deploy_s=deploy_s, replica_init_s=info["init_s"],
+             weights=winfo, arena_used_bytes=used0,
+             attach=dict(att["info"], seconds=att["attach_s"],
+                         arena_used_after=used1, leaves=len(sums)),
+             controller=ctl, launches=launches, pair_launches=pairs,
+             first={k: v for k, v in first.items() if k != "texts"},
+             warm=[{k: v for k, v in p.items() if k != "texts"}
+                   for p in warm],
+             streamed_over_whole_step=ratio, texts_equal_serve=equal,
+             peak_mem_gb=peak, texts=first["texts"])
+    print(f"serve-app: 12 requests streamed through the handle, sent "
+          f"together: {first['tokens_per_s']:.1f} tokens/s (in-process "
+          f"serve {serve_ref['tokens_per_s']:.1f}, runtime ReplicaHost "
+          f"{rtx['tokens_per_s']:.1f}); decode step "
+          f"{first['decode_step_ms']:.2f} ms (in-process "
+          f"{serve_ref['decode_step_ms']:.2f}, ReplicaHost "
+          f"{rtx['decode_step_ms']:.2f}); TTFT mean "
+          f"{first['ttft_mean_s']:.3f} s, max {first['ttft_max_s']:.3f} s;"
+          f" {launches} K4 launches in the replica = {layers} x ({chunks} + "
+          f"{steps}); {first['prefix_hits']} prefix hits; streamed = whole;"
+          f" {equal} of 11 temperature-0 texts equal the serve phase's; "
+          f"peak {peak:.1f} GB", flush=True)
+    print("serve-app, the same 12 on the warm cache: " + "; ".join(
+        f"{p['kind']} {p['tokens_per_s']:.1f} tokens/s, decode step "
+        f"{p['decode_step_ms']:.2f} ms ({p['decode_steps']} steps), "
+        f"{p['prefill_chunks']} prefill chunks, {p['prefix_hits']} prefix "
+        f"hits" for p in warm) + f"; streamed/whole decode step {ratio:.3f}",
+        flush=True)
+    return r
+
+
+def _serve_app_parity(torch, rt, serve, LLM, cls) -> dict:
+    """float32 llama_debug, one request at a time: the texts through the
+    handle from a num_gpus=1 replica equal the in-process replica's on the
+    card, on the same seeded weights (published into the arena)."""
+    from ray_tpu_torch import LLMServerImpl, presets
+    from ray_tpu_torch.models.transformer import init_params
+
+    host = init_params(presets.llama_debug(), seed=0, device="cpu")
+    kw = dict(max_new_tokens=8, slots=4, prefill_chunk=8, page_tokens=4,
+              detokenize=_ids_text)
+    srv = LLMServerImpl(preset="llama_debug", device="cuda",
+                        params_loader=lambda c: host, **kw)
+    try:
+        local = [asyncio.run(srv({"prompt": p}))["text"]
+                 for p in PARITY_PROMPTS * 3]
+    finally:
+        srv.shutdown()
+    app = LLM.options(func_or_class=cls, num_replicas=1,
+                      ray_actor_options={"num_gpus": 1}).bind(
+        preset="llama_debug", params_loader=lambda c: host,
+        weights_key="llm:llama_debug:chip-smoke", **kw)
+    h = serve.run(app, name="llama_debug", route_prefix="/llama_debug",
+                  timeout_s=RT_TIMEOUT)
+    texts = [h.remote({"prompt": p}).result(timeout=RT_TIMEOUT)["text"]
+             for p in PARITY_PROMPTS * 3]
+    launches, _ = h.launches.remote().result(timeout=RT_TIMEOUT)
+    mode = h.weights_info.remote().result(timeout=RT_TIMEOUT)["mode"]
+    if texts != local:
+        raise AssertionError(f"handle texts {texts} != in-process {local}")
+    if launches <= 0 or mode != "published":
+        raise AssertionError(f"the float32 replica: {launches} K4 "
+                             f"launches, weights {mode}")
+    print(f"serve-app parity: float32 llama_debug, {len(texts)} texts "
+          f"through the handle from a num_gpus=1 replica (weights {mode}) "
+          f"equal the in-process replica's on the card ({launches} K4 "
+          f"launches in the replica)", flush=True)
+    return dict(texts_equal=True, requests=len(texts), launches=launches)
+
+
+def serve_app_phase(torch, serve_ref, runtime) -> dict:
+    """The serve library on the card: llama3_8b through ``serve.run`` and
+    its ``DeploymentHandle``, the GPU-less attach of its published tree,
+    float32 parity through the handle, and ``serve.shutdown`` giving the
+    card back."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+    from ray_tpu_torch._private import api as rt_api
+    from ray_tpu_torch.serve.llm import LLMServer
+
+    cls = _make_serve_app_llm()
+    t0 = time.perf_counter()
+    rt.init(object_store_memory=SERVE_APP_STORE)
+    try:
+        init_s = time.perf_counter() - t0
+        r = {"init_s": init_s}
+        r["llama3_8b"] = _serve_app_llama3_8b(
+            torch, rt, rt_api, serve, LLMServer, cls, serve_ref, runtime)
+        r["parity"] = _serve_app_parity(torch, rt, serve, LLMServer, cls)
+        t1 = time.perf_counter()
+        serve.shutdown()
+        probe = rt.remote(CardProbe).options(num_gpus=1).remote()
+        seen = rt.get(probe.info.remote(), timeout=120)
+        rt.kill(probe)
+        if seen["visible"] != "0":
+            raise AssertionError(f"after serve.shutdown: {seen}")
+        r["card_back_s"] = time.perf_counter() - t1
+        print(f"serve-app: serve.shutdown() gave the card back: a "
+              f"num_gpus=1 actor up {r['card_back_s']:.2f} s after it",
+              flush=True)
+    finally:
+        rt.shutdown()
+    return r
+
+
 def _free(torch):
     """Drop a finished phase's server (16 GB of llama3_8b weights) from the
     card before the next phase builds its own."""
@@ -2340,6 +2720,8 @@ def main() -> int:
     lanes = serve_lanes_phase(torch, serve["texts"])
     _free(torch)
     runtime = runtime_phase(torch, serve)
+    _free(torch)
+    serve_app = serve_app_phase(torch, serve, runtime)
     parity = parity_phase(torch)
     train = train_phase(torch)
     train_parity = train_parity_phase(torch)
@@ -2380,6 +2762,10 @@ def main() -> int:
     kernels["kernels"].append(dict(
         kernels["kernels"][0], name="paged_attention_in_actor",
         launches=runtime["serve"]["launches"]))
+    # K4 inside the ReplicaActor that serve.run started, behind the router
+    kernels["kernels"].append(dict(
+        kernels["kernels"][0], name="paged_attention_serve_app",
+        launches=serve_app["llama3_8b"]["launches"]))
     # the flash kernels at the main path's shapes: gpt2_small, bf16
     fcase = flash["gpt2_small_bfloat16"]
     launches = train["gpt2_small"]["launches"]
@@ -2404,7 +2790,8 @@ def main() -> int:
         })
     detail = {"card": card, "build": build, "kernel": kern, "flash": flash,
               "serve": serve, "spec_serve": spec_serve,
-              "serve_lanes": lanes, "runtime": runtime, "parity": parity,
+              "serve_lanes": lanes, "runtime": runtime,
+              "serve_app": serve_app, "parity": parity,
               "train": train,
               "train_parity": train_parity,
               "seconds": time.perf_counter() - t_start}

@@ -10,7 +10,10 @@ It runs, serves and trains:
     worker to its cards, and a CUDA tensor put into the object store stays
     on its card;
   * ``LLMServerImpl`` runs a model through the continuous paged scheduler,
-    whose attention is a hand-written CUDA kernel on the card;
+    whose attention is a hand-written CUDA kernel on the card, and
+    ``ray_tpu_torch.serve`` deploys it (``serve.run`` of
+    ``serve.llm.LLMServer``): a controller, replica actors behind a router
+    with prefix affinity, handles, weights shared per node;
   * ``init_train_state`` and ``make_train_step`` train a model, its
     attention forward and backward through hand-written flash-attention
     kernels on the card.

@@ -26,13 +26,18 @@ Intended deltas, and nothing else:
   actor is waited for; ``workers/default_worker._maybe_setup_gpu`` checks
   them;
 - ``serialization``: torch tensors as their raw bytes, dtype and shape;
+  ``write_packed`` copies 64 MiB or more of buffers into the arena in
+  16 MiB pieces on a few threads (page faults on fresh shared-memory pages
+  bound a one-thread copy);
 - ``device_objects``: single-card CUDA tensors (no mesh sharding), stored
   and handed out as copies taken on the card, as torch tensors are
   mutable;
 - ``profiling.collect_device`` reads ``torch.cuda.memory_stats``;
   ``object_store`` reports which free list it uses (``native_allocator``);
-- ``config``: the serve, data, pipeline, podracer and elastic knobs that
-  nothing here reads are left out;
+- ``config``: of the serve knobs only ``serve_affinity``,
+  ``serve_affinity_skew`` and ``serve_migration_budget`` (the router and
+  the scheduler read them); the data, pipeline, podracer and elastic
+  knobs that nothing here reads are left out;
 - cut to ``NotImplementedError``: the DAG API (``.bind``), client
   addresses, and the ``placement_group`` option; the collectives' group
   API is not copied (``util/collective``);
@@ -43,5 +48,5 @@ Intended deltas, and nothing else:
 Kept although nothing reaches it yet, so that the copy stays diffable
 against the reference: the controller's and supervisor's placement-group
 bundle bookkeeping (placement groups come with ROADMAP A8) and the
-compiled-graph half of ``channels`` (with the DAG API, A4).
+compiled-graph half of ``channels`` (with the DAG API, A8).
 """

@@ -211,7 +211,7 @@ def init(
         if address and address.startswith("client://"):
             raise NotImplementedError(
                 "client mode (client:// addresses) is not ported yet "
-                "(ROADMAP A4)")
+                "(ROADMAP A8, moved from A4)")
         config = Config.from_env(_system_config)
         if object_store_memory:
             config.object_store_memory_bytes = object_store_memory
@@ -594,7 +594,8 @@ class RemoteFunction:
     def bind(self, *args, **kwargs):
         """A lazy DAG node (ray.dag analog): not ported yet."""
         raise NotImplementedError(
-            "the DAG API (.bind) is not ported yet (ROADMAP A4)")
+            "the DAG API (.bind) is not ported yet "
+            "(ROADMAP A8, moved from A4)")
 
     def __call__(self, *args, **kwargs):
         raise TypeError(
@@ -697,7 +698,8 @@ class ActorMethod:
     def bind(self, *args, **kwargs):
         """A lazy DAG node for this actor method: not ported yet."""
         raise NotImplementedError(
-            "the DAG API (.bind) is not ported yet (ROADMAP A4)")
+            "the DAG API (.bind) is not ported yet "
+            "(ROADMAP A8, moved from A4)")
 
     def remote(self, *args, **kwargs):
         core = _require_core()

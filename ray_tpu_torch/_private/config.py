@@ -84,6 +84,20 @@ class Config:
     task_max_retries: int = 3
     actor_max_restarts: int = 0
     lineage_max_bytes: int = 64 * 1024**2
+    # ---- serve: the fleet (router and scheduler) ----
+    # prefix-affinity routing: replicas advertise a digest of their radix
+    # cache's page-boundary prefix hashes through the controller's stats
+    # poll; the router steers a prompt to the replica holding the deepest
+    # match, falling back to pow-2 choice past the skew bound below
+    serve_affinity: bool = True
+    # the steered replica may carry at most this many MORE in-flight
+    # requests than the least-loaded one before the router drops affinity
+    # for pow-2 choice on this pick
+    serve_affinity_skew: int = 4
+    # cross-replica page migration: max pages one fleet-hit pull copies
+    # from the holder. An explicit 0 RAISES at build; it never means
+    # "migration off" (pass serve_affinity=False / no hint for that)
+    serve_migration_budget: int = 64
     # ---- logging / observability ----
     # flight recorder (_private/flight.py): always-on per-thread ring
     # buffers of packed span records over the zero-RPC hot loops, drained

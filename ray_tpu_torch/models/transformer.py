@@ -102,10 +102,15 @@ def _is_norm_param(path: str) -> bool:
 def place_params(cfg: TransformerConfig, params: Dict[str, Any],
                  device: torch.device) -> Dict[str, Any]:
     """Params on ``device``: norm scales/biases in float32, every other
-    tensor (matmul weights, embeddings, MLP biases) in ``cfg.dtype``."""
+    tensor (matmul weights, embeddings, MLP biases) in ``cfg.dtype``. On
+    the CPU every tensor is a copy: the given tree may alias memory the
+    caller does not own (a shared-weights arena view), and the placed
+    params must neither write into it nor keep it alive."""
+    copy = torch.device(device).type == "cpu"
+
     def place(path: str, t: torch.Tensor) -> torch.Tensor:
         dtype = torch.float32 if _is_norm_param(path) else cfg.dtype
-        return t.to(device=device, dtype=dtype)
+        return t.to(device=device, dtype=dtype, copy=copy)
 
     return map_params(place, params)
 

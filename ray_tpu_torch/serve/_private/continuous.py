@@ -45,9 +45,25 @@ thread's current stream); the replica's event loop only touches queues.
 Logits go to the host for sampling, which is numpy, so equal logits draw
 equal tokens from equal seeds on the CPU and on the card.
 
-Not carried by the port yet: cross-replica page migration, flight spans
-and metrics (they come with the runtime). ``compiled_programs`` is left
-out: the port runs eagerly and compiles no program.
+Fleet: ``prefix_digest()`` exports the radix cache's chain-hash digest
+for the affinity router, and a request submitted with a ``fleet_hint``
+(the holder replica's handle and the matched depth) PULLS the matched
+prefix pages from the holder before admission: the pull runs on a puller
+thread (the scheduler thread never waits on a peer), the pulled K and V
+are copied into freshly allocated local pages and inserted into the radix
+tree, and admission then hits them like any local prefix. A failed or
+timed-out pull falls back to a cold prefill with the same tokens.
+``export_prefix`` serves a peer's pull: the scheduler thread gathers the
+matched pages and hands them over as host tensors, bit for bit.
+
+Each phase records a flight span or instant (``serve.admit``,
+``serve.prefill``, ``serve.decode``, ``serve.retire``, ``serve.verify``,
+``serve.migrate``, ``serve.attn``), and the process's metric registry
+carries the counters and gauges the JAX scheduler exports (steps, chunks,
+tokens, admissions, retirements, active slots, attention bytes, queue
+depth; the replica's stats fall back to the queue-depth gauge).
+``compiled_programs`` is left out: the port runs eagerly and compiles no
+program.
 """
 
 from __future__ import annotations
@@ -55,10 +71,16 @@ from __future__ import annotations
 import threading
 import time
 from collections import deque
+from queue import Empty as _QueueEmpty
+from queue import Queue as _Queue
 from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+
+from ray_tpu_torch._private import flight
+from ray_tpu_torch._private.config import global_config
+from ray_tpu_torch._private.metrics import Counter, Gauge
 
 from ray_tpu_torch.models.decode import (init_paged_caches,
                                          init_slot_caches,
@@ -74,9 +96,51 @@ from ray_tpu_torch.ops.paged_attention import paged_attention
 from ray_tpu_torch.ops.rotary import rope_frequencies
 from ray_tpu_torch.serve._private.paging import (OutOfPagesError, PageArena,
                                                  RadixCache)
+from ray_tpu_torch.serve._private.affinity import (m_migrated_pages,
+                                                   m_migrations)
 from ray_tpu_torch.serve._private.speculative import (_softmax,
                                                       accept_greedy,
-                                                      accept_sample)
+                                                      accept_sample,
+                                                      m_spec_accepted,
+                                                      m_spec_drafted)
+
+# flight-recorder span ids: the per-iteration phases the aggregate
+# counters cannot localize (per-thread ring records, no locks or RPCs)
+_F_ADMIT = flight.intern("serve.admit")
+_F_PREFILL = flight.intern("serve.prefill")
+_F_DECODE = flight.intern("serve.decode")
+_F_RETIRE = flight.intern("serve.retire")
+_F_VERIFY = flight.intern("serve.verify")
+_F_MIGRATE = flight.intern("serve.migrate")
+_F_ATTN = flight.intern("serve.attn")
+
+_m_steps = Counter(
+    "ray_tpu_serve_decode_steps_total",
+    "Batched slot-arena decode iterations executed")
+_m_prefill_chunks = Counter(
+    "ray_tpu_serve_prefill_chunks_total",
+    "Chunked prefill programs executed")
+_m_tokens = Counter(
+    "ray_tpu_serve_tokens_generated_total",
+    "Tokens sampled and streamed out of the slot arena")
+_m_admitted = Counter(
+    "ray_tpu_serve_seqs_admitted_total",
+    "Sequences admitted into a KV arena slot")
+_m_retired = Counter(
+    "ray_tpu_serve_seqs_retired_total",
+    "Sequences retired from their slot (finished/EOS/cancelled/error)")
+_m_active = Gauge(
+    "ray_tpu_serve_slots_active",
+    "KV arena slots currently holding a live sequence")
+_m_attn_bytes = Counter(
+    "ray_tpu_serve_attn_bytes_moved_total",
+    "KV-cache bytes the paged attention lane streamed per program call "
+    "(host-side mirror arithmetic, labelled by lane: the gather lane "
+    "materializes the full provisioned arena, the in-place lanes only "
+    "pages covering live tokens)")
+_m_queue_depth = Gauge(
+    "ray_tpu_serve_queue_depth",
+    "Requests waiting for a free KV arena slot")
 
 # sequence states
 _QUEUED = "queued"
@@ -96,7 +160,7 @@ class _Seq:
                  "seed", "slot", "state", "n_generated", "next_token",
                  "queue", "loop", "cancelled", "rng", "cached_len", "cursor",
                  "owned_pages", "radix_node", "table_fill", "drafter_len",
-                 "drafter_pending")
+                 "drafter_pending", "fleet_hint", "migration_node")
 
     def __init__(self, prompt: List[int], max_new: int, temperature: float,
                  seed: int, loop, queue):
@@ -122,6 +186,9 @@ class _Seq:
         # ---- speculative decoding (per-slot drafter sync state) ----
         self.drafter_len = -1          # drafter's valid context length
         self.drafter_pending: List[int] = []  # tokens drafter must catch up
+        # ---- cross-replica migration ----
+        self.fleet_hint: Optional[Dict[str, Any]] = None  # router's hint
+        self.migration_node = None     # pins a migrated prefix until admit
 
 
 class ContinuousScheduler:
@@ -131,6 +198,8 @@ class ContinuousScheduler:
     programs. The scheduler owns the KV arena, updated in place.
     ``drafter`` (a ``speculative.Drafter`` with the scheduler's slot count)
     turns on speculative decoding with ``spec_k`` draft tokens a round.
+    ``migration_budget`` caps the pages one fleet-hinted pull copies
+    (``None``: the ``serve_migration_budget`` config knob, as in JAX).
     The knobs take the JAX scheduler's values and refusals; where JAX reads
     a config default for ``None``, the port takes the same default as the
     argument's."""
@@ -143,6 +212,7 @@ class ContinuousScheduler:
                  kv_layout: str = "paged", page_tokens: int = 16,
                  kv_pages: int = 0, prefix_cache: Optional[bool] = None,
                  drafter=None, spec_k: int = 4,
+                 migration_budget: Optional[int] = None,
                  attn: Optional[str] = None):
         self.cfg = cfg
         self.params = params
@@ -233,6 +303,25 @@ class ContinuousScheduler:
                     f"drafter has {drafter.slots} slots, scheduler has "
                     f"{self.slots}: they must share the slot numbering")
         self._drafter = drafter
+        self.migration_budget = int(
+            global_config().serve_migration_budget
+            if migration_budget is None else migration_budget)
+        if self.migration_budget < 1:
+            raise ValueError(f"migration_budget must be >= 1, got "
+                             f"{self.migration_budget}")
+        # cross-replica page migration: a puller thread does the blocking
+        # peer pull; the scheduler thread only splices finished results
+        # between iterations. _commands carries EXPORT requests from peer
+        # replicas (RPC threads) onto the scheduler thread, which owns the
+        # radix tree and the caches.
+        self._migrating: List[_Seq] = []
+        self._mig_requests: _Queue = _Queue()
+        self._mig_results: _Queue = _Queue()
+        self._mig_thread: Optional[threading.Thread] = None
+        self._commands: deque = deque()
+        self._n_migrations = 0
+        self._n_migrated_pages = 0
+        self._n_migration_failures = 0
         self._rope = None
         if cfg.pos == "rope":
             # built once per scheduler, on the CPU, then moved
@@ -290,10 +379,15 @@ class ContinuousScheduler:
 
     def submit(self, prompt_ids: List[int], *, max_new_tokens: int,
                temperature: float = 0.0, seed: int = 0,
-               loop=None, queue=None) -> _Seq:
+               loop=None, queue=None, fleet_hint=None) -> _Seq:
         """Enqueue a generation. ``("tok", id)``, ``("end", reason)`` or
         ``("err", message)`` events arrive on ``queue`` through
-        ``loop.call_soon_threadsafe``. Thread-safe."""
+        ``loop.call_soon_threadsafe``. Thread-safe.
+
+        ``fleet_hint`` (the router's): ``{"handle": holder replica,
+        "tokens": matched depth}``; before admission the scheduler pulls
+        the matched prefix pages from the holder and splices them in, and
+        any pull failure degrades to a cold prefill."""
         if not prompt_ids:
             raise ValueError("prompt must be non-empty")
         if max_new_tokens < 1:
@@ -306,6 +400,8 @@ class ContinuousScheduler:
                 f"chunks)")
         seq = _Seq(list(prompt_ids), max_new_tokens, temperature, seed,
                    loop, queue)
+        if fleet_hint and self._paged and self._radix is not None:
+            seq.fleet_hint = dict(fleet_hint)
         with self._lock:
             if self._closed:
                 raise SchedulerClosedError(
@@ -314,6 +410,7 @@ class ContinuousScheduler:
             self._pending.append(seq)
             self._peak_queue_depth = max(self._peak_queue_depth,
                                          len(self._pending))
+            _m_queue_depth.set(float(len(self._pending)))
         self._wake.set()
         return seq
 
@@ -350,16 +447,28 @@ class ContinuousScheduler:
         self._read_tables[seq.slot, :] = 0
         self._write_tables[seq.slot, :] = 0
 
+    def _release_migration_ref(self, seq: _Seq) -> None:
+        """A migrated-prefix pin drops however the sequence ends, also on a
+        cancel BEFORE it ever took a slot (the node ref is held while the
+        sequence waits in the pending queue)."""
+        if seq.migration_node is not None and self._radix is not None:
+            self._radix.release(seq.migration_node)
+            seq.migration_node = None
+
     def _finish(self, seq: _Seq, item) -> None:
+        self._release_migration_ref(seq)
         self._release_slot_resources(seq)
         if seq.slot is not None:
             self._slot_seqs[seq.slot] = None
             seq.slot = None
         seq.state = _DONE
         self._n_retired += 1
+        _m_retired.inc()
         self._emit(seq, item)
 
     def _retire(self, seq: _Seq, reason: str) -> None:
+        if seq.slot is not None:
+            flight.instant(_F_RETIRE, seq.slot)
         self._finish(seq, ("end", reason))
 
     def _fail(self, seq: _Seq, msg: str) -> None:
@@ -410,6 +519,7 @@ class ContinuousScheduler:
         finished (its budget used, or the token is ``eos_id``)."""
         seq.n_generated += 1
         self._n_tokens += 1
+        _m_tokens.inc()
         self._emit(seq, ("tok", tok))
         if self.eos_id is not None and tok == self.eos_id:
             return True
@@ -445,7 +555,7 @@ class ContinuousScheduler:
             self._radix.release(node)
             self._radix.note_miss()
             return
-        self._radix.note_hit()
+        self._radix.note_hit(keep)
         n = keep // T
         self._read_tables[seq.slot, :n] = pages[:n]
         seq.cached_len = keep
@@ -463,6 +573,7 @@ class ContinuousScheduler:
                 if free is None:
                     break
                 seq = self._pending.popleft()
+                _m_queue_depth.set(float(len(self._pending)))
             if seq.cancelled:
                 self._retire(seq, "cancelled")
                 continue
@@ -475,28 +586,34 @@ class ContinuousScheduler:
                 self._write_tables[free, :] = 0
                 if self._radix is not None:
                     self._splice_prefix(seq)
+                    # a migrated prefix was pinned only so eviction could
+                    # not race admission; the splice holds its own ref now
+                    self._release_migration_ref(seq)
                 seq.cursor = seq.cached_len
                 seq.remaining_prompt = seq.prompt[seq.cached_len:]
                 paged_reset_slot(self._caches, free, seq.cached_len)
             else:
                 reset_slot(self._caches, free)
             self._n_admitted += 1
+            flight.instant(_F_ADMIT, free)
+            _m_admitted.inc()
             if in_flight:
                 self._admitted_mid_flight += 1
 
     def _upload(self, a: np.ndarray) -> torch.Tensor:
         return torch.tensor(a, dtype=torch.int32, device=self.device)
 
-    def _record_attn(self, qk: int, n_slots: int,
+    def _record_attn(self, t0: int, qk: int, n_slots: int,
                      longest: Optional[int] = None) -> None:
-        """Account the KV bytes the paged attention lane streamed for one
-        attention-bearing program call, from host mirrors alone (cursors,
-        table shapes). The gather lane builds a contiguous
-        ``[pages_per_slot * page_tokens]`` view per slot and layer however
-        little of it is live; the in-place lanes read only the pages that
-        cover the longest live sequence."""
+        """Stamp the ``serve.attn`` span and account the KV bytes the paged
+        attention lane streamed for one attention-bearing program call,
+        from host mirrors alone (cursors, table shapes). The gather lane
+        builds a contiguous ``[pages_per_slot * page_tokens]`` view per
+        slot and layer however little of it is live; the in-place lanes
+        read only the pages that cover the longest live sequence."""
         if not self._paged:
             return
+        flight.span_since(_F_ATTN, t0)
         cfg = self.cfg
         T = self.page_tokens
         row = cfg.kv_heads * cfg.head_dim * self._kv_itemsize
@@ -510,8 +627,9 @@ class ContinuousScheduler:
                                   self._pages_per_slot)
         # k + v pools, every layer: pages read through the table plus the
         # qk freshly written rows per slot
-        self._n_attn_bytes += 2 * cfg.num_layers * row * (
-            pages * T + n_slots * qk)
+        moved = 2 * cfg.num_layers * row * (pages * T + n_slots * qk)
+        self._n_attn_bytes += moved
+        _m_attn_bytes.inc(moved, labels={"lane": self.attn_lane})
 
     def _prefill_one(self) -> bool:
         """Advance ONE prefilling sequence by one chunk, round-robin over
@@ -538,6 +656,7 @@ class ContinuousScheduler:
             padded = chunk + [0] * (self.prefill_chunk - real)
             tokens = self._upload(np.asarray([padded]))
             n0 = paged_attention.launches
+            t0 = flight.now()
             if self._paged:
                 logits = paged_prefill_into_slot(
                     self.cfg, self.params, tokens, real, seq.slot,
@@ -547,11 +666,13 @@ class ContinuousScheduler:
             else:
                 logits = prefill_into_slot(self.cfg, self.params, tokens,
                                            real, seq.slot, self._caches)
-            row = logits.float().cpu().numpy()
+            row = logits.float().cpu().numpy()  # waits for the chunk
+            flight.span_since(_F_PREFILL, t0)
             self._n_kernel_launches += paged_attention.launches - n0
-            self._record_attn(self.prefill_chunk, 1, longest=seq.cursor)
+            self._record_attn(t0, self.prefill_chunk, 1, longest=seq.cursor)
             seq.cursor += real
             self._n_prefill_chunks += 1
+            _m_prefill_chunks.inc()
             if not seq.remaining_prompt:
                 if self._radix is not None:
                     self._offer_prompt_pages(seq)
@@ -592,6 +713,218 @@ class ContinuousScheduler:
                 self._radix.release(seq.radix_node)
             seq.radix_node = node
 
+    # ------------------------------------------- cross-replica migration
+
+    def _requeue(self, seq: _Seq) -> None:
+        with self._lock:
+            self._pending.appendleft(seq)
+            _m_queue_depth.set(float(len(self._pending)))
+
+    def _ensure_mig_thread(self) -> None:
+        if self._mig_thread is None:
+            t = threading.Thread(target=self._migration_worker,
+                                 name="serve-migration-puller", daemon=True)
+            self._mig_thread = t
+            t.start()
+
+    def _migration_worker(self) -> None:
+        """Blocking peer pulls live here, NEVER on the scheduler thread: a
+        dead or slow holder must not stall the decodes in flight. The pull
+        goes replica to replica; the controller is not on the data path."""
+        import ray_tpu_torch as rt
+
+        while True:
+            item = self._mig_requests.get()
+            if item is None:
+                return
+            seq, handle, tokens = item
+            try:
+                res = rt.get(handle.export_prefix.remote(list(tokens)),
+                             timeout=30.0)
+            except Exception as e:  # noqa: BLE001 — any failure = cold path
+                res = {"__error__": f"{type(e).__name__}: {e}"}
+            self._mig_results.put((seq, res))
+            self._wake.set()
+
+    def _start_migrations(self) -> None:
+        """Pre-admission pass: pending sequences carrying a fleet hint wait
+        in ``_migrating`` while the puller fetches their prefix from the
+        holder. The wanted length is page-aligned, past what is already
+        cached here, and bounded by the migration budget; a hint that buys
+        nothing re-queues for normal admission at once."""
+        if not self._paged or self._radix is None:
+            return
+        with self._lock:
+            flagged = [s for s in self._pending if s.fleet_hint is not None]
+            for s in flagged:
+                self._pending.remove(s)
+            if flagged:
+                _m_queue_depth.set(float(len(self._pending)))
+        for seq in flagged:
+            hint = seq.fleet_hint or {}
+            seq.fleet_hint = None
+            handle = hint.get("handle")
+            hint_tokens = int(hint.get("tokens") or 0)
+            if seq.cancelled:
+                self._retire(seq, "cancelled")
+                continue
+            T = self.page_tokens
+            _pages, matched, node = self._radix.match(seq.prompt[:-1])
+            if node is not None:
+                self._radix.release(node)
+            want = min(hint_tokens, len(seq.prompt) - 1)
+            want = (want // T) * T
+            want = min(want, matched + self.migration_budget * T)
+            if handle is None or want <= matched:
+                self._requeue(seq)
+                continue
+            self._ensure_mig_thread()
+            self._migrating.append(seq)
+            self._mig_requests.put((seq, handle, seq.prompt[:want]))
+
+    def _finish_migrations(self) -> None:
+        """Drain completed pulls (success or failure) and re-queue their
+        sequences for normal admission: after a splice, the admission-time
+        ``_splice_prefix`` hits the migrated span; after a failed pull the
+        sequence prefills cold. Either way it emits the same tokens;
+        migration only moves where the KV comes from."""
+        while True:
+            try:
+                seq, res = self._mig_results.get_nowait()
+            except _QueueEmpty:
+                return
+            try:
+                self._migrating.remove(seq)
+            except ValueError:
+                pass
+            if seq.state == _DONE:
+                continue
+            if seq.cancelled:
+                self._retire(seq, "cancelled")
+                continue
+            ok = (isinstance(res, dict) and "__error__" not in res
+                  and int(res.get("matched_len") or 0) > 0
+                  and int(res.get("page_tokens") or 0) == self.page_tokens)
+            if ok:
+                try:
+                    self._splice_migrated(seq, res)
+                except Exception:  # noqa: BLE001 — abandon to cold prefill
+                    self._n_migration_failures += 1
+            else:
+                self._n_migration_failures += 1
+            self._requeue(seq)
+
+    def _splice_migrated(self, seq: _Seq, res: Dict[str, Any]) -> None:
+        """Copy pulled prefix K and V into freshly allocated local pages and
+        insert the span into the radix tree (pinned by the sequence's
+        ``migration_node`` until admission splices it). Any failure
+        (allocation, shape) propagates to the caller, which counts it and
+        lets the sequence prefill cold; the pages become reachable only once
+        ``insert`` succeeds, so nothing is half-applied."""
+        T = self.page_tokens
+        matched = (int(res["matched_len"]) // T) * T
+        n = matched // T
+        if n <= 0:
+            raise ValueError("empty migration payload")
+        if len(res["k"]) != len(self._caches) or \
+                len(res["v"]) != len(self._caches):
+            raise ValueError(
+                f"migration payload has {len(res['k'])} layers, the "
+                f"arena {len(self._caches)}")
+        t0 = flight.now()
+        try:
+            pages = self._arena.alloc(n)
+        except OutOfPagesError:
+            self._radix.evict(n - self._arena.free_pages)
+            pages = self._arena.alloc(n)
+        try:
+            idx = torch.tensor(pages, dtype=torch.long, device=self.device)
+            staged = []
+            for li, c in enumerate(self._caches):
+                k = torch.as_tensor(res["k"][li])[:n]
+                v = torch.as_tensor(res["v"][li])[:n]
+                want = (n,) + tuple(c.k.shape[1:])
+                if tuple(k.shape) != want or tuple(v.shape) != want:
+                    raise ValueError(
+                        f"layer {li}: pages {tuple(k.shape)} / "
+                        f"{tuple(v.shape)}, expected {want}")
+                staged.append((k.to(self.device, c.k.dtype),
+                               v.to(self.device, c.v.dtype)))
+            for c, (k, v) in zip(self._caches, staged):
+                c.k[idx] = k
+                c.v[idx] = v
+            dups, node = self._radix.insert(seq.prompt[:matched], pages)
+        except BaseException:
+            self._arena.free(pages)
+            raise
+        if dups:
+            # spans another sequence cached while we pulled: keep theirs
+            self._arena.free(dups)
+        if node is not None:
+            seq.migration_node = node
+        self._n_migrations += 1
+        self._n_migrated_pages += n - len(dups)
+        m_migrations.inc()
+        m_migrated_pages.inc(n - len(dups))
+        flight.span_since(_F_MIGRATE, t0)
+
+    # ----------------------------------------------------- prefix export
+
+    def export_prefix(self, tokens: List[int],
+                      timeout_s: float = 30.0) -> Dict[str, Any]:
+        """Serve a migration pull FROM a peer replica. Called on an RPC or
+        executor thread; the radix match and the page gather run on the
+        scheduler thread (sole owner of the tree and the caches), so this
+        enqueues a command and waits. The matched node is pinned only for
+        the gather."""
+        if not self._paged or self._radix is None:
+            return {"matched_len": 0, "page_tokens": self.page_tokens,
+                    "k": [], "v": []}
+        box: Dict[str, Any] = {}
+        done = threading.Event()
+        with self._lock:
+            if self._closed:
+                raise SchedulerClosedError("scheduler is shut down")
+            self._commands.append((list(tokens), box, done))
+        self._wake.set()
+        if not done.wait(timeout=timeout_s):
+            raise TimeoutError(
+                f"export_prefix timed out after {timeout_s:.0f}s")
+        if "error" in box:
+            raise RuntimeError(box["error"])
+        return box["result"]
+
+    def _process_commands(self) -> None:
+        while self._commands:
+            try:
+                tokens, box, done = self._commands.popleft()
+            except IndexError:
+                return
+            try:
+                box["result"] = self._export_prefix_now(tokens)
+            except BaseException as e:  # noqa: BLE001 — crosses threads
+                box["error"] = f"{type(e).__name__}: {e}"
+            done.set()
+
+    def _export_prefix_now(self, tokens: List[int]) -> Dict[str, Any]:
+        """The matched pages of every layer as host tensors in the pool's
+        dtype (bf16 bit for bit), as the JAX scheduler hands over numpy."""
+        pages, matched, node = self._radix.match(tokens)
+        if matched == 0:
+            return {"matched_len": 0, "page_tokens": self.page_tokens,
+                    "k": [], "v": []}
+        n = matched // self.page_tokens
+        idx = torch.tensor(pages[:n], dtype=torch.long, device=self.device)
+        ks, vs = [], []
+        try:
+            for c in self._caches:
+                ks.append(c.k[idx].cpu())
+                vs.append(c.v[idx].cpu())
+        finally:
+            self._radix.release(node)
+        return {"matched_len": n * self.page_tokens,
+                "page_tokens": self.page_tokens, "k": ks, "v": vs}
+
     def _decode_once(self) -> bool:
         """One batched decode iteration over every DECODE slot."""
         toks = np.zeros(self.slots, np.int32)
@@ -611,6 +944,7 @@ class ContinuousScheduler:
         if not live:
             return False
         t0 = time.perf_counter()
+        f0 = flight.now()
         n0 = paged_attention.launches
         if self._paged:
             logits = paged_decode_step(
@@ -623,11 +957,13 @@ class ContinuousScheduler:
                                       self._upload(toks),
                                       self._upload(active), self._caches)
         la = logits.float().cpu().numpy()  # waits for the step to finish
+        flight.span_since(_F_DECODE, f0)
         self._n_kernel_launches += paged_attention.launches - n0
         self._decode_seconds += time.perf_counter() - t0
-        self._record_attn(1, self.slots)
+        self._record_attn(f0, 1, self.slots)
         self._n_steps += 1
         self._n_plain_steps += 1
+        _m_steps.inc()
         self._max_active_slots = max(self._max_active_slots, len(live))
         for seq in live:
             seq.cursor += 1
@@ -722,15 +1058,18 @@ class ContinuousScheduler:
             row = [s.next_token] + drafts[s.slot]
             vt[s.slot, :len(row)] = row
         n0 = paged_attention.launches
+        f0 = flight.now()
         vlogits = paged_verify_step(
             self.cfg, self.params, self._upload(vt),
             self._upload(self._read_tables), self._upload(self._write_tables),
             self._caches, self._rope, attn=self.attn_lane)
         va = vlogits.float().cpu().numpy()  # waits for the call to finish
+        flight.span_since(_F_VERIFY, f0)
         self._n_kernel_launches += paged_attention.launches - n0
         t2 = time.perf_counter()
-        self._record_attn(K, self.slots)
+        self._record_attn(f0, K, self.slots)
         self._n_steps += 1
+        _m_steps.inc()
         self._n_spec_rounds += 1
         self._max_active_slots = max(self._max_active_slots, len(live))
         # ---- exact acceptance + cursor rewind on the host ---------------
@@ -751,6 +1090,10 @@ class ContinuousScheduler:
                 a, emitted = accept_sample(ds, dprobs[sl], pt, s.rng)
             self._n_drafted += len(ds)
             self._n_accepted += a
+            if ds:
+                m_spec_drafted.inc(len(ds))
+            if a:
+                m_spec_accepted.inc(a)
             new_cursor = old + a + 1
             s.cursor = new_cursor
             new_lengths[sl] = new_cursor
@@ -786,17 +1129,24 @@ class ContinuousScheduler:
                     with self._lock:
                         if self._closed:
                             break
+                    if self._paged:
+                        self._process_commands()
+                        self._finish_migrations()
+                        self._start_migrations()
                     self._admit()
                     did = self._prefill_one()
                     if self._drafter is not None:
                         did = self._decode_spec() or did
                     else:
                         did = self._decode_once() or did
+                    _m_active.set(float(sum(
+                        1 for s in self._slot_seqs if s is not None)))
                     if not did:
                         with self._lock:
-                            idle = not self._pending and all(
-                                s is None or s.cancelled
-                                for s in self._slot_seqs)
+                            idle = (not self._pending and not self._commands
+                                    and not self._migrating and all(
+                                        s is None or s.cancelled
+                                        for s in self._slot_seqs))
                             if idle:
                                 self._wake.clear()
                         self._wake.wait(timeout=1.0)
@@ -806,14 +1156,28 @@ class ContinuousScheduler:
                 self._closed = True
                 pending = list(self._pending)
                 self._pending.clear()
-            for seq in list(self._slot_seqs) + pending:
+            for seq in list(self._slot_seqs) + pending + self._migrating:
                 if seq is not None:
                     self._fail(seq, f"{type(e).__name__}: {e}")
+            self._migrating.clear()
+            self._drain_commands("scheduler crashed")
         finally:
             with self._lock:
                 self._closed = True
+            _m_active.set(0.0)
 
     # --------------------------------------------------------- lifecycle
+
+    def _drain_commands(self, msg: str) -> None:
+        """Unblock every thread waiting in ``export_prefix`` with an error:
+        a peer's pull degrades to its cold prefill."""
+        while self._commands:
+            try:
+                _tokens, box, done = self._commands.popleft()
+            except IndexError:
+                return
+            box["error"] = msg
+            done.set()
 
     def shutdown(self, timeout_s: float = 5.0) -> None:
         with self._lock:
@@ -824,9 +1188,13 @@ class ContinuousScheduler:
             self._pending.clear()
         self._wake.set()
         self._thread.join(timeout=timeout_s)
-        for seq in pending + list(self._slot_seqs):
+        for seq in pending + list(self._slot_seqs) + self._migrating:
             if seq is not None:
                 self._fail(seq, "scheduler shut down")
+        self._migrating.clear()
+        self._drain_commands("scheduler shut down")
+        if self._mig_thread is not None:
+            self._mig_requests.put(None)
         if self._radix is not None:
             self._radix.clear()
 
@@ -886,6 +1254,10 @@ class ContinuousScheduler:
             if self._radix is not None:
                 out.update(self._radix.stats())
                 out["prefix_hit_tokens"] = self._n_prefix_hit_tokens
+                out["migrations"] = self._n_migrations
+                out["migrated_pages"] = self._n_migrated_pages
+                out["migration_failures"] = self._n_migration_failures
+                out["migrations_pending"] = len(self._migrating)
         out["plain_decode_steps"] = self._n_plain_steps
         out["verify_rounds"] = self._n_spec_rounds
         if self._drafter is not None:

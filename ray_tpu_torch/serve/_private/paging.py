@@ -1,8 +1,9 @@
 """Paged KV arena allocator and prefix/radix cache.
 
 Counterpart: ``ray_tpu/serve/_private/paging.py`` (``PageArena``,
-``RadixCache``), without the flight spans and the metrics registry, which
-come with the runtime.
+``RadixCache``), with its flight instants (``serve.prefix_hit``,
+``serve.page_alloc``, ``serve.evict``) and its counters and gauge in the
+process's metric registry.
 
   * ``PageArena``: a free-list allocator over the fixed pool of
     ``page_tokens``-sized KV pages. Page 0 is RESERVED as the garbage page.
@@ -25,7 +26,29 @@ from __future__ import annotations
 import time
 from typing import Dict, List, Optional, Tuple
 
+from ray_tpu_torch._private import flight
+from ray_tpu_torch._private.metrics import Counter, Gauge
 from ray_tpu_torch.serve._private.affinity import CHAIN_SEED, chain_hashes
+
+F_PREFIX_HIT = flight.intern("serve.prefix_hit")
+F_PAGE_ALLOC = flight.intern("serve.page_alloc")
+F_EVICT = flight.intern("serve.evict")
+
+m_prefix_hits = Counter(
+    "ray_tpu_serve_prefix_hits_total",
+    "Admissions that spliced a cached KV prefix instead of re-prefilling")
+m_prefix_misses = Counter(
+    "ray_tpu_serve_prefix_misses_total",
+    "Admissions that found no cached prefix (cold prefill)")
+m_pages_allocated = Counter(
+    "ray_tpu_serve_kv_pages_allocated_total",
+    "KV pages handed out by the paged arena")
+m_pages_freed = Counter(
+    "ray_tpu_serve_kv_pages_freed_total",
+    "KV pages returned to the paged arena free list")
+m_pages_in_use = Gauge(
+    "ray_tpu_serve_kv_pages_in_use",
+    "KV pages currently allocated (slot-owned + prefix-cache resident)")
 
 GARBAGE_PAGE = 0
 
@@ -83,6 +106,9 @@ class PageArena:
         self._outstanding.update(pages)
         self._allocated_total += n
         self._peak_in_use = max(self._peak_in_use, self.pages_in_use)
+        m_pages_allocated.inc(n)
+        m_pages_in_use.set(float(self.pages_in_use))
+        flight.instant(F_PAGE_ALLOC, n)
         return pages
 
     def free(self, pages: List[int]) -> None:
@@ -95,7 +121,10 @@ class PageArena:
                     f"foreign id): it would alias two sequences' KV")
             self._outstanding.discard(p)
             self._free.append(p)
-        self._freed_total += len(pages)
+        if pages:
+            self._freed_total += len(pages)
+            m_pages_freed.inc(len(pages))
+            m_pages_in_use.set(float(self.pages_in_use))
 
     def stats(self) -> Dict[str, int]:
         return {
@@ -177,11 +206,16 @@ class RadixCache:
         node.refs += 1
         return pages, matched, node
 
-    def note_hit(self) -> None:
+    def note_hit(self, matched_tokens: int) -> None:
+        """Record an admission that spliced a cached prefix (after any
+        clamp: only an avoided prefill counts)."""
         self._hits += 1
+        m_prefix_hits.inc()
+        flight.instant(F_PREFIX_HIT, matched_tokens)
 
     def note_miss(self) -> None:
         self._misses += 1
+        m_prefix_misses.inc()
 
     def _advance(self, node: _RadixNode, rest: List[int], now: float
                  ) -> Tuple[Optional[_RadixNode], int]:
@@ -300,6 +334,7 @@ class RadixCache:
                 victim.parent.children.pop(victim.tokens[0])
                 self._digest_remove(victim.hashes)
                 self.arena.free(victim.pages)
+                flight.instant(F_EVICT, len(victim.pages))
                 freed += len(victim.pages)
                 self._evicted_pages += len(victim.pages)
         return freed

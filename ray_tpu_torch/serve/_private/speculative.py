@@ -20,9 +20,9 @@ another drafter prefills the prompt through its own model. Rejected drafts
 rewind cursors only: stale KV past a cursor is masked until written over.
 
 The acceptance functions are numpy on the host, as in JAX, so equal logits
-and equal seeds give equal tokens on the CPU and on the card. The JAX
-module's Prometheus counters are not ported; the scheduler's ``stats()``
-carries the same counts.
+and equal seeds give equal tokens on the CPU and on the card. The counters
+``m_spec_drafted`` and ``m_spec_accepted`` (the process's metric registry)
+are fed by the scheduler, whose ``stats()`` carries the same counts.
 """
 
 from __future__ import annotations
@@ -35,6 +35,14 @@ import torch
 from ray_tpu_torch.models.decode import (init_slot_caches,
                                          prefill_into_slot, reset_slot,
                                          slot_decode_step)
+from ray_tpu_torch._private.metrics import Counter
+
+m_spec_drafted = Counter(
+    "ray_tpu_serve_spec_drafted_tokens_total",
+    "Draft tokens proposed by the speculative drafter")
+m_spec_accepted = Counter(
+    "ray_tpu_serve_spec_accepted_tokens_total",
+    "Draft tokens accepted by target-model verification")
 
 
 def _softmax(logits_row, temperature: float) -> np.ndarray:

@@ -36,9 +36,22 @@ means off; ``spec_k`` is the draft tokens per round. The JAX package also
 reads both from environment variables; here the arguments carry the same
 defaults.
 
-Not ported yet: the serve deployment wrapper, the per-node shared weights
-arena and its broadcast, and cross-replica prefix export (they come with
-the runtime).
+As a deployment: ``LLMServer`` is ``LLMServerImpl`` under
+``serve.deployment`` (``build_app`` binds it), so ``serve.run`` starts it
+in a ``ReplicaActor`` behind the affinity router. The weights are shared
+per node by default (``share_weights=True``): the first replica on a node
+publishes its host params into the node's object arena and later replicas
+attach read-only views with no extra arena bytes
+(``serve/_private/weights.py``; ``weights_info()`` says which); each
+replica then copies them once onto its device. A custom ``params_loader``
+shares only under an explicit ``weights_key``. ``export_prefix`` serves a
+peer replica's page-migration pull, and a request carrying the router's
+``_fleet_hint`` pulls its prefix pages from the holder first
+(``migration_budget`` pages at most).
+
+Not ported yet (ROADMAP A5): the weights broadcast to a new node
+(``weights_bcast``, ``push_weights``), which needs the collective group
+API. Both raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -56,8 +69,12 @@ from ray_tpu_torch.models import presets
 from ray_tpu_torch.models.decode import (decode_step, init_caches, prefill,
                                          sample_token)
 from ray_tpu_torch.models.transformer import init_params, place_params
+from ray_tpu_torch.serve._private import weights as _weights
 from ray_tpu_torch.serve._private.continuous import ContinuousScheduler
 from ray_tpu_torch.serve._private.speculative import Drafter
+
+_A5 = ("needs the collective group API, which is not ported yet "
+       "(ROADMAP A5)")
 
 
 def _byte_tokenize(text: str, vocab_size: int) -> List[int]:
@@ -70,7 +87,9 @@ def _byte_detokenize(ids: List[int]) -> str:
 
 
 class LLMServerImpl:
-    """One model replica: its weights on ``device`` and its scheduler."""
+    """One model replica: its weights on ``device`` and its scheduler.
+    Weights are shared per node through the object arena unless
+    ``share_weights=False``."""
 
     def __init__(self, preset: str = "llama_debug",
                  preset_overrides: Optional[Dict[str, Any]] = None,
@@ -87,9 +106,13 @@ class LLMServerImpl:
                  page_tokens: int = 16,
                  kv_pages: int = 0,
                  prefix_cache: Optional[bool] = None,
+                 share_weights: bool = True,
+                 weights_key: Optional[str] = None,
+                 weights_bcast: Optional[Dict[str, Any]] = None,
                  eos_id: Optional[int] = None,
                  drafter: Optional[str] = None,
                  spec_k: int = 4,
+                 migration_budget: Optional[int] = None,
                  attn: Optional[str] = None,
                  cache_dtype: Optional[torch.dtype] = None,
                  device=None):
@@ -106,11 +129,38 @@ class LLMServerImpl:
         self._max_batch = max_batch_size
         self._cache_dtype = cache_dtype
         self._seq_counter = 0
-        if params_loader is not None:
-            params = params_loader(self.cfg)
+        if weights_bcast is not None:
+            raise NotImplementedError(
+                f"weights_bcast (receiving the weights over a broadcast) "
+                f"{_A5}")
+
+        def load():
+            if params_loader is not None:
+                return params_loader(self.cfg)
+            return init_params(self.cfg, seed=0, device=self.device)
+
+        # a custom loader has no stable identity to share under: it opts
+        # in with an explicit weights_key
+        if share_weights and (params_loader is None
+                              or weights_key is not None):
+            # preset overrides change the parameter shapes: fold them into
+            # the default key so differently configured deployments never
+            # attach to each other's arena copy
+            ov = ""
+            if preset_overrides:
+                ov = ":" + ",".join(f"{k}={preset_overrides[k]}"
+                                    for k in sorted(preset_overrides))
+            key = weights_key or f"llm:{preset}{ov}:seed0"
+            host, self._weights_info = _weights.get_or_publish(key, load)
         else:
-            params = init_params(self.cfg, seed=0, device=self.device)
-        self.params = place_params(self.cfg, params, self.device)
+            host, self._weights_info = load(), {"mode": "local",
+                                                "shared": False}
+        # one private copy on the device; the shared host copy stays in
+        # the node arena, and _host_params keeps its read-only views (and
+        # their pins) alive for this replica's lifetime
+        self._host_params = host if self._weights_info["shared"] else None
+        self.params = place_params(self.cfg, host, self.device)
+        del host
         self._tokenize = tokenize or partial(
             _byte_tokenize, vocab_size=self.cfg.vocab_size)
         self._detokenize = detokenize or _byte_detokenize
@@ -132,7 +182,7 @@ class LLMServerImpl:
                 page_tokens=page_tokens, kv_pages=kv_pages,
                 prefix_cache=prefix_cache,
                 drafter=self._build_drafter(drafter, slots, arena_len),
-                spec_k=spec_k, attn=attn)
+                spec_k=spec_k, migration_budget=migration_budget, attn=attn)
         elif drafter:
             raise ValueError(
                 "speculative decoding (drafter=...) requires "
@@ -176,18 +226,21 @@ class LLMServerImpl:
                        device=self.device, name=drafter,
                        shares_target=shares)
 
-    def _submit(self, ids: List[int], max_new: int, temperature: float):
+    def _submit(self, ids: List[int], max_new: int, temperature: float,
+                fleet_hint=None):
         loop = asyncio.get_running_loop()
         q: asyncio.Queue = asyncio.Queue()
         self._seq_counter += 1
         seq = self._sched.submit(
             ids, max_new_tokens=max_new, temperature=temperature,
-            seed=self._seq_counter, loop=loop, queue=q)
+            seed=self._seq_counter, loop=loop, queue=q,
+            fleet_hint=fleet_hint)
         return seq, q
 
     async def _run_continuous(self, ids: List[int], max_new: int,
-                              temperature: float) -> List[int]:
-        seq, q = self._submit(ids, max_new, temperature)
+                              temperature: float,
+                              fleet_hint=None) -> List[int]:
+        seq, q = self._submit(ids, max_new, temperature, fleet_hint)
         toks: List[int] = []
         try:
             while True:
@@ -203,10 +256,10 @@ class LLMServerImpl:
             raise
 
     async def _stream_continuous(self, ids: List[int], max_new: int,
-                                 temperature: float):
+                                 temperature: float, fleet_hint=None):
         """Streaming consumes the scheduler's per-slot token queue.
         Abandoning the generator cancels the sequence."""
-        seq, q = self._submit(ids, max_new, temperature)
+        seq, q = self._submit(ids, max_new, temperature, fleet_hint)
         try:
             while True:
                 kind, val = await q.get()
@@ -320,7 +373,8 @@ class LLMServerImpl:
             request = {"prompt": request}
         prompt = request.get("prompt", "")
         if request.get("prompt_ids") is not None:
-            # explicit token ids (custom-tokenizer clients)
+            # explicit token ids (custom-tokenizer clients; also what the
+            # affinity router hashed, so steering and execution agree)
             ids = [int(t) for t in request["prompt_ids"]]
         else:
             ids = self._tokenize(prompt)
@@ -328,10 +382,15 @@ class LLMServerImpl:
             raise ValueError("prompt must be non-empty")
         max_new = int(request.get("max_new_tokens", self.max_new_tokens))
         temperature = float(request.get("temperature", self.temperature))
+        # the router's pull hint (the prefix lives on another replica);
+        # only the continuous scheduler uses it
+        fleet_hint = request.get("_fleet_hint")
         if self._sched is not None:
             if request.get("stream"):
-                return self._stream_continuous(ids, max_new, temperature)
-            out_ids = await self._run_continuous(ids, max_new, temperature)
+                return self._stream_continuous(ids, max_new, temperature,
+                                               fleet_hint)
+            out_ids = await self._run_continuous(ids, max_new, temperature,
+                                                 fleet_hint)
         else:
             # the request-level path has no per-sequence bound of its own
             # (the continuous scheduler checks at submit): check the budget
@@ -380,6 +439,27 @@ class LLMServerImpl:
             d["tok"] = "byte" if self._byte_tok else "opaque"
         return d
 
+    def export_prefix(self, tokens: List[int],
+                      timeout_s: float = 30.0) -> Dict[str, Any]:
+        """A peer replica's migration pull: the longest cached prefix of
+        ``tokens`` as per-layer K and V pages on the host (replica to
+        replica, never through the controller)."""
+        if self._sched is None:
+            return {"matched_len": 0, "page_tokens": 0, "k": [], "v": []}
+        return self._sched.export_prefix(list(tokens), timeout_s=timeout_s)
+
+    def weights_info(self) -> Dict[str, Any]:
+        """How this replica got its weights: ``mode`` "published" (the
+        node's first replica), "attached" (views of the published copy) or
+        "local" (not shared), with the key, node and bytes when shared."""
+        return dict(self._weights_info)
+
+    def push_weights(self, group: str, world_size: int,
+                     rank: int = 0) -> bool:
+        """Root side of a broadcast to replicas on new nodes: not ported
+        yet."""
+        raise NotImplementedError(f"push_weights {_A5}")
+
     def check_health(self) -> bool:
         if self._sched is not None and self._sched.closed:
             return False
@@ -393,3 +473,16 @@ class LLMServerImpl:
         sched = getattr(self, "_sched", None)
         if sched is not None:
             sched.shutdown()
+
+
+LLMServer = serve.deployment(name="llm", max_ongoing_requests=32)(
+    LLMServerImpl)
+
+
+def build_app(preset: str = "llama_debug", num_replicas: int = 1,
+              max_new_tokens: int = 16, temperature: float = 0.0,
+              **kwargs) -> "serve.Application":
+    """``serve.run(build_app(...))``: the deployable LLM application."""
+    dep = LLMServer.options(num_replicas=num_replicas)
+    return dep.bind(preset=preset, max_new_tokens=max_new_tokens,
+                    temperature=temperature, **kwargs)
