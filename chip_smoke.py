@@ -144,9 +144,26 @@ of its checks fails:
      streamed, whole, streamed on the warm cache (tokens/s, decode-step
      ms, chunks, prefix hits each, and the streamed/whole step ratio),
      against the serve phase and the runtime phase's ``ReplicaHost``.
-     float32 llama_debug one request at a time through the handle from a
-     ``num_gpus=1`` replica equals the in-process replica's on the card;
-     after ``serve.shutdown()`` a ``num_gpus=1`` actor starts within 120 s.
+     Then the ingress, against the same replica: ``serve.start(http_port=0)``
+     (the HTTP proxy) and ``serve.start_rpc_ingress()``, driven with
+     ``http.client`` and the port's ``ServeRpcClient``. Gates:
+     ``/-/healthz`` answers ``ok`` and ``/-/routes`` names the app; the
+     proxy's and the RPC ingress's workers have no card
+     (``CUDA_VISIBLE_DEVICES=""``); the 12 requests streamed over HTTP
+     (``"stream": true``), sent together from threads, request 5 at 0.7:
+     every request returns all its tokens and K4's launches in the
+     replica are exactly layers x (prefill chunks + decode steps); then
+     HTTP whole, HTTP streamed, RPC whole
+     (``invoke``), RPC streamed (``invoke_stream``) on the warm cache
+     (tokens/s, decode-step ms, TTFT on the client's clock, the first
+     chunk for streams, chunks and prefix hits each; the streamed/whole
+     step ratio of HTTP and of RPC beside the handle's); a solo request's
+     text streamed and whole over both equals the handle's. Counted, not
+     gated, the bf16 texts of the HTTP pass equal to the serve phase's.
+     float32 llama_debug one request at a time through the handle, over
+     HTTP and over RPC from a ``num_gpus=1`` replica equals the in-process
+     replica's on the card; after ``serve.shutdown()`` a ``num_gpus=1``
+     actor starts within 120 s.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Details go to
@@ -2436,14 +2453,12 @@ def _store_used(rt_api) -> int:
     return int(st["capacity"] - st["free_bytes"])
 
 
-def _controller_worker(rt_api) -> dict:
-    """The serve controller's worker: the cards its supervisor gave it and
-    the CUDA_VISIBLE_DEVICES its process runs under."""
-    from ray_tpu_torch.serve._private.controller import CONTROLLER_NAME
-
+def _named_worker(rt_api, name: str) -> dict:
+    """A named actor's worker: the cards its supervisor gave it and the
+    CUDA_VISIBLE_DEVICES its process runs under."""
     core = rt_api._core
     rec = core._run(core.clients.get(core.controller_addr).call(
-        "actor_by_name", {"name": CONTROLLER_NAME, "namespace": "default"}),
+        "actor_by_name", {"name": name, "namespace": "default"}),
         timeout=RT_TIMEOUT)
     sup = core.clients.get(core.supervisor_addr)
     wid = rec["worker_id_hex"]
@@ -2458,31 +2473,20 @@ def _controller_worker(rt_api) -> dict:
     return {"gpus": gpus, "visible": visible, "detached": rec["detached"]}
 
 
-def _handle_pass(rt, h, reqs, stream: bool) -> dict:
-    """The requests through the handle, sent together, streamed
-    (``options(stream=True)``) or whole; every request must return all its
-    tokens. Its tokens/s, TTFT (streams), decode-step ms and the
-    scheduler's work in this pass."""
-    from concurrent.futures import ThreadPoolExecutor
-
+def _timed_pass(h, kind: str, run) -> dict:
+    """One pass of requests sent together: ``run(t0)`` sends them and
+    returns their texts and TTFTs (seconds from ``t0`` on this clock;
+    empty when not measured). Every request must return all its tokens.
+    Its tokens/s, TTFT, decode-step ms and the scheduler's work in this
+    pass, read from the replica."""
     before = h.scheduler_stats.remote().result(timeout=RT_TIMEOUT)
     t0 = time.perf_counter()
-    if stream:
-        sh = h.options(stream=True)
-        gens = [sh.remote(dict(r, stream=True)).ref for r in reqs]
-        with ThreadPoolExecutor(len(gens)) as pool:
-            outs = list(pool.map(lambda g: _consume(rt, g), gens))
-        texts = ["".join(pieces) for _, pieces in outs]
-        ttfts = [first - t0 for first, _ in outs]
-    else:
-        resps = [h.remote(r) for r in reqs]
-        texts = [r.result(timeout=RT_TIMEOUT)["text"] for r in resps]
-        ttfts = []
+    texts, ttfts = run(t0)
     wall = time.perf_counter() - t0
     st = h.scheduler_stats.remote().result(timeout=RT_TIMEOUT)
     _check_paged_run(texts, st)
     steps = st["decode_steps"] - before["decode_steps"]
-    r = dict(kind="streamed" if stream else "whole", wall_s=wall,
+    r = dict(kind=kind, wall_s=wall,
              tokens_per_s=len(texts) * SERVE_NEW_TOKENS / wall,
              decode_step_ms=(st["decode_seconds"]
                              - before["decode_seconds"]) / steps * 1e3,
@@ -2495,11 +2499,188 @@ def _handle_pass(rt, h, reqs, stream: bool) -> dict:
     return r
 
 
+def _handle_pass(rt, h, reqs, stream: bool) -> dict:
+    """The requests through the handle, sent together, streamed
+    (``options(stream=True)``, TTFT the first piece) or whole."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def run(t0):
+        if not stream:
+            resps = [h.remote(r) for r in reqs]
+            return [r.result(timeout=RT_TIMEOUT)["text"] for r in resps], []
+        sh = h.options(stream=True)
+        gens = [sh.remote(dict(r, stream=True)).ref for r in reqs]
+        with ThreadPoolExecutor(len(gens)) as pool:
+            outs = list(pool.map(lambda g: _consume(rt, g), gens))
+        return (["".join(pieces) for _, pieces in outs],
+                [first - t0 for first, _ in outs])
+
+    return _timed_pass(h, "streamed" if stream else "whole", run)
+
+
+def _http(port: int, path: str, body=None, t0=None):
+    """One request to the serve proxy through ``http.client``: POST of
+    ``body`` as JSON (GET without one). Returns (status, headers, the time
+    its first body bytes arrived, seconds from ``t0``, and the body)."""
+    import http.client
+
+    t0 = time.perf_counter() if t0 is None else t0
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=RT_TIMEOUT)
+    try:
+        if body is None:
+            conn.request("GET", path)
+        else:
+            conn.request("POST", path, body=json.dumps(body),
+                         headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        first, pieces = None, []
+        while True:
+            data = resp.read1(1 << 16)
+            if not data:
+                break
+            if first is None:
+                first = time.perf_counter() - t0
+            pieces.append(data)
+        return (resp.status, {k.lower(): v for k, v in resp.getheaders()},
+                first, b"".join(pieces))
+    finally:
+        conn.close()
+
+
+def _http_text(port: int, path: str, req: dict, t0=None):
+    """A request's text over HTTP, whole (the JSON reply's ``text``) or,
+    when ``req`` streams, the chunked body; and its TTFT from ``t0``."""
+    status, headers, first, body = _http(port, path, req, t0)
+    stream = bool(req.get("stream"))
+    if status != 200 or (headers.get("x-serve-stream") == "1") != stream:
+        raise AssertionError(f"POST {path}: {status} {headers} {body[:300]}")
+    if not stream:
+        return json.loads(body)["text"], first
+    text = body.decode()
+    if "[stream " in text:
+        raise AssertionError(f"POST {path}: the stream failed: {text[-300:]}")
+    return text, first
+
+
+def _rpc_text(client, app: str, req: dict, t0=None):
+    """A request's text over the RPC ingress (``invoke``, or
+    ``invoke_stream`` when ``req`` streams) and its TTFT from ``t0``."""
+    t0 = time.perf_counter() if t0 is None else t0
+    if not req.get("stream"):
+        text = client.invoke(app, req)["text"]
+        return text, time.perf_counter() - t0
+    first, pieces = None, []
+    for piece in client.invoke_stream(app, req):
+        if first is None:
+            first = time.perf_counter() - t0
+        pieces.append(piece)
+    return "".join(pieces), first
+
+
+def _ingress_pass(h, reqs, send, kind: str) -> dict:
+    """The requests through an ingress, sent together from one thread
+    each: ``send(req, t0)`` returns (text, TTFT)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def run(t0):
+        with ThreadPoolExecutor(len(reqs)) as pool:
+            outs = list(pool.map(lambda r: send(r, t0), reqs))
+        return [t for t, _ in outs], [f for _, f in outs]
+
+    return _timed_pass(h, kind, run)
+
+
+def _wait_route(port: int, prefix: str) -> dict:
+    """The proxy's route table once it lists ``prefix`` (it refreshes
+    every second)."""
+    deadline = time.monotonic() + RT_TIMEOUT
+    while True:
+        routes = json.loads(_http(port, "/-/routes")[3])
+        if prefix in routes:
+            return routes
+        if time.monotonic() > deadline:
+            raise AssertionError(f"the proxy never routed {prefix}: {routes}")
+        time.sleep(0.2)
+
+
+def _serve_app_ingress(rt_api, serve, h, reqs, layers, solo_text) -> dict:
+    """llama3_8b, already RUNNING behind ``serve.run``, over the ingress:
+    ``serve.start`` (the HTTP proxy) and ``serve.start_rpc_ingress`` driven
+    with the standard library and the port's ``ServeRpcClient``."""
+    from ray_tpu_torch.serve import PROXY_NAME, RPC_INGRESS_NAME
+    from ray_tpu_torch.serve.rpc_ingress_client import ServeRpcClient
+
+    t0 = time.perf_counter()
+    http_port = serve.start(http_port=0)
+    rpc_port = serve.start_rpc_ingress()
+    start_s = time.perf_counter() - t0
+    health = _http(http_port, "/-/healthz")
+    routes = _wait_route(http_port, "/llama3_8b")
+    workers = {name: _named_worker(rt_api, name)
+               for name in (PROXY_NAME, RPC_INGRESS_NAME)}
+    if health[0] != 200 or health[3] != b"ok":
+        raise AssertionError(f"/-/healthz: {health}")
+    if routes["/llama3_8b"] != "llama3_8b/llm":
+        raise AssertionError(f"/-/routes: {routes}")
+    for name, w in workers.items():
+        if w["gpus"] != [] or w["visible"] != "":
+            raise AssertionError(f"the {name} worker: {w}")
+    client = ServeRpcClient(f"127.0.0.1:{rpc_port}",
+                            request_timeout_s=RT_TIMEOUT)
+    try:
+        def http_send(r, t0):
+            return _http_text(http_port, "/llama3_8b", r, t0)
+
+        def rpc_send(r, t0):
+            return _rpc_text(client, "llama3_8b", r, t0)
+
+        streamed = [dict(r, stream=True) for r in reqs]
+        h.launches.remote(reset=True).result(timeout=RT_TIMEOUT)
+        cold = _ingress_pass(h, streamed, http_send, "http streamed")
+        launches, _ = h.launches.remote().result(timeout=RT_TIMEOUT)
+        steps, chunks = cold["decode_steps"], cold["prefill_chunks"]
+        if not 0 < launches == layers * (chunks + steps):
+            raise AssertionError(
+                f"{launches} K4 launches in the replica over HTTP, expected "
+                f"{layers} x ({chunks} prefill chunks + {steps} decode "
+                f"steps), above 0")
+        warm = [_ingress_pass(h, rs, send, kind) for rs, send, kind in (
+            (reqs, http_send, "http whole"),
+            (streamed, http_send, "http streamed"),
+            (reqs, rpc_send, "rpc whole"),
+            (streamed, rpc_send, "rpc streamed"))]
+        solo = {"prompt": "warm up", "max_new_tokens": 8}
+        solos = {"http whole": http_send(solo, None)[0],
+                 "http streamed": http_send(dict(solo, stream=True),
+                                            None)[0],
+                 "rpc whole": rpc_send(solo, None)[0],
+                 "rpc streamed": rpc_send(dict(solo, stream=True), None)[0]}
+    finally:
+        client.close()
+    if any(t != solo_text for t in solos.values()):
+        raise AssertionError(f"solo texts over the ingress {solos} != the "
+                             f"handle's {solo_text!r}")
+    step = {p["kind"]: p["decode_step_ms"] for p in warm}
+    return dict(start_s=start_s, http_port=http_port, rpc_port=rpc_port,
+                routes=routes, workers=workers, launches=launches,
+                cold={k: v for k, v in cold.items() if k != "texts"},
+                warm=[{k: v for k, v in p.items() if k != "texts"}
+                      for p in warm],
+                http_streamed_over_whole_step=(step["http streamed"]
+                                               / step["http whole"]),
+                rpc_streamed_over_whole_step=(step["rpc streamed"]
+                                              / step["rpc whole"]),
+                texts=cold["texts"])
+
+
 def _serve_app_llama3_8b(torch, rt, rt_api, serve, LLM, cls, serve_ref,
                          runtime) -> dict:
     """llama3_8b through serve.run in a num_gpus=1 ReplicaActor: deploy,
     the GPU-less attach, the 12 requests through the handle and the warm
-    alternating passes."""
+    alternating passes, then the same over the HTTP proxy and the RPC
+    ingress."""
+    from ray_tpu_torch.serve._private.controller import CONTROLLER_NAME
+
     t0 = time.perf_counter()
     app = LLM.options(func_or_class=cls, num_replicas=1,
                       ray_actor_options={"num_gpus": 1}).bind(
@@ -2511,7 +2692,7 @@ def _serve_app_llama3_8b(torch, rt, rt_api, serve, LLM, cls, serve_ref,
     status = serve.status()["llama3_8b"]["llm"]
     winfo = h.weights_info.remote().result(timeout=RT_TIMEOUT)
     info = h.info.remote().result(timeout=RT_TIMEOUT)
-    ctl = _controller_worker(rt_api)
+    ctl = _named_worker(rt_api, CONTROLLER_NAME)
     if status["status"] != "RUNNING" or status["replicas"] != 1:
         raise AssertionError(f"serve.status(): {status}")
     if winfo["mode"] != "published" or not winfo["shared"] or \
@@ -2573,9 +2754,12 @@ def _serve_app_llama3_8b(torch, rt, rt_api, serve, LLM, cls, serve_ref,
     whole = h.remote(solo).result(timeout=RT_TIMEOUT)["text"]
     if streamed != whole or len(_text_ids(whole)) != 8:
         raise AssertionError(f"streamed {streamed!r} != whole {whole!r}")
+    ingress = _serve_app_ingress(rt_api, serve, h, reqs, layers, whole)
     peak = h.info.remote().result(timeout=RT_TIMEOUT)["peak_mem_gb"]
     serve.delete("llama3_8b")
     equal = _equal_greedy(first["texts"], serve_ref["texts"])
+    ingress["texts_equal_serve"] = _equal_greedy(ingress.pop("texts"),
+                                                 serve_ref["texts"])
     ratio = (sum(p["decode_step_ms"] for p in warm if p["kind"] ==
                  "streamed") / sum(p["decode_step_ms"] for p in warm
                                    if p["kind"] == "whole"))
@@ -2589,7 +2773,7 @@ def _serve_app_llama3_8b(torch, rt, rt_api, serve, LLM, cls, serve_ref,
              warm=[{k: v for k, v in p.items() if k != "texts"}
                    for p in warm],
              streamed_over_whole_step=ratio, texts_equal_serve=equal,
-             peak_mem_gb=peak, texts=first["texts"])
+             ingress=ingress, peak_mem_gb=peak, texts=first["texts"])
     print(f"serve-app: 12 requests streamed through the handle, sent "
           f"together: {first['tokens_per_s']:.1f} tokens/s (in-process "
           f"serve {serve_ref['tokens_per_s']:.1f}, runtime ReplicaHost "
@@ -2608,15 +2792,43 @@ def _serve_app_llama3_8b(torch, rt, rt_api, serve, LLM, cls, serve_ref,
         f"{p['prefill_chunks']} prefill chunks, {p['prefix_hits']} prefix "
         f"hits" for p in warm) + f"; streamed/whole decode step {ratio:.3f}",
         flush=True)
+    ing, cold = ingress, ingress["cold"]
+    print(f"serve-app ingress: serve.start and serve.start_rpc_ingress up "
+          f"in {ing['start_s']:.2f} s; /-/healthz ok, /-/routes "
+          f"{ing['routes']}; proxy and RPC ingress workers "
+          + ", ".join(f"{n}: cards {w['gpus']}, CUDA_VISIBLE_DEVICES="
+                      f"{w['visible']!r}"
+                      for n, w in ing["workers"].items())
+          + f"; the 12 streamed over HTTP, sent together: "
+          f"{cold['tokens_per_s']:.1f} tokens/s (handle "
+          f"{first['tokens_per_s']:.1f}), decode step "
+          f"{cold['decode_step_ms']:.2f} ms, TTFT mean "
+          f"{cold['ttft_mean_s']:.3f} s, max {cold['ttft_max_s']:.3f} s; "
+          f"{ing['launches']} K4 launches = {layers} x "
+          f"({cold['prefill_chunks']} + {cold['decode_steps']}); "
+          f"{cold['prefix_hits']} prefix hits; solo texts streamed = whole "
+          f"over both; {ing['texts_equal_serve']} of 11 temperature-0 texts"
+          f" equal the serve phase's", flush=True)
+    print("serve-app ingress, warm: " + "; ".join(
+        f"{p['kind']} {p['tokens_per_s']:.1f} tokens/s, decode step "
+        f"{p['decode_step_ms']:.2f} ms ({p['decode_steps']} steps), TTFT "
+        f"mean {p['ttft_mean_s']:.3f} s, {p['prefill_chunks']} prefill "
+        f"chunks, {p['prefix_hits']} prefix hits" for p in ing["warm"])
+        + f"; streamed/whole decode step: HTTP "
+        f"{ing['http_streamed_over_whole_step']:.3f}, RPC "
+        f"{ing['rpc_streamed_over_whole_step']:.3f}, handle {ratio:.3f}",
+        flush=True)
     return r
 
 
 def _serve_app_parity(torch, rt, serve, LLM, cls) -> dict:
     """float32 llama_debug, one request at a time: the texts through the
-    handle from a num_gpus=1 replica equal the in-process replica's on the
-    card, on the same seeded weights (published into the arena)."""
+    handle, over HTTP and over the RPC ingress from a num_gpus=1 replica
+    equal the in-process replica's on the card, on the same seeded
+    weights (published into the arena)."""
     from ray_tpu_torch import LLMServerImpl, presets
     from ray_tpu_torch.models.transformer import init_params
+    from ray_tpu_torch.serve.rpc_ingress_client import ServeRpcClient
 
     host = init_params(presets.llama_debug(), seed=0, device="cpu")
     kw = dict(max_new_tokens=8, slots=4, prefill_chunk=8, page_tokens=4,
@@ -2636,17 +2848,31 @@ def _serve_app_parity(torch, rt, serve, LLM, cls) -> dict:
                   timeout_s=RT_TIMEOUT)
     texts = [h.remote({"prompt": p}).result(timeout=RT_TIMEOUT)["text"]
              for p in PARITY_PROMPTS * 3]
+    http_port = serve.start(http_port=0)
+    _wait_route(http_port, "/llama_debug")
+    http_texts = [_http_text(http_port, "/llama_debug", {"prompt": p})[0]
+                  for p in PARITY_PROMPTS * 3]
+    client = ServeRpcClient(f"127.0.0.1:{serve.start_rpc_ingress()}",
+                            request_timeout_s=RT_TIMEOUT)
+    try:
+        rpc_texts = [client.invoke("llama_debug", {"prompt": p})["text"]
+                     for p in PARITY_PROMPTS * 3]
+    finally:
+        client.close()
     launches, _ = h.launches.remote().result(timeout=RT_TIMEOUT)
     mode = h.weights_info.remote().result(timeout=RT_TIMEOUT)["mode"]
-    if texts != local:
-        raise AssertionError(f"handle texts {texts} != in-process {local}")
+    for how, got in (("handle", texts), ("HTTP", http_texts),
+                     ("RPC", rpc_texts)):
+        if got != local:
+            raise AssertionError(f"{how} texts {got} != in-process {local}")
     if launches <= 0 or mode != "published":
         raise AssertionError(f"the float32 replica: {launches} K4 "
                              f"launches, weights {mode}")
     print(f"serve-app parity: float32 llama_debug, {len(texts)} texts "
-          f"through the handle from a num_gpus=1 replica (weights {mode}) "
-          f"equal the in-process replica's on the card ({launches} K4 "
-          f"launches in the replica)", flush=True)
+          f"each through the handle, over HTTP and over the RPC ingress "
+          f"from a num_gpus=1 replica (weights {mode}) equal the in-process "
+          f"replica's on the card ({launches} K4 launches in the replica)",
+          flush=True)
     return dict(texts_equal=True, requests=len(texts), launches=launches)
 
 
@@ -2766,6 +2992,10 @@ def main() -> int:
     kernels["kernels"].append(dict(
         kernels["kernels"][0], name="paged_attention_serve_app",
         launches=serve_app["llama3_8b"]["launches"]))
+    # the same replica behind the HTTP proxy: the cold pass over HTTP
+    kernels["kernels"].append(dict(
+        kernels["kernels"][0], name="paged_attention_serve_http",
+        launches=serve_app["llama3_8b"]["ingress"]["launches"]))
     # the flash kernels at the main path's shapes: gpt2_small, bf16
     fcase = flash["gpt2_small_bfloat16"]
     launches = train["gpt2_small"]["launches"]

@@ -92,10 +92,17 @@ class ObjectRef:
         import asyncio
 
         core = _require_core()
-        return asyncio.run_coroutine_threadsafe(
+        fut = asyncio.run_coroutine_threadsafe(
             core._async_get_one(self._object_id, self._owner_addr, None),
             core.loop,
         )
+        # the future holds this ref until it resolves: a ref whose last
+        # holder drops it at once (``await actor.m.remote()``) would
+        # otherwise queue its release on the IO loop ahead of the get's
+        # first step, and a value already in would be freed before the
+        # get looked it up, leaving the get to wait forever
+        fut.add_done_callback(lambda _f, _held=self: None)
+        return fut
 
 
 class ObjectRefGenerator:

@@ -7,12 +7,15 @@ replica counts, replaces dead replicas and autoscales on in-flight requests
 and queue depth. The LLM deployment is ``serve.llm.LLMServer``
 (``build_app``).
 
-This module imports the runtime only, never torch: a driver that deploys
-plain functions never loads it.
+Users reach a deployment through its ``DeploymentHandle``, over HTTP
+(``start``: the proxy actor on the port's own HTTP/1.1 server, with ASGI
+apps and websockets through ``ingress``), or over the binary RPC ingress
+(``start_rpc_ingress``, client ``serve.rpc_ingress_client.ServeRpcClient``
+and the C++ client in ``cpp/serve_client/``).
 
-Not ported yet (ROADMAP A4b): the HTTP proxy (``start``), ASGI ingress
-(``ingress``) and the binary RPC ingress (``start_rpc_ingress``). Each
-raises ``NotImplementedError``; none falls back to another path.
+This module imports the runtime only, never torch: a driver that deploys
+plain functions never loads it, and the proxy and RPC ingress processes
+take no card.
 """
 
 from __future__ import annotations
@@ -24,29 +27,23 @@ from typing import Any, Dict, Optional, Tuple, Union
 import ray_tpu_torch as rt
 from ray_tpu_torch.serve._private.controller import (CONTROLLER_NAME,
                                                      ServeController)
+from ray_tpu_torch.serve.asgi import ingress
 from ray_tpu_torch.serve.batching import batch
 from ray_tpu_torch.serve.handle import DeploymentHandle, DeploymentResponse
 from ray_tpu_torch.serve.multiplex import (get_multiplexed_model_id,
                                            multiplexed)
 
-_A4B = ("is not ported yet (ROADMAP A4b: the HTTP proxy on asyncio "
-        "streams, ASGI and the RPC ingress)")
-
-
-def start(*, http_port: int = 8000) -> int:
-    """The HTTP proxy: not ported yet."""
-    raise NotImplementedError(f"serve.start (the HTTP proxy) {_A4B}")
+PROXY_NAME = "SERVE_PROXY"
+RPC_INGRESS_NAME = "SERVE_RPC_INGRESS"
 
 
 def start_rpc_ingress(port: int = 0) -> int:
-    """The binary RPC ingress: not ported yet."""
-    raise NotImplementedError(f"serve.start_rpc_ingress {_A4B}")
+    """Start the binary RPC ingress (the reference's gRPC-ingress role over
+    the framework's native framing); returns the bound port."""
+    from ray_tpu_torch.serve._private.rpc_ingress import \
+        start_rpc_ingress as _s
 
-
-def ingress(asgi_app: Any):
-    """ASGI ingress (a class decorator in the JAX package): not ported
-    yet."""
-    raise NotImplementedError(f"serve.ingress (ASGI) {_A4B}")
+    return _s(port)
 
 
 @dataclasses.dataclass
@@ -215,6 +212,22 @@ def run(app: Application, *, name: str = "default",
     return ingress_handle
 
 
+def start(*, http_port: int = 8000) -> int:
+    """Start the HTTP proxy (reference starts proxies on serve.start /
+    first run; explicit here), or find the one that is up. Returns the
+    bound port; ``http_port=0`` binds an ephemeral one."""
+    from ray_tpu_torch.serve._private.proxy import ProxyActor
+
+    controller = _get_or_create_controller()
+    try:
+        proxy = rt.get_actor(PROXY_NAME)
+    except Exception:
+        proxy = rt.remote(ProxyActor).options(
+            name=PROXY_NAME, lifetime="detached", num_cpus=0.1,
+            max_concurrency=256).remote(controller, http_port)
+    return rt.get(proxy.ready.remote())
+
+
 def get_app_handle(name: str = "default") -> DeploymentHandle:
     controller = rt.get_actor(CONTROLLER_NAME)
     routes = rt.get(controller.get_routes.remote())
@@ -250,10 +263,11 @@ def shutdown() -> None:
         rt.get(controller.graceful_shutdown.remote())
     except Exception:
         pass
-    try:
-        rt.kill(controller)
-    except Exception:
-        pass
+    for actor_name in (PROXY_NAME, RPC_INGRESS_NAME, CONTROLLER_NAME):
+        try:
+            rt.kill(rt.get_actor(actor_name))
+        except Exception:
+            pass
 
 
 __all__ = [

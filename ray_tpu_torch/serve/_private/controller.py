@@ -1,8 +1,7 @@
 """Serve controller: the reconciling control plane.
 
-Counterpart: ``ray_tpu/serve/_private/controller.py``, without the ASGI
-route table (the HTTP proxy and ``serve.ingress`` are not ported). Analog
-of `ray.serve._private.controller.ServeController`
+Counterpart: ``ray_tpu/serve/_private/controller.py``. Analog of
+`ray.serve._private.controller.ServeController`
 (`python/ray/serve/_private/controller.py:86`, deploy_application `:719`)
 + `DeploymentStateManager` (`deployment_state.py:2309`) + the autoscaling
 loop (`autoscaling_state.py`): a detached async actor that drives target
@@ -76,6 +75,7 @@ class ServeController:
     def __init__(self):
         self._apps: Dict[str, Dict[str, _DeploymentState]] = {}
         self._routes: Dict[str, str] = {}  # route_prefix -> "app/ingress"
+        self._route_asgi: Dict[str, bool] = {}  # "app/ingress" -> is ASGI
         self._shutdown = False
         self._loop_task = None
         # long-poll support (≈ python/ray/serve/_private/long_poll.py):
@@ -123,6 +123,18 @@ class ServeController:
                 app[spec["name"]] = _DeploymentState(app_name, spec)
         if route_prefix:
             self._routes[route_prefix] = f"{app_name}/{ingress_name}"
+            # ASGI-ness is a static class property (serve.ingress marker):
+            # publish it with the route so the proxy never has to probe
+            # user code to classify a deployment
+            for spec in deployment_specs:
+                if spec["name"] == ingress_name:
+                    try:
+                        cls = spec["callable_factory"]()
+                        self._route_asgi[f"{app_name}/{ingress_name}"] = (
+                            getattr(cls, "__serve_is_asgi__", False) is True)
+                    except Exception:
+                        self._route_asgi[
+                            f"{app_name}/{ingress_name}"] = False
         await self._reconcile_once()
 
     async def delete_application(self, app_name: str) -> None:
@@ -133,6 +145,8 @@ class ServeController:
                 await self._scale_to(st, 0)
         self._routes = {r: t for r, t in self._routes.items()
                         if not t.startswith(app_name + "/")}
+        self._route_asgi = {t: v for t, v in self._route_asgi.items()
+                            if not t.startswith(app_name + "/")}
 
     # --------------------------------------------------------- reconcile
 
@@ -453,6 +467,10 @@ class ServeController:
 
     async def get_routes(self) -> Dict[str, str]:
         return dict(self._routes)
+
+    async def get_route_asgi(self) -> Dict[str, bool]:
+        """Which route targets are ASGI ingresses (serve.ingress)."""
+        return dict(self._route_asgi)
 
     async def status(self) -> Dict[str, Any]:
         out = {}

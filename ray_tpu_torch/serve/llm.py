@@ -47,7 +47,11 @@ replica then copies them once onto its device. A custom ``params_loader``
 shares only under an explicit ``weights_key``. ``export_prefix`` serves a
 peer replica's page-migration pull, and a request carrying the router's
 ``_fleet_hint`` pulls its prefix pages from the holder first
-(``migration_budget`` pages at most).
+(``migration_budget`` pages at most). Over HTTP, ``serve.start()``'s proxy
+answers a POST of ``{"prompt": ...}`` to the app's route prefix with the
+result as JSON, or, with ``"stream": true``, with the text as a chunked
+``X-Serve-Stream`` response pulled from the replica; the RPC ingress
+(``serve.start_rpc_ingress()``) takes the same request by app name.
 
 Not ported yet (ROADMAP A5): the weights broadcast to a new node
 (``weights_bcast``, ``push_weights``), which needs the collective group

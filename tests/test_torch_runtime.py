@@ -4,6 +4,7 @@ tensors through ``put``/``get`` and as task arguments and returns, the
 device-object path's host half, and the control-plane daemons' import
 hygiene (they never import torch)."""
 
+import asyncio
 import os
 import subprocess
 import sys
@@ -207,6 +208,25 @@ class TestActors:
         c = Counter.remote(rt.put(np.arange(50_000.0)))
         assert rt.get(c.get.remote(), timeout=60).sum() == np.arange(
             50_000.0).sum()
+
+    def test_await_a_ref_dropped_at_once(self, cluster):
+        """``await refs.pop()``: the popped ref's last holder is gone once
+        ``__await__`` returns, while its value is already in. The get must
+        still find the value (its release used to free the entry before
+        the get looked it up, and the get then waited forever)."""
+        refs = [add.remote(i, i) for i in range(16)]
+        ready, _ = rt.wait(refs, num_returns=len(refs), timeout=60)
+        assert len(ready) == len(refs)
+        del ready  # each ref's only holder is now the list
+
+        async def drain():
+            out = []
+            while refs:
+                out.append(await refs.pop())
+            return out
+
+        got = asyncio.run(asyncio.wait_for(drain(), timeout=30))
+        assert got == [2 * i for i in reversed(range(16))]
 
     def test_actor_order_from_fresh_handle_burst(self, cluster):
         """Calls on a handle deserialized inside a task run in submission

@@ -5,6 +5,7 @@ with a faked ``GPU`` resource, and the copy's own environment prefix (a
 JAX cluster in the same process is never joined)."""
 
 import os
+import threading
 import time
 
 import numpy as np
@@ -13,6 +14,8 @@ import torch
 
 import ray_tpu
 import ray_tpu_torch as rt
+from ray_tpu import serve as jserve
+from ray_tpu.serve._private.router import Router as JaxRouter
 from ray_tpu_torch.cluster_utils import Cluster
 
 # the copy reads only RAY_TPU_TORCH_* variables: fast failure detection
@@ -188,12 +191,69 @@ def test_gpu_pinning_with_a_faked_resource():
         rt.shutdown()
 
 
+def retire_leftover_jax_runtime(timeout: float = 30.0) -> None:
+    """Shut down a JAX runtime that an earlier test left up in this
+    process, and the JAX router threads that would start it again.
+
+    The JAX serve router's polling threads (``ray_tpu/serve/_private/
+    router.py``, ``Router._poll_loop`` and ``_digest_poll_loop``) go on
+    calling ``ray_tpu.get``/``.remote()`` after a test file's
+    ``ray_tpu.shutdown()``, and the JAX ``_require_core`` then starts a
+    new local cluster that nothing shuts down; the next
+    ``ray_tpu.init()`` in the process raises "called twice" (ROADMAP §C).
+    The JAX package is left as it is, so the tests that start a JAX
+    cluster of their own call this first."""
+    threads = [t for t in threading.enumerate()
+               if isinstance(getattr(getattr(t, "_target", None),
+                                     "__self__", None), JaxRouter)]
+    for t in threads:
+        t._target.__self__.stop()
+    if ray_tpu.is_initialized():
+        ray_tpu.shutdown()  # a thread blocked in a get wakes and returns
+    for t in threads:
+        t.join(timeout)
+    assert not any(t.is_alive() for t in threads), "JAX router threads"
+    if ray_tpu.is_initialized():
+        ray_tpu.shutdown()  # one a thread started before it saw stop()
+
+
+@jserve.deployment
+class _JaxEcho:
+    def __call__(self, x):
+        return x
+
+
+def test_jax_router_threads_restart_a_shut_down_jax_runtime():
+    """The state ``test_never_joins_a_jax_cluster`` met under the
+    parallel run: a JAX handle used in this process leaves router threads
+    that start a new JAX runtime within seconds of ``serve.shutdown()``
+    and ``ray_tpu.shutdown()``; ``retire_leftover_jax_runtime`` stops them
+    and shuts that runtime down for good."""
+    retire_leftover_jax_runtime()
+    ray_tpu.init(num_cpus=2, object_store_memory=64 * 1024 * 1024)
+    try:
+        h = jserve.run(_JaxEcho.bind(), name="leak", route_prefix="/leak")
+        assert h.remote(3).result(timeout=60) == 3
+    finally:
+        jserve.shutdown()
+        ray_tpu.shutdown()
+    _wait_for(ray_tpu.is_initialized, msg="the JAX router to restart a "
+                                          "JAX runtime")
+    retire_leftover_jax_runtime()
+    assert not ray_tpu.is_initialized()
+    time.sleep(2.0)  # longer than the routers' retry sleeps
+    assert not ray_tpu.is_initialized()
+
+
 def test_never_joins_a_jax_cluster(monkeypatch):
     """A JAX cluster in the same process sets RAY_TPU_ADDRESS and
     RAY_TPU_SESSION_DIR; the port reads and writes only its own prefix, so
     it starts its own cluster under its own session root."""
     monkeypatch.delenv("RAY_TPU_TORCH_ADDRESS", raising=False)
     monkeypatch.delenv("RAY_TPU_TORCH_SESSION_DIR", raising=False)
+    # under a parallel run, an earlier file in this worker process may
+    # have left a JAX runtime up (see retire_leftover_jax_runtime)
+    retire_leftover_jax_runtime()
     jax_info = ray_tpu.init(num_cpus=2,
                             object_store_memory=64 * 1024 * 1024)
     try:

@@ -4,14 +4,18 @@ JAX ``init_params`` (converted in each replica by ``convert.from_jax``),
 float32 on the CPU: with 1 and with 2 replicas behind the router, the
 temperature-0 texts, whole, streamed through ``options(stream=True)`` and
 through the chunk pull, equal JAX's exactly (token for token); a request
-sampled at 0.8 returns all its tokens. The parts left for later raise
-``NotImplementedError`` naming their ROADMAP item.
+sampled at 0.8 returns all its tokens. The same texts over the port's
+ingress: HTTP through ``serve.start``'s proxy, whole and streamed, and the
+binary RPC ingress through ``ServeRpcClient.invoke``/``invoke_stream``.
+The part left for later (the weights broadcast) raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 
 import asyncio
 import os
 from functools import partial
 
+import httpx
 import jax
 import numpy as np
 import pytest
@@ -23,6 +27,7 @@ from ray_tpu.serve.llm import LLMServerImpl as JaxLLMServerImpl
 from ray_tpu_torch import serve
 from ray_tpu_torch.serve._private import weights
 from ray_tpu_torch.serve.llm import LLMServerImpl, build_app
+from ray_tpu_torch.serve.rpc_ingress_client import ServeRpcClient
 
 os.environ.setdefault("RAY_TPU_TORCH_LOG_LEVEL", "WARNING")
 
@@ -100,15 +105,43 @@ def test_build_app_texts_equal_jax(cluster, jax_run, replicas):
         serve.delete(name)
 
 
+def test_texts_over_http_and_rpc_equal_jax(cluster, jax_run):
+    """The temperature-0 texts over the port's ingress equal JAX's
+    in-process ones: HTTP whole (JSON) and streamed (chunked
+    ``X-Serve-Stream``), RPC ``invoke`` and ``invoke_stream``."""
+    jax_texts, _ = jax_run
+    serve.run(build_app(
+        "llama_debug", device="cpu", params_loader=partial(_load, cluster),
+        weights_key="jax0:ingress", attn="reference", **SERVER_KW),
+        name="ingress", route_prefix="/ingress", timeout_s=120)
+    try:
+        url = f"http://127.0.0.1:{serve.start(http_port=0)}/ingress"
+        whole, streamed = [], []
+        for p in PROMPTS:
+            r = httpx.post(url, json={"prompt": p}, timeout=TIMEOUT)
+            assert r.status_code == 200
+            whole.append(r.json()["text"])
+            r = httpx.post(url, json={"prompt": p, "stream": True},
+                           timeout=TIMEOUT)
+            assert r.headers["x-serve-stream"] == "1"
+            streamed.append(r.text)
+        assert whole == jax_texts and streamed == jax_texts
+        client = ServeRpcClient(f"127.0.0.1:{serve.start_rpc_ingress()}")
+        try:
+            assert [client.invoke("ingress", {"prompt": p})["text"]
+                    for p in PROMPTS] == jax_texts
+            assert ["".join(client.invoke_stream(
+                "ingress", {"prompt": p, "stream": True}))
+                for p in PROMPTS] == jax_texts
+        finally:
+            client.close()
+    finally:
+        serve.delete("ingress")
+
+
 def test_left_for_later_raise(cluster):
-    """The HTTP proxy, ASGI and RPC ingress (A4b) and the weights
-    broadcast (A5) raise; none falls back to another path."""
-    with pytest.raises(NotImplementedError, match="A4b"):
-        serve.start(http_port=0)
-    with pytest.raises(NotImplementedError, match="A4b"):
-        serve.start_rpc_ingress()
-    with pytest.raises(NotImplementedError, match="A4b"):
-        serve.ingress(object())
+    """The weights broadcast (A5) raises; it falls back to no other
+    path."""
     with pytest.raises(NotImplementedError, match="A5"):
         LLMServerImpl(device="cpu", weights_bcast={"group": "g",
                                                    "world_size": 2,
