@@ -164,6 +164,35 @@ of its checks fails:
      HTTP and over RPC from a ``num_gpus=1`` replica equals the in-process
      replica's on the card; after ``serve.shutdown()`` a ``num_gpus=1``
      actor starts within 120 s.
+ 13. dp-train (run last, with its own ``rt.init``; part (d) runs inside
+     phase 12's cluster, against its llama3_8b replica, before
+     ``serve.delete``): the collectives' group API and Train on the card.
+     (a) In a ``num_gpus=1`` actor, ``init_collective_group(1, 0,
+     backend="nccl")``: allreduce SUM, MEAN and MAX, broadcast, allgather
+     and reducescatter of a bf16 and a float32 CUDA tensor equal the
+     input bit for bit on ``cuda:0``; a ``torch.profiler`` capture of a
+     MEAN allreduce shows NCCL's one-rank kernel (an in-place SUM at world
+     1 launches none); a GPU-less NCCL group is refused, never run on
+     gloo. (b) ``TorchTrainer`` with ``ScalingConfig(num_workers=1,
+     use_gpu=True)`` and ``TorchConfig(backend="nccl",
+     distributed=True)``: gpt2_small at full size with the train phase's
+     settings, seed and batch, one warm-up and 5 timed steps, each step's
+     grads averaged by ``allreduce_coalesced`` (MEAN) on an NCCL group and
+     a ``train.report``, a checkpoint at step 3. Gates: the worker's
+     ``CUDA_VISIBLE_DEVICES`` is its card, K1, K2 and K3 each launch
+     exactly layers x steps in the worker, losses finite and going down,
+     6 reports, the checkpoint loads back to the step's params bit for
+     bit. Counted, not gated: losses equal to the train phase's. Step ms,
+     tokens/s and MFU beside the train phase's, the NCCL allreduce's ms.
+     (c) A mixed world of 2 over the host backend (rank 0 a ``num_gpus=1``
+     actor, rank 1 with no card): ``GradientAverager`` on llama_debug in
+     float32, 5 steps, each rank on half of each batch; the averaged grads
+     the same bytes on both ranks every step (rank 0 reads them back from
+     the card), losses and grad norms within ``TRAIN_PARITY_RTOL`` of one
+     process on the full batch on the card; GB/s of the average. (d) The
+     serve-app replica's ``push_weights`` to a GPU-less task that builds
+     ``LLMServerImpl(weights_bcast=...)`` on the CPU: its per-leaf sums
+     equal the replica's (291 leaves); seconds and GB/s.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Details go to
@@ -2756,6 +2785,8 @@ def _serve_app_llama3_8b(torch, rt, rt_api, serve, LLM, cls, serve_ref,
         raise AssertionError(f"streamed {streamed!r} != whole {whole!r}")
     ingress = _serve_app_ingress(rt_api, serve, h, reqs, layers, whole)
     peak = h.info.remote().result(timeout=RT_TIMEOUT)["peak_mem_gb"]
+    # phase 13 (d), against this replica: its push_weights to a new replica
+    push = _push_weights(rt, h, sums, winfo["nbytes"])
     serve.delete("llama3_8b")
     equal = _equal_greedy(first["texts"], serve_ref["texts"])
     ingress["texts_equal_serve"] = _equal_greedy(ingress.pop("texts"),
@@ -2773,7 +2804,8 @@ def _serve_app_llama3_8b(torch, rt, rt_api, serve, LLM, cls, serve_ref,
              warm=[{k: v for k, v in p.items() if k != "texts"}
                    for p in warm],
              streamed_over_whole_step=ratio, texts_equal_serve=equal,
-             ingress=ingress, peak_mem_gb=peak, texts=first["texts"])
+             ingress=ingress, peak_mem_gb=peak, push_weights=push,
+             texts=first["texts"])
     print(f"serve-app: 12 requests streamed through the handle, sent "
           f"together: {first['tokens_per_s']:.1f} tokens/s (in-process "
           f"serve {serve_ref['tokens_per_s']:.1f}, runtime ReplicaHost "
@@ -2920,6 +2952,425 @@ def _free(torch):
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------- dp-train
+
+DP_CKPT_STEP = 3          # (b) reports a checkpoint at this step (0: warm-up)
+DP_GROUP = "train_grads"
+# (c) mixed world 2: llama_debug in float32, each rank half of 4 rows
+DP_MIXED_ROWS, DP_MIXED_SEQ = 4, 48
+
+
+def _dp_gpt2_loop(config):
+    """(b), in the train worker: gpt2_small at the train phase's settings,
+    seed and batch; each step's grads averaged with ``allreduce_coalesced``
+    (MEAN) on an NCCL group, ``train.report`` every step (the host clock
+    over the step ends in the loss's read), a checkpoint at
+    ``DP_CKPT_STEP``; the flash launch counters of this process go to 0
+    before the warm-up step and are reported with the last step."""
+    import os
+    import tempfile
+
+    import torch
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch._private.device import resolve_device
+    from ray_tpu_torch.models import presets
+    from ray_tpu_torch.models.training import (OptimizerConfig,
+                                               init_train_state)
+    from ray_tpu_torch.models.transformer import (_leaves, count_params,
+                                                  loss_fn, map_params)
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.util import collective as col
+
+    resolve_device()  # TF32 off, as in the driver
+    ctx = train.get_context()
+    col.init_collective_group(ctx.get_world_size(), ctx.get_world_rank(),
+                              backend="nccl", group_name=DP_GROUP)
+    cfg = presets.gpt2_small(remat=False, ce_chunk=8192)
+    B, S = config["batch"], config["seq"]
+    state, tx = init_train_state(
+        cfg, OptimizerConfig(warmup_steps=10, decay_steps=1000), seed=0)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S), generator=g,
+                                     device="cuda")}
+    leaves = _leaves(state.params)
+    _reset_counters(fa)
+    start, stop = torch.cuda.Event(True), torch.cuda.Event(True)
+    for i in range(1 + config["steps"]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        value, m = loss_fn(cfg, state.params, batch)
+        grads = torch.autograd.grad(value, leaves)
+        start.record()
+        grads = col.allreduce_coalesced(list(grads), group_name=DP_GROUP,
+                                        op=col.ReduceOp.MEAN)
+        stop.record()
+        g_norm = tx.update(grads, state.opt_state, state.params)
+        state.step += 1
+        loss, norm = float(m["loss"].detach()), float(g_norm)
+        step_ms = (time.perf_counter() - t0) * 1e3
+        metrics = {"step": i, "loss": loss, "grad_norm": norm,
+                   "step_ms": step_ms,
+                   "allreduce_ms": start.elapsed_time(stop),
+                   "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                   "backend": col.collective._manager.get(DP_GROUP).backend}
+        if i == config["steps"]:
+            metrics.update(
+                launches={f.__name__: f.launches for f in fa.KERNELS},
+                layers=cfg.num_layers, params=count_params(state.params),
+                embed_dim=cfg.embed_dim,
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+        with tempfile.TemporaryDirectory() as d:
+            ckpt = None
+            if i == DP_CKPT_STEP:
+                torch.save(map_params(lambda _p, t: t.detach().cpu(),
+                                      state.params),
+                           os.path.join(d, "params.pt"))
+                metrics["ckpt_sums"] = _leaf_sums(torch, state.params)
+                ckpt = train.Checkpoint.from_directory(d)
+            train.report(metrics, checkpoint=ckpt)
+    col.destroy_collective_group(DP_GROUP)
+
+
+def _bytes_equal(torch, a, b) -> bool:
+    return (a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8)))
+
+
+class NcclProbe:
+    """(a), in a num_gpus=1 actor: the NCCL group at world 1."""
+
+    def run(self) -> dict:
+        import os
+
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        from ray_tpu_torch.util import collective as col
+
+        name = "nccl-world-1"
+        col.init_collective_group(1, 0, backend="nccl", group_name=name)
+        out = {"visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+               "backend": col.collective._manager.get(name).backend,
+               "ops": {}}
+        g = torch.Generator(device="cuda").manual_seed(13)
+        for dt in (torch.bfloat16, torch.float32):
+            x = torch.randn(1024, 257, generator=g, device="cuda").to(dt)
+            got = {op.value: col.allreduce(x, name, op=op) for op in (
+                col.ReduceOp.SUM, col.ReduceOp.MEAN, col.ReduceOp.MAX)}
+            got["broadcast"] = col.broadcast(x, 0, name)
+            (got["allgather"],) = col.allgather(x, name)
+            got["reducescatter"] = col.reducescatter(x, name)
+            out["ops"][str(dt).split(".")[-1]] = {
+                k: [str(t.device), t.dtype == dt, _bytes_equal(torch, t, x)]
+                for k, t in got.items()}
+        kernels = {}
+        for op in (col.ReduceOp.SUM, col.ReduceOp.MEAN):
+            x = torch.randn(1 << 20, generator=g, device="cuda")
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                col.allreduce(x, name, op=op)
+                torch.cuda.synchronize()
+            kernels[op.value] = sorted({
+                e.name for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA})
+        out["profile"] = kernels
+        col.destroy_collective_group(name)
+        return out
+
+
+def _nccl_without_a_card() -> str:
+    """A GPU-less task asks for an NCCL group: the refusal's text."""
+    from ray_tpu_torch.util import collective as col
+
+    try:
+        col.init_collective_group(1, 0, backend="nccl", group_name="nocard")
+    except col.CollectiveError as e:
+        return str(e)
+    return ""
+
+
+def _mixed_batches(torch, cfg):
+    g = torch.Generator(device="cpu").manual_seed(4)
+    return [{"tokens": torch.randint(0, cfg.vocab_size,
+                                     (DP_MIXED_ROWS, DP_MIXED_SEQ),
+                                     generator=g)}
+            for _ in range(TRAIN_STEPS)]
+
+
+def _mixed_rank(rank: int, device: str) -> dict:
+    """(c), one rank of the mixed world: llama_debug in float32 from the
+    train parity phase's seed-3 weights, this rank's half of each batch,
+    the host GradientAverager; per step the half loss, the grad norm, the
+    averaged grads' bytes (read back to the host from this rank's
+    device) and the average's host-clock seconds."""
+    import hashlib
+    import os
+
+    import torch
+
+    from ray_tpu_torch.models import presets
+    from ray_tpu_torch.models.training import init_train_state
+    from ray_tpu_torch.models.transformer import (_leaves, init_params,
+                                                  loss_fn)
+    from ray_tpu_torch.train import GradientAverager
+
+    cfg = presets.llama_debug(ce_chunk=32)
+    host = init_params(cfg, seed=3, device="cpu", param_dtype=torch.float32)
+    state, tx = init_train_state(cfg, _dp_ocfg(), device=device, params=host)
+    avg = GradientAverager(group_name="mixed", world_size=2, rank=rank)
+    half = DP_MIXED_ROWS // 2
+    out = {"visible": os.environ.get("CUDA_VISIBLE_DEVICES"), "losses": [],
+           "norms": [], "digests": [], "seconds": [], "devices": set()}
+    for b in _mixed_batches(torch, cfg):
+        part = {"tokens": b["tokens"][rank * half:(rank + 1) * half].to(
+            device)}
+        leaves = _leaves(state.params)
+        value, m = loss_fn(cfg, state.params, part)
+        grads = list(torch.autograd.grad(value, leaves))
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        grads = avg.average(grads)
+        out["seconds"].append(time.perf_counter() - t0)
+        out["devices"].update(str(t.device) for t in grads)
+        out["digests"].append(hashlib.sha256(b"".join(
+            t.cpu().numpy().tobytes() for t in grads)).hexdigest())
+        out["norms"].append(float(tx.update(grads, state.opt_state,
+                                            state.params)))
+        out["losses"].append(float(m["loss"].detach()))
+    out["bytes"] = sum(t.numel() * t.element_size() for t in leaves)
+    out["devices"] = sorted(out["devices"])
+    avg.shutdown()
+    return out
+
+
+def _dp_ocfg():
+    from ray_tpu_torch.models.training import OptimizerConfig
+
+    return OptimizerConfig(learning_rate=1e-2, warmup_steps=2, decay_steps=6)
+
+
+def _bcast_receive(group: str) -> dict:
+    """(d), a GPU-less task: an ``LLMServerImpl`` of llama3_8b on the CPU
+    made with ``weights_bcast``, its weights from the serve-app replica's
+    ``push_weights``; the per-leaf sums of its params."""
+    import os
+
+    import torch
+
+    from ray_tpu_torch import LLMServerImpl
+
+    t0 = time.perf_counter()
+    srv = LLMServerImpl(preset="llama3_8b", device="cpu", share_weights=False,
+                        scheduler="batch",
+                        weights_bcast={"group": group, "world_size": 2,
+                                       "rank": 1})
+    init_s = time.perf_counter() - t0
+    try:
+        return {"sums": _leaf_sums(torch, srv.params), "init_s": init_s,
+                "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                "mode": srv.weights_info()["mode"]}
+    finally:
+        srv.shutdown()
+
+
+def _push_weights(rt, h, sums, nbytes: int) -> dict:
+    """(d): the serve-app replica's ``push_weights`` to a GPU-less task
+    made with ``weights_bcast``; the task's per-leaf sums equal the
+    replica's. GB/s: the tree's bytes over the push's seconds."""
+    group = "llama3_8b-push"
+    recv = rt.remote(_bcast_receive).remote(group)
+    t0 = time.perf_counter()
+    h.push_weights.remote(group, 2).result(timeout=RT_TIMEOUT)
+    push_s = time.perf_counter() - t0
+    got = rt.get(recv, timeout=RT_TIMEOUT)
+    if got["visible"] != "" or got["mode"] != "local":
+        raise AssertionError(f"the broadcast's receiver: "
+                             f"CUDA_VISIBLE_DEVICES={got['visible']!r}, "
+                             f"weights {got['mode']}")
+    if got["sums"] != sums:
+        bad = [k for k in sums if got["sums"].get(k) != sums[k]]
+        raise AssertionError(f"push_weights: {len(bad)} of {len(sums)} "
+                             f"leaves differ, e.g. {bad[:3]}")
+    return {"seconds": push_s, "gb_per_s": nbytes / push_s / 1e9,
+            "bytes": nbytes, "receiver_init_s": got["init_s"],
+            "leaves": len(sums)}
+
+
+def dp_train_phase(torch, train_ref, push) -> dict:
+    """Phase 13: (a) the NCCL group at world 1 in a GPU actor; (b)
+    ``TorchTrainer`` on the card, gpt2_small, every step's grads averaged
+    over an NCCL group; (c) a mixed world of 2 (a GPU actor and a GPU-less
+    one) over the host backend against a single-process full-batch run on
+    the card. ``push`` is (d), run inside the serve-app phase."""
+    import shutil
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import presets
+    from ray_tpu_torch.models.training import (init_train_state,
+                                               make_train_step)
+    from ray_tpu_torch.models.transformer import init_params
+    from ray_tpu_torch.train import (RunConfig, ScalingConfig, TorchConfig,
+                                     TorchTrainer)
+
+    r = {"push_weights": push}
+    t_init = time.perf_counter()
+    rt.init()
+    storage = ROOT / "build" / "dp_train"
+    try:
+        r["init_s"] = time.perf_counter() - t_init
+        # ---- (a) the NCCL group at world 1
+        probe = rt.remote(NcclProbe).options(num_gpus=1).remote()
+        a = rt.get(probe.run.remote(), timeout=RT_TIMEOUT)
+        rt.kill(probe)
+        refusal = rt.get(rt.remote(_nccl_without_a_card).remote(),
+                         timeout=RT_TIMEOUT)
+        bad = [(dt, k) for dt, ops in a["ops"].items()
+               for k, (dev, same_dtype, equal) in ops.items()
+               if not (dev == "cuda:0" and same_dtype and equal)]
+        onerank = [k for k in a["profile"]["mean"] if "onerank" in k]
+        if a["visible"] != "0" or a["backend"] != "nccl" or bad:
+            raise AssertionError(f"the NCCL group at world 1: {a}")
+        if not onerank:
+            raise AssertionError(f"no NCCL kernel in the capture of a MEAN "
+                                 f"allreduce: {a['profile']}")
+        if "needs a CUDA card" not in refusal:
+            raise AssertionError(f"an NCCL group without a card: "
+                                 f"{refusal!r}")
+        r["nccl"] = dict(a, refusal=refusal, kernel=onerank[0])
+        print(f"dp-train (a): NCCL group at world 1 in a num_gpus=1 actor "
+              f"(CUDA_VISIBLE_DEVICES={a['visible']}): allreduce SUM, MEAN, "
+              f"MAX, broadcast, allgather, reducescatter on bf16 and "
+              f"float32 CUDA tensors equal the input bit for bit on cuda:0;"
+              f" a MEAN allreduce runs NCCL's one-rank kernel "
+              f"({onerank[0][:60]}...), a SUM in place no NCCL kernel "
+              f"(device events {a['profile']['sum']}); a GPU-less NCCL "
+              f"group refused", flush=True)
+        # ---- (b) TorchTrainer on the card, gpt2_small
+        shutil.rmtree(storage, ignore_errors=True)
+        ref = train_ref["gpt2_small"]
+        t0 = time.perf_counter()
+        res = TorchTrainer(
+            _dp_gpt2_loop,
+            train_loop_config={"batch": ref["batch"], "seq": ref["seq"],
+                               "steps": TRAIN_STEPS},
+            scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
+            torch_config=TorchConfig(backend="nccl", distributed=True),
+            run_config=RunConfig(storage_path=str(storage), name="gpt2"),
+        ).fit()
+        fit_s = time.perf_counter() - t0
+        if res.error is not None:
+            raise AssertionError(f"TorchTrainer: {res.error}")
+        hist = res.metrics_history
+        last = hist[-1]
+        L, steps = last["layers"], len(hist)
+        want = {"flash_forward": L * steps, "flash_dq": L * steps,
+                "flash_dkv": L * steps}
+        losses = [m["loss"] for m in hist]
+        if len(hist) != 1 + TRAIN_STEPS:
+            raise AssertionError(f"{len(hist)} reports, expected "
+                                 f"{1 + TRAIN_STEPS}")
+        if any(m["visible"] != "0" or m["backend"] != "nccl" for m in hist):
+            raise AssertionError(f"the train worker: {hist[0]}")
+        if last["launches"] != want:
+            raise AssertionError(f"flash launches in the train worker "
+                                 f"{last['launches']}, expected {want}")
+        if not all(math.isfinite(x) for x in losses) or \
+                not losses[-1] < losses[0]:
+            raise AssertionError(f"losses {losses}")
+        with res.checkpoint.as_directory() as d:
+            loaded = torch.load(Path(d) / "params.pt")
+        if _leaf_sums(torch, loaded) != hist[DP_CKPT_STEP]["ckpt_sums"]:
+            raise AssertionError("the checkpoint does not load back to the "
+                                 "step's params bit for bit")
+        timed = hist[1:]
+        dt = sum(m["step_ms"] for m in timed) / len(timed) / 1e3
+        B, S, d = ref["batch"], ref["seq"], last["embed_dim"]
+        flops = (6 * last["params"] + 12 * L * S * d) * B * S
+        in_proc = [ref["warmup_loss"]] + ref["losses"]
+        equal = sum(a == b for a, b in zip(losses, in_proc))
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, in_proc))
+        r["trainer"] = dict(
+            fit_s=fit_s, reports=len(hist), losses=losses,
+            grad_norms=[m["grad_norm"] for m in hist],
+            step_ms=dt * 1e3, tokens_per_s=B * S / dt,
+            mfu=flops / dt / PEAK_FLOPS["bfloat16"],
+            step_ms_each=[m["step_ms"] for m in hist],
+            allreduce_ms=[m["allreduce_ms"] for m in timed],
+            launches=last["launches"], peak_mem_gb=last["peak_mem_gb"],
+            losses_equal_in_process=equal, max_rel_vs_in_process=rel,
+            checkpoint=res.checkpoint.path, params=last["params"])
+        tr = r["trainer"]
+        print(f"dp-train (b): TorchTrainer(num_workers=1, use_gpu=True, "
+              f"TorchConfig(nccl, distributed=True)), gpt2_small {L} layers,"
+              f" B{B} x S{S}: fit {fit_s:.2f} s; {len(hist)} reports; step "
+              f"{tr['step_ms']:.1f} ms (in-process {ref['step_ms']:.1f}), "
+              f"{tr['tokens_per_s']:.0f} tokens/s (in-process "
+              f"{ref['tokens_per_s']:.0f}), MFU {100 * tr['mfu']:.2f}% "
+              f"(in-process {100 * ref['mfu']:.2f}%); NCCL allreduce of the "
+              f"{last['params'] / 1e6:.1f}M-parameter float32 grads "
+              f"{min(tr['allreduce_ms']):.3f}-{max(tr['allreduce_ms']):.3f} "
+              f"ms; flash launches in the worker {last['launches']} = "
+              f"{L} x {steps}; losses {[round(x, 4) for x in losses]}, "
+              f"{equal} of {len(losses)} equal the train phase's bit for "
+              f"bit (largest relative difference {rel:.2e}); the step-"
+              f"{DP_CKPT_STEP} checkpoint loads back bit for bit", flush=True)
+        shutil.rmtree(storage, ignore_errors=True)
+        # ---- (c) a mixed world of 2 over the host backend
+        r0 = rt.remote(_mixed_rank).options(num_gpus=1).remote(0, "cuda")
+        r1 = rt.remote(_mixed_rank).remote(1, "cpu")
+        c0, c1 = rt.get([r0, r1], timeout=RT_TIMEOUT)
+        cfg = presets.llama_debug(ce_chunk=32)
+        host = init_params(cfg, seed=3, device="cpu",
+                           param_dtype=torch.float32)
+        state, tx = init_train_state(cfg, _dp_ocfg(), device="cuda",
+                                     params=host)
+        step = make_train_step(cfg, tx)
+        full = [step(state, b)[1] for b in _mixed_batches(torch, cfg)]
+        full_loss = [float(m["loss"]) for m in full]
+        full_norm = [float(m["grad_norm"]) for m in full]
+        dp_loss = [(a + b) / 2 for a, b in zip(c0["losses"], c1["losses"])]
+        rel = max(abs(a - b) / abs(b) for x, y in (
+            (dp_loss, full_loss), (c0["norms"], full_norm))
+            for a, b in zip(x, y))
+        if (c0["visible"], c1["visible"]) != ("0", "") or \
+                c0["devices"] != ["cuda:0"] or c1["devices"] != ["cpu"]:
+            raise AssertionError(f"the mixed ranks: {c0['visible']!r} "
+                                 f"{c0['devices']}, {c1['visible']!r} "
+                                 f"{c1['devices']}")
+        if c0["digests"] != c1["digests"]:
+            raise AssertionError("the averaged grads differ between the "
+                                 "ranks")
+        if not rel <= TRAIN_PARITY_RTOL:
+            raise AssertionError(f"mixed DP against one process: {dp_loss} "
+                                 f"{full_loss} {c0['norms']} {full_norm}")
+        gbs = [c0["bytes"] / s / 1e9 for s in c0["seconds"][1:]]
+        r["mixed"] = dict(losses=dp_loss, full_batch_losses=full_loss,
+                          max_rel=rel, rtol=TRAIN_PARITY_RTOL,
+                          grad_bytes=c0["bytes"],
+                          seconds_rank0=c0["seconds"],
+                          seconds_rank1=c1["seconds"], gb_per_s=gbs)
+        print(f"dp-train (c): mixed world 2 (rank 0 num_gpus=1, rank 1 no "
+              f"card), host GradientAverager, llama_debug float32, "
+              f"{TRAIN_STEPS} steps on halves of {DP_MIXED_ROWS} x "
+              f"{DP_MIXED_SEQ}: averaged grads the same bytes on both ranks "
+              f"every step; losses and grad norms against one process on "
+              f"the full batch on the card within {rel:.2e} (rtol "
+              f"{TRAIN_PARITY_RTOL:g}); the average of "
+              f"{c0['bytes'] / 1e6:.2f} MB on rank 0 "
+              f"{min(gbs):.3f}-{max(gbs):.3f} GB/s (steps 2-5)", flush=True)
+        p = push
+        print(f"dp-train (d): push_weights from the serve-app replica to a "
+              f"GPU-less weights_bcast task: {p['leaves']} leaf sums equal, "
+              f"{p['seconds']:.2f} s, {p['gb_per_s']:.2f} GB/s", flush=True)
+    finally:
+        shutil.rmtree(storage, ignore_errors=True)
+        rt.shutdown()
+    return r
+
+
 def main() -> int:
     import torch
 
@@ -2951,6 +3402,8 @@ def main() -> int:
     parity = parity_phase(torch)
     train = train_phase(torch)
     train_parity = train_parity_phase(torch)
+    dp_train = dp_train_phase(torch, train,
+                              serve_app["llama3_8b"]["push_weights"])
     main_case = kern["decode_bfloat16"]
     kernels = {"kernels": [{
         "name": "paged_attention",
@@ -3018,12 +3471,21 @@ def main() -> int:
             "bound_by": fcase[f"{key}_bound_by"],
             "library_ms": fcase[f"{key}_library_ms"],
         })
+    # the same kernels inside TorchTrainer's train worker (phase 13 (b))
+    for name in ("fwd", "dq", "dkv"):
+        base = next(k for k in kernels["kernels"]
+                    if k["name"] == f"flash_attention_{name}")
+        kernels["kernels"].append(dict(
+            base, name=f"flash_attention_{name}_train_worker",
+            launches=dp_train["trainer"]["launches"][{
+                "fwd": "flash_forward", "dq": "flash_dq",
+                "dkv": "flash_dkv"}[name]]))
     detail = {"card": card, "build": build, "kernel": kern, "flash": flash,
               "serve": serve, "spec_serve": spec_serve,
               "serve_lanes": lanes, "runtime": runtime,
               "serve_app": serve_app, "parity": parity,
               "train": train,
-              "train_parity": train_parity,
+              "train_parity": train_parity, "dp_train": dp_train,
               "seconds": time.perf_counter() - t_start}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

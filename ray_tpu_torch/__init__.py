@@ -16,7 +16,10 @@ It runs, serves and trains:
     with prefix affinity, handles, weights shared per node;
   * ``init_train_state`` and ``make_train_step`` train a model, its
     attention forward and backward through hand-written flash-attention
-    kernels on the card.
+    kernels on the card; ``ray_tpu_torch.train`` (``TorchTrainer``,
+    ``GradientAverager``) runs a data-parallel loop in the runtime's
+    workers, over ``ray_tpu_torch.util.collective``'s host and NCCL
+    groups, gang-placed by ``ray_tpu_torch.util.placement_group``.
 
 Importing the package imports the runtime only: its daemons start as
 ``python -m ray_tpu_torch._private...`` and never import torch. The model

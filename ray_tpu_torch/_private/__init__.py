@@ -38,15 +38,16 @@ Intended deltas, and nothing else:
   ``serve_affinity_skew`` and ``serve_migration_budget`` (the router and
   the scheduler read them); the data, pipeline, podracer and elastic
   knobs that nothing here reads are left out;
-- cut to ``NotImplementedError``: the DAG API (``.bind``), client
-  addresses, and the ``placement_group`` option; the collectives' group
-  API is not copied (``util/collective``);
+- cut to ``NotImplementedError``: the DAG API (``.bind``) and client
+  addresses; the ``placement_group`` option takes only a
+  ``util.placement_group.PlacementGroup`` (anything else raises
+  ``TypeError``);
 - two repairs of the copy: ``core_worker`` pins an actor-creation task's
   ref arguments until ``__init__`` ran, and ``default_worker`` holds its
   liveness-bond task so the collector cannot destroy it.
 
 Kept although nothing reaches it yet, so that the copy stays diffable
-against the reference: the controller's and supervisor's placement-group
-bundle bookkeeping (placement groups come with ROADMAP A8) and the
-compiled-graph half of ``channels`` (with the DAG API, A8).
+against the reference: the compiled-graph half of ``channels`` (with the
+DAG API, A8); its channels also carry the host collectives' shared-memory
+rounds (``util/collective/shm.py``).
 """

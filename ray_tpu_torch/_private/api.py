@@ -21,6 +21,7 @@ from ray_tpu_torch._private.core_worker import CoreWorker
 from ray_tpu_torch._private.ids import ActorID, JobID, ObjectID
 from ray_tpu_torch._private.task_spec import (
     NodeAffinityStrategy,
+    PlacementGroupStrategy,
     SchedulingStrategy,
     SpreadStrategy,
 )
@@ -676,9 +677,19 @@ def _strategy_from_options(opts: Dict[str, Any]) -> SchedulingStrategy:
             f"unknown scheduling_strategy string {strat!r}; use 'SPREAD', "
             "'RANDOM', 'DEFAULT', or a strategy object from "
             "ray_tpu_torch._private.task_spec")
-    if opts.get("placement_group") is not None:
-        raise NotImplementedError(
-            "placement groups are not ported yet (ROADMAP A8)")
+    pg = opts.get("placement_group")
+    if pg is not None:
+        from ray_tpu_torch.util.placement_group import PlacementGroup
+
+        if not isinstance(pg, PlacementGroup):
+            raise TypeError(
+                f"placement_group must be a PlacementGroup (from "
+                f"ray_tpu_torch.util.placement_group), got "
+                f"{type(pg).__name__}")
+        return PlacementGroupStrategy(
+            pg_id_hex=pg.id.hex(),
+            bundle_index=opts.get("placement_group_bundle_index", -1),
+        )
     return SchedulingStrategy()
 
 

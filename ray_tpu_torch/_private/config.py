@@ -65,12 +65,30 @@ class Config:
     # tensor-sized value would approach MAX_FRAME and stall every other
     # control RPC behind one pickled socket
     kv_max_value_bytes: int = 64 * 1024**2
-    # ---- collectives (util/collective, the ring's data plane) ----
+    # ---- collectives (util/collective, "host" backend data plane) ----
+    # data-path algorithm: "auto" picks shared-memory channels when every
+    # rank sits on one node (and the world fits the channel reader slots),
+    # else the cross-node ring; "shm"/"ring" force one; "kv" forces the
+    # controller-KV rounds (rendezvous-only baseline)
+    collective_algo: str = "auto"
     # per-frame chunk size + bounded window of in-flight chunk RPCs for
     # ring segments (the RAY_TPU_TORCH_OBJECT_TRANSFER_WINDOW pattern): tensors
     # larger than MAX_FRAME stream as many small frames
     collective_chunk_bytes: int = 4 * 1024**2
     collective_window: int = 4
+    # payload capacity of each rank's shared-memory collective channel;
+    # larger tensors stream through it in multiple seqlock rounds
+    collective_channel_bytes: int = 4 * 1024**2
+    # allreduce_coalesced packs same-dtype tensors into buckets of at
+    # most this many bytes (one collective round per bucket)
+    collective_coalesce_bytes: int = 32 * 1024**2
+    # async overlapped collectives (allreduce_coalesced_async): the
+    # per-group runner pipelines device->host bucket copies against
+    # shm/ring reduce rounds; 0 forces the synchronous coalesced path
+    collective_overlap: bool = True
+    # mover->reducer handoff depth: packed staging buckets that may sit
+    # between the copy stage and the reduce stage
+    collective_overlap_depth: int = 2
     # ---- compiled-graph channels (dag.experimental_compile) ----
     # total budget for one cross-node per-step push (chunk window +
     # commit); the commit side also waits for remote reader acks under it

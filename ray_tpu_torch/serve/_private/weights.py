@@ -17,8 +17,8 @@ bit. A rebuilt leaf aliases the shared arena range: a caller places it on
 its device with a copy (``place_params`` copies on the CPU as well), and
 never writes to it.
 
-``broadcast_params`` (new-node delivery over ``collective.broadcast``)
-needs the collective group API, which is ROADMAP A5; until then it raises.
+``broadcast_params`` delivers a tree to a replica on a new node over a host
+collective group (``collective.broadcast``), in the same raw-bytes layout.
 """
 
 from __future__ import annotations
@@ -262,9 +262,58 @@ def release(key: str) -> None:
 def broadcast_params(params: Optional[Any], group_name: str,
                      world_size: int, rank: int, *, root: int = 0,
                      timeout_ms: int = 120_000):
-    """New-node delivery of a params tree over ``collective.broadcast``:
-    not ported yet."""
-    raise NotImplementedError(
-        "serve weights broadcast needs the collective group API "
-        "(init_collective_group, broadcast), which is not ported yet "
-        "(ROADMAP A5)")
+    """Deliver a params tree to new-node replicas over
+    ``collective.broadcast`` on a host group (shm on one node, chunked p2p
+    ring across nodes; never the controller). The root passes the tree
+    (tensors on any device, or a published tree's arena views); receivers
+    pass ``None`` and get the identical tree back, bit for bit, as CPU
+    tensors. The tree travels as ``_tree_to_host`` lays it out: the
+    skeleton (each leaf's dtype, shape and index) as one pickled ``uint8``
+    broadcast, then each leaf's raw bytes as one ``uint8`` broadcast (numpy
+    has no bfloat16; the bytes need no template on the receiver).
+
+    Each participant runs in its own task/actor; the group is imperative
+    and destroyed on exit, so repeated scale-ups with fresh group names
+    never collide.
+    """
+    import pickle
+
+    from ray_tpu_torch.util import collective as col
+
+    col.init_collective_group(world_size, rank, backend="host",
+                              group_name=group_name)
+    try:
+        if rank == root:
+            if params is None:
+                raise ValueError("broadcast root must pass the params tree")
+            host = _tree_to_host(params)
+            spec = pickle.dumps(host["skeleton"])
+            col.broadcast(np.frombuffer(spec, np.uint8), src_rank=root,
+                          group_name=group_name, timeout_ms=timeout_ms)
+            for leaf in host["leaves"]:
+                col.broadcast(leaf, src_rank=root, group_name=group_name,
+                              timeout_ms=timeout_ms)
+            return tree_from_host(host)
+        spec = col.broadcast(np.empty(0, np.uint8), src_rank=root,
+                             group_name=group_name, timeout_ms=timeout_ms)
+        skeleton = pickle.loads(spec.tobytes())
+        n = len(_skeleton_leaves(skeleton))
+        leaves = [col.broadcast(np.empty(0, np.uint8), src_rank=root,
+                                group_name=group_name,
+                                timeout_ms=timeout_ms)
+                  for _ in range(n)]
+        return tree_from_host({"skeleton": skeleton, "leaves": leaves})
+    finally:
+        try:
+            col.destroy_collective_group(group_name)
+        except Exception:
+            pass
+
+
+def _skeleton_leaves(skeleton) -> list:
+    """The ``(dtype name, shape, index)`` specs of a skeleton's leaves."""
+    from ray_tpu_torch.models.transformer import map_params
+
+    specs = []
+    map_params(lambda _p, spec: specs.append(spec), skeleton)
+    return specs

@@ -53,9 +53,11 @@ result as JSON, or, with ``"stream": true``, with the text as a chunked
 ``X-Serve-Stream`` response pulled from the replica; the RPC ingress
 (``serve.start_rpc_ingress()``) takes the same request by app name.
 
-Not ported yet (ROADMAP A5): the weights broadcast to a new node
-(``weights_bcast``, ``push_weights``), which needs the collective group
-API. Both raise ``NotImplementedError``.
+Seconds-scale scale-up: a replica started with ``weights_bcast={"group",
+"world_size", "rank"[, "root"]}`` receives its weights from an existing
+replica's ``push_weights(group, world_size)`` over a host collective group
+(``serve/_private/weights.py::broadcast_params``) instead of running its
+loader.
 """
 
 from __future__ import annotations
@@ -76,10 +78,6 @@ from ray_tpu_torch.models.transformer import init_params, place_params
 from ray_tpu_torch.serve._private import weights as _weights
 from ray_tpu_torch.serve._private.continuous import ContinuousScheduler
 from ray_tpu_torch.serve._private.speculative import Drafter
-
-_A5 = ("needs the collective group API, which is not ported yet "
-       "(ROADMAP A5)")
-
 
 def _byte_tokenize(text: str, vocab_size: int) -> List[int]:
     """Byte-level toy tokenizer (every preset has vocab >= 256)."""
@@ -133,12 +131,17 @@ class LLMServerImpl:
         self._max_batch = max_batch_size
         self._cache_dtype = cache_dtype
         self._seq_counter = 0
-        if weights_bcast is not None:
-            raise NotImplementedError(
-                f"weights_bcast (receiving the weights over a broadcast) "
-                f"{_A5}")
 
         def load():
+            if weights_bcast is not None and weights_bcast.get("rank", 0) != \
+                    weights_bcast.get("root", 0):
+                # fresh node: receive the tree from an existing replica
+                # instead of running the loader
+                return _weights.broadcast_params(
+                    None, weights_bcast["group"],
+                    int(weights_bcast["world_size"]),
+                    int(weights_bcast["rank"]),
+                    root=int(weights_bcast.get("root", 0)))
             if params_loader is not None:
                 return params_loader(self.cfg)
             return init_params(self.cfg, seed=0, device=self.device)
@@ -460,9 +463,16 @@ class LLMServerImpl:
 
     def push_weights(self, group: str, world_size: int,
                      rank: int = 0) -> bool:
-        """Root side of a broadcast to replicas on new nodes: not ported
-        yet."""
-        raise NotImplementedError(f"push_weights {_A5}")
+        """Root side of seconds-scale scale-up: broadcast this replica's
+        weights to ``world_size - 1`` receivers (replicas starting with
+        ``weights_bcast={"group", "world_size", "rank"}``). The tree sent
+        is the node's shared arena copy when there is one, else the
+        replica's own params (copied off the card leaf by leaf)."""
+        params = (self._host_params if self._host_params is not None
+                  else self.params)
+        _weights.broadcast_params(params, group, world_size, rank,
+                                  root=rank)
+        return True
 
     def check_health(self) -> bool:
         if self._sched is not None and self._sched.closed:

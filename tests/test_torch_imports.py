@@ -77,3 +77,44 @@ def test_importing_the_ingress_loads_no_torch():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.strip() == "[]"
+
+
+# the collectives' group API, placement groups, air and Train
+TRAIN_MODULES = (
+    "ray_tpu_torch.util.collective",
+    "ray_tpu_torch.util.collective.collective",
+    "ray_tpu_torch.util.collective.async_work",
+    "ray_tpu_torch.util.collective.shm",
+    "ray_tpu_torch.util.placement_group", "ray_tpu_torch.air",
+    "ray_tpu_torch.air.config", "ray_tpu_torch.train",
+    "ray_tpu_torch.train.backend", "ray_tpu_torch.train.trainer",
+    "ray_tpu_torch.train._checkpoint",
+    "ray_tpu_torch.train._internal.session",
+    "ray_tpu_torch.train._internal.storage",
+    "ray_tpu_torch.train._internal.checkpoint_manager",
+    "ray_tpu_torch.train._internal.worker_group",
+    "ray_tpu_torch.train._internal.backend_executor",
+    "ray_tpu_torch.train._internal.gradients")
+
+
+def _module_file(mod: str) -> Path:
+    path = ROOT / mod.replace(".", "/")
+    return path / "__init__.py" if path.is_dir() else path.with_suffix(".py")
+
+
+@pytest.mark.parametrize("mod", TRAIN_MODULES)
+def test_train_and_collective_modules_are_checked(mod):
+    """Each module of the slice is one of the files the ast check reads."""
+    assert _module_file(mod) in FILES
+
+
+def test_importing_train_and_collectives_loads_no_jax():
+    """Importing the slice's modules, with all they pull in, leaves
+    ``jax`` and the JAX package out of ``sys.modules``."""
+    code = ("import sys\n" + "".join(f"import {m}\n" for m in TRAIN_MODULES)
+            + "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+              "('jax', 'jaxlib', 'ray_tpu')))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip() == "[]"

@@ -285,7 +285,8 @@ class TestClusterInfo:
             Counter.remote().incr.bind()
 
     def test_placement_group_option_raises(self, cluster):
-        with pytest.raises(NotImplementedError, match="A8"):
+        """The option takes a PlacementGroup; anything else raises."""
+        with pytest.raises(TypeError, match="PlacementGroup"):
             add.options(placement_group=object()).remote(1, 2)
 
 

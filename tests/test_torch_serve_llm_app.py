@@ -7,8 +7,8 @@ through the chunk pull, equal JAX's exactly (token for token); a request
 sampled at 0.8 returns all its tokens. The same texts over the port's
 ingress: HTTP through ``serve.start``'s proxy, whole and streamed, and the
 binary RPC ingress through ``ServeRpcClient.invoke``/``invoke_stream``.
-The part left for later (the weights broadcast) raises
-``NotImplementedError`` naming its ROADMAP item.
+The weights broadcast: ``push_weights`` into a ``weights_bcast`` replica,
+whose texts equal the root's.
 """
 
 import asyncio
@@ -139,22 +139,36 @@ def test_texts_over_http_and_rpc_equal_jax(cluster, jax_run):
         serve.delete("ingress")
 
 
+@rt.remote
+def _bcast_receiver(group: str):
+    """A GPU-less replica on a "new node": its weights come over the
+    broadcast (``weights_bcast``), not from its loader."""
+    srv = LLMServerImpl(device="cpu", share_weights=False,
+                        weights_bcast={"group": group, "world_size": 2,
+                                       "rank": 1}, **SERVER_KW)
+    try:
+        return [asyncio.run(srv({"prompt": p}))["text"] for p in PROMPTS]
+    finally:
+        srv.shutdown()
+
+
 def test_left_for_later_raise(cluster):
-    """The weights broadcast (A5) raises; it falls back to no other
-    path."""
-    with pytest.raises(NotImplementedError, match="A5"):
-        LLMServerImpl(device="cpu", weights_bcast={"group": "g",
-                                                   "world_size": 2,
-                                                   "rank": 1})
-    with pytest.raises(NotImplementedError, match="A5"):
-        weights.broadcast_params(None, "g", 2, 1)
+    """What was left for later, the weights broadcast, now runs: a
+    replica's ``push_weights`` feeds a ``weights_bcast`` replica in a task,
+    whose temperature-0 texts equal the root's. A root without a tree
+    raises."""
+    with pytest.raises(ValueError, match="root must pass"):
+        weights.broadcast_params(None, "g", 1, 0)
     h = serve.run(build_app("llama_debug", device="cpu", share_weights=False,
                             **SERVER_KW), name="nb", route_prefix="/nb",
                   timeout_s=120)
     try:
         assert h.weights_info.remote().result(timeout=TIMEOUT) == {
             "mode": "local", "shared": False}
-        with pytest.raises(rt.TaskError, match="A5"):
-            h.push_weights.remote("g", 2).result(timeout=TIMEOUT)
+        root = [h.remote({"prompt": p}).result(timeout=TIMEOUT)["text"]
+                for p in PROMPTS]
+        texts = _bcast_receiver.remote("nb-bcast")
+        assert h.push_weights.remote("nb-bcast", 2).result(timeout=TIMEOUT)
+        assert rt.get(texts, timeout=TIMEOUT) == root
     finally:
         serve.delete("nb")
