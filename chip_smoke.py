@@ -193,6 +193,41 @@ of its checks fails:
      serve-app replica's ``push_weights`` to a GPU-less task that builds
      ``LLMServerImpl(weights_bcast=...)`` on the CPU: its per-leaf sums
      equal the replica's (291 leaves); seconds and GB/s.
+ 14. pipeline (run after phase 13, with its own ``rt.init``): pipeline
+     and tensor-parallel training. (a) Emulated tp2 on the card:
+     gpt2_small (untied, ``remat=False``, ``ce_chunk=8192``) at full width
+     and all 12 layers in 2 chunks with ``tensor_parallel=2``, the two
+     ranks on two threads of this process (``emulate_tp``, the barrier
+     reducer), B2 x S1024. Gates: each rank's loss within ``TP_LOSS_RTOL``
+     (relative) of the fused ``loss_fn`` on the card; the grads
+     reassembled with ``reassemble_pipeline_params`` within
+     ``TP_GRAD_RTOL`` relative L2 of the fused grads, all leaves
+     together, and each leaf within ``TP_LEAF_RTOL`` (bf16: the partial
+     sums are rounded to bf16 before the reduce, the fused matmul once);
+     the same grads 2% off must be refused; K1, K2 and K3
+     exactly 12 launches per rank (one forward and one backward per
+     block), counted per thread. (b) ``PipelineTrainer`` over two stages:
+     gpt2_small at full width (d 768, 12 heads, vocab 50257), untied,
+     ``remat=False``, 4 layers, ``stage_options=[{"num_gpus": 0},
+     {"num_gpus": 1}]`` (the embedding and 2 blocks on the CPU, then 2
+     blocks, the head and the loss on the card), M=4 microbatches of 2 x
+     1024, SGD, 1 warm and 3 timed steps, ``buffer_bytes`` holding a
+     3 MiB bf16 activation. Gates: the losses within
+     ``TRAIN_PARITY_RTOL`` of the same chunk math run in this process on
+     the same devices (bit-equal steps counted), finite; the card stage's
+     K1, K2 and K3 launches over the timed steps exactly blocks x M x
+     steps each (the last chunk runs K1 once per block per microbatch:
+     its forward and backward are one pass; a non-last chunk would run
+     it twice, forward and recompute; K2 and K3 once per block), read
+     from the stage's flush reports; the card stage's device ``cuda:0``,
+     stage 0's ``cpu``. Counted, not gated: the gap to the fused model in
+     one process on the card, step ms, tokens/s, each stage's bubble
+     fraction and the rpc-call deltas of its reports (0 in steady
+     flushes). (c) llama_debug in float32, S=2, the same placement, M=2
+     of 2 x 48, 3 steps: losses within ``TRAIN_PARITY_RTOL`` of the
+     fused model in one process on the CPU; the card stage's K1 twice per
+     block and microbatch (llama_debug runs under remat, which runs the
+     block again in the backward), K2 and K3 once.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Details go to
@@ -3371,6 +3406,369 @@ def dp_train_phase(torch, train_ref, push) -> dict:
     return r
 
 
+# ------------------------------------------------------------- pipeline
+
+PIPE_M = 4                 # (b) microbatches per step
+PIPE_ROWS, PIPE_SEQ = 2, 1024
+PIPE_LAYERS = 4            # (b) depth cut from 12: stage 0 runs on the CPU
+PIPE_STEPS = 3             # (b) timed steps, after one warm-up step
+PIPE_LR = 0.01
+PIPE_BUFFER = 4 * 2 ** 20  # channel slots: a 3 MiB bf16 activation + header
+PIPE_OPTIONS = [{"num_gpus": 0}, {"num_gpus": 1}]
+# (a), bf16, tp2 against the fused model on the card: the loss, relative;
+# the grads, relative L2 over all leaves together (a gradient 2% off must
+# be refused) and of each leaf alone (a leaf's bf16 noise is larger than
+# the whole's)
+TP_LOSS_RTOL = 2.0 ** -7
+TP_GRAD_RTOL = 0.015
+TP_LEAF_RTOL = 0.05
+
+
+def _rel_l2(torch, pairs, scale=1.0) -> float:
+    """Relative L2 of the ``got`` tensors (times ``scale``) against the
+    ``ref`` ones, over all the (got, ref) ``pairs`` together."""
+    num = sum(float(torch.sum((g.double() * scale - r.double()) ** 2))
+              for g, r in pairs)
+    den = sum(float(torch.sum(r.double() ** 2)) for _, r in pairs)
+    return math.sqrt(num / max(den, 1e-300))
+
+
+def _flat_params(tree) -> dict:
+    from ray_tpu_torch.models.transformer import map_params
+
+    out = {}
+    map_params(lambda p, t: out.__setitem__(p, t), tree)
+    return out
+
+
+def _tp2_emulated(torch) -> dict:
+    """(a): gpt2_small in 2 chunks x tensor_parallel=2, both ranks on
+    threads of this process on the card, against the fused model."""
+    import dataclasses
+    import threading
+    from collections import Counter
+
+    from ray_tpu_torch import presets
+    from ray_tpu_torch.models import transformer as T
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.util.collective import emulate_tp
+
+    cfg = presets.gpt2_small(tie_embeddings=False, remat=False,
+                             ce_chunk=8192)
+    full = T.init_params(cfg, 0, "cpu", cfg.param_dtype)
+    g = torch.Generator(device="cpu").manual_seed(7)
+    tokens = torch.randint(0, cfg.vocab_size, (PIPE_ROWS, PIPE_SEQ),
+                           generator=g).cuda()
+    params = T.map_params(lambda _p, t: t.cuda().requires_grad_(True), full)
+    leaves = T._leaves(params)
+    ref_loss, _ = T.loss_fn(cfg, params, {"tokens": tokens})
+    ref = dict(zip(_flat_params(params), torch.autograd.grad(ref_loss,
+                                                             leaves)))
+    ref_loss = float(ref_loss.detach())
+    # for the record: the fused bf16 grads' own distance from float32
+    f32 = dataclasses.replace(cfg, dtype=torch.float32)
+    f32_loss, _ = T.loss_fn(f32, params, {"tokens": tokens})
+    f32_grads = torch.autograd.grad(f32_loss, leaves)
+    bf16_vs_f32 = _rel_l2(torch, list(zip(ref.values(), f32_grads)))
+    del params, leaves, f32_grads
+    shards = presets.partition_pipeline_params(cfg, full, 2,
+                                               tensor_parallel=2)
+    defs = presets.pipeline_stage_defs(cfg, 2, seed=0, tensor_parallel=2)
+    # each wrapper is swapped for a pass-through that tallies its calls by
+    # thread (= tp rank); a wrapper counts its launches on the name it
+    # finds in its module, so the pass-through carries the count meanwhile
+    tally, lock = Counter(), threading.Lock()
+    originals = {f.__name__: f for f in fa.KERNELS}
+
+    def counted(f):
+        def wrapper(*a, **k):
+            with lock:
+                tally[(threading.current_thread().name, f.__name__)] += 1
+            return f(*a, **k)
+        wrapper.launches = 0
+        return wrapper
+
+    def rank(r, ops):
+        sh = [T.map_params(lambda _p, t: t.cuda().requires_grad_(True),
+                           shards[c][r]) for c in range(2)]
+        out = defs[0]["fwd"](sh[0], tokens, tp_ops=ops)
+        x = out[0] + ops.g(out[1]) if defs[0]["tp_tail"] else out
+        loss = defs[1]["loss"](sh[1], x, tokens, tp_ops=ops)
+        grads = iter(torch.autograd.grad(
+            loss, T._leaves(sh[0]) + T._leaves(sh[1])))
+        torch.cuda.synchronize()
+        return float(loss.detach()), [
+            T.map_params(lambda _p, _t: next(grads), s) for s in sh]
+
+    passes = {name: counted(f) for name, f in originals.items()}
+    for name, w in passes.items():
+        setattr(fa, name, w)
+    try:
+        t0 = time.perf_counter()
+        ranks = emulate_tp(2, rank)
+        wall = time.perf_counter() - t0
+    finally:
+        for name, f in originals.items():
+            setattr(fa, name, f)
+    got = _flat_params(presets.reassemble_pipeline_params(
+        cfg, [[ranks[t][1][c] for t in range(2)] for c in range(2)], 2,
+        tensor_parallel=2))
+    pairs = [(got[k], ref[k]) for k in ref]
+    errs = {k: _rel_l2(torch, [(got[k], ref[k])]) for k in ref}
+    whole = _rel_l2(torch, pairs)
+    bumped = _rel_l2(torch, pairs, scale=1.02)
+    loss_rel = [abs(l - ref_loss) / ref_loss for l, _ in ranks]
+    per_rank = {r: {n: tally[(f"tp-rank-{r}", n)] for n in originals}
+                for r in range(2)}
+    want = {n: cfg.num_layers for n in originals}
+    total = {name: w.launches for name, w in passes.items()}
+    worst = max(errs, key=errs.get)
+    r = dict(layers=cfg.num_layers, batch=PIPE_ROWS, seq=PIPE_SEQ,
+             losses=[l for l, _ in ranks], fused_loss=ref_loss,
+             loss_rel=loss_rel, loss_rtol=TP_LOSS_RTOL,
+             grad_rel_l2=whole, grad_rtol=TP_GRAD_RTOL,
+             fused_bf16_vs_float32_rel_l2=bf16_vs_f32,
+             grad_2pct_off_rel_l2=bumped, leaf_max_rel_l2=errs[worst],
+             leaf_worst=worst, leaf_rtol=TP_LEAF_RTOL, leaves=len(errs),
+             leaf_rel_l2=errs, launches_per_rank=per_rank,
+             launches_total=total, wall_s=wall)
+    print(f"pipeline (a): emulated tp2 on the card, gpt2_small "
+          f"{cfg.num_layers} layers in 2 chunks, B{PIPE_ROWS} x "
+          f"S{PIPE_SEQ}, 2 rank threads: "
+          f"losses {[round(l, 5) for l, _ in ranks]} against the fused "
+          f"{ref_loss:.5f} (relative {max(loss_rel):.2e}, rtol "
+          f"{TP_LOSS_RTOL:g}); reassembled grads within {whole:.2e} "
+          f"relative L2 of the fused (rtol {TP_GRAD_RTOL:g}; the grads 2% "
+          f"off: {bumped:.2e}, refused; the fused bf16 grads are "
+          f"{bf16_vs_f32:.2e} from float32), each of {len(errs)} leaves "
+          f"within {errs[worst]:.2e} ({worst}; rtol {TP_LEAF_RTOL:g}); flash "
+          f"launches per rank {per_rank}; {wall:.2f} s", flush=True)
+    if per_rank[0] != want or per_rank[1] != want or \
+            total != {n: 2 * v for n, v in want.items()}:
+        raise AssertionError(f"(a) flash launches per rank {per_rank}, in "
+                             f"all {total}, expected {want} per rank")
+    if not max(loss_rel) <= TP_LOSS_RTOL:
+        raise AssertionError(f"(a) tp2 losses {ranks[0][0]} "
+                             f"{ranks[1][0]} against {ref_loss}")
+    if not (whole <= TP_GRAD_RTOL < bumped and errs[worst] <= TP_LEAF_RTOL):
+        raise AssertionError(f"(a) tp2 grads: {whole:.3e} (2% off "
+                             f"{bumped:.3e}), {worst} {errs[worst]:.3e}")
+    return r
+
+
+def _pipe_batch(torch, cfg, M, rows, seq, seed):
+    import numpy as np
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    return torch.randint(0, cfg.vocab_size, (M * rows, seq),
+                         generator=g).numpy().astype(np.int32)
+
+
+def _pipe_in_process(cfg, batch, M, steps, lr, devices):
+    """The trainer's chunk math in this process, stage 0 and stage 1 on
+    ``devices``: per microbatch stage 0's forward, stage 1's loss and
+    backward, stage 0's backward, through the same CPU wire values as
+    the channels; then each stage's flush. Returns the step losses."""
+    from ray_tpu_torch import presets
+    from ray_tpu_torch.train._internal import pipeline as pl
+
+    defs = presets.pipeline_stage_defs(cfg, 2, seed=0)
+    stages = [pl._StageRuntime([pl._as_stage_spec(defs[s])], s, 2, 1, M,
+                               ("sgd", lr), 1, 0, f"in-process-{s}",
+                               device=dev)
+              for s, dev in enumerate(devices)]
+    mb = batch.shape[0] // M
+    losses = []
+    for _ in range(steps):
+        for m in range(M):
+            toks = batch[m * mb:(m + 1) * mb]
+            y = pl._to_wire(stages[0].forward(0, m, toks))
+            _, gx = stages[1].loss_backward(0, y, toks)
+            stages[0].backward(0, m, pl._to_wire(gx))
+        stages[0].flush()
+        st = stages[1].flush()
+        losses.append(st["loss_sum"] / st["microbatches"])
+    return losses
+
+
+def _pipe_fused(torch, cfg, batch, M, steps, lr, device):
+    """The fused model in one process on ``device``: per step the M
+    microbatches' grads summed in order, divided by M, SGD."""
+    from ray_tpu_torch.models import transformer as T
+    from ray_tpu_torch.models.training import SGD
+
+    params = T.map_params(
+        lambda _p, t: t.to(device).requires_grad_(True),
+        T.init_params(cfg, 0, "cpu", cfg.param_dtype))
+    leaves = T._leaves(params)
+    opt, mb, out = SGD(lr), batch.shape[0] // M, []
+    for _ in range(steps):
+        acc, ls = None, []
+        for m in range(M):
+            toks = torch.from_numpy(batch[m * mb:(m + 1) * mb]).to(device)
+            loss, _ = T.loss_fn(cfg, params, {"tokens": toks})
+            gs = torch.autograd.grad(loss, leaves)
+            ls.append(float(loss.detach()))
+            acc = list(gs) if acc is None else [a + b for a, b in
+                                               zip(acc, gs)]
+        opt.update([a / M for a in acc], None, params)
+        out.append(sum(ls) / M)
+    return out
+
+
+def _stage_launches(cfg, blocks: int, microbatches: int) -> dict:
+    """K1-K3 launches of the LAST chunk over ``microbatches``: its forward
+    and backward are one pass, so K1 runs once per block (twice under
+    remat, which runs the block again in the backward), K2 and K3 once."""
+    k1 = 2 if cfg.remat else 1
+    return {"flash_forward": k1 * blocks * microbatches,
+            "flash_dq": blocks * microbatches,
+            "flash_dkv": blocks * microbatches}
+
+
+def _check_stage_launches(got: dict, want: dict, what: str) -> None:
+    if got != want:
+        raise AssertionError(f"{what}: flash launches in the card stage "
+                             f"{got}, expected {want}")
+
+
+def _pipe_trainer_run(cfg, batch, M, steps, lr, warm=True) -> dict:
+    """``PipelineTrainer`` over two stages placed by ``PIPE_OPTIONS``:
+    the warm-up step (if ``warm``) and ``steps`` timed steps; the
+    timed steps' reports."""
+    from ray_tpu_torch import presets
+    from ray_tpu_torch.train import PipelineTrainer
+
+    t0 = time.perf_counter()
+    trainer = PipelineTrainer(
+        presets.pipeline_stage_defs(cfg, 2, seed=0), num_microbatches=M,
+        optimizer=("sgd", lr), buffer_bytes=PIPE_BUFFER,
+        stage_options=PIPE_OPTIONS)
+    build_s = time.perf_counter() - t0
+    try:
+        outs, ms = [], []
+        for i in range(steps + (1 if warm else 0)):
+            t1 = time.perf_counter()
+            outs.append(trainer.step(batch))
+            ms.append((time.perf_counter() - t1) * 1e3)
+    finally:
+        trainer.shutdown()
+    timed = outs[1:] if warm else outs
+    reps = [r for o in timed for r in o["reports"]]
+    card = [r for r in reps if r["stage"] == 1]
+    launches = {k: sum(r["kernel_launches"][k] for r in card)
+                for k in card[0]["kernel_launches"]}
+    return dict(build_s=build_s, losses=[o["loss"] for o in outs],
+                step_ms=ms, timed_step_ms=ms[1:] if warm else ms,
+                launches=launches,
+                devices={r["stage"]: r["device"] for r in reps},
+                rpc_calls=[[r["rpc_calls"] for r in o["reports"]]
+                           for o in outs],
+                bubble={s: [r["bubble_fraction"] for r in reps
+                            if r["stage"] == s] for s in (0, 1)},
+                busy_s={s: [r["flush_s"] - r["wait_s"] for r in reps
+                            if r["stage"] == s] for s in (0, 1)},
+                flush_s={s: [r["flush_s"] for r in reps
+                             if r["stage"] == s] for s in (0, 1)})
+
+
+def pipeline_phase(torch) -> dict:
+    """Phase 14: (a) emulated tp2 stage math on the card; (b)
+    ``PipelineTrainer`` over a CPU stage and a card stage, gpt2_small
+    width; (c) the same placement for llama_debug in float32 against the
+    fused model on the CPU."""
+    import math
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import presets
+
+    r = {"tp2_emulated": _tp2_emulated(torch)}
+    torch.cuda.empty_cache()
+    t_init = time.perf_counter()
+    rt.init()
+    try:
+        r["init_s"] = time.perf_counter() - t_init
+        # ---- (b) PipelineTrainer, gpt2_small width, CPU + card stages
+        cfg = presets.gpt2_small(tie_embeddings=False, remat=False,
+                                 ce_chunk=8192, num_layers=PIPE_LAYERS)
+        act = PIPE_ROWS * PIPE_SEQ * cfg.embed_dim * 2
+        if act + 64 * 1024 > PIPE_BUFFER:
+            raise AssertionError(f"a {act}-byte activation does not fit "
+                                 f"the {PIPE_BUFFER}-byte channel slots")
+        batch = _pipe_batch(torch, cfg, PIPE_M, PIPE_ROWS, PIPE_SEQ, 8)
+        b = _pipe_trainer_run(cfg, batch, PIPE_M, PIPE_STEPS, PIPE_LR)
+        (lo0, hi0), (lo1, hi1) = presets.pipeline_splits(PIPE_LAYERS, 2)
+        blocks = hi1 - lo1
+        want = _stage_launches(cfg, blocks, PIPE_M * PIPE_STEPS)
+        local = _pipe_in_process(cfg, batch, PIPE_M, PIPE_STEPS + 1,
+                                 PIPE_LR, ("cpu", "cuda"))
+        fused = _pipe_fused(torch, cfg, batch, PIPE_M, PIPE_STEPS + 1,
+                            PIPE_LR, "cuda")
+        rel = max(abs(a - c) / abs(c) for a, c in zip(b["losses"], local))
+        equal = sum(a == c for a, c in zip(b["losses"], local))
+        gap = max(abs(a - c) / abs(c) for a, c in zip(b["losses"], fused))
+        dt = sum(b["timed_step_ms"]) / len(b["timed_step_ms"]) / 1e3
+        tokens = PIPE_M * PIPE_ROWS * PIPE_SEQ
+        card_share = [busy / (ms / 1e3) for busy, ms in
+                      zip(b["busy_s"][1], b["timed_step_ms"])]
+        r["trainer"] = dict(b, layers=PIPE_LAYERS, microbatches=PIPE_M,
+                            rows=PIPE_ROWS, seq=PIPE_SEQ,
+                            in_process_losses=local, fused_losses=fused,
+                            max_rel_in_process=rel, bit_equal=equal,
+                            rtol=TRAIN_PARITY_RTOL, fused_gap=gap,
+                            tokens_per_s=tokens / dt, want_launches=want,
+                            card_busy_share=card_share)
+        print(f"pipeline (b): PipelineTrainer, gpt2_small width "
+              f"{PIPE_LAYERS} layers, stage 0 (embedding + "
+              f"{hi0 - lo0} blocks) on {b['devices'][0]}, stage 1 "
+              f"({blocks} blocks + head + loss) on {b['devices'][1]}; "
+              f"M={PIPE_M} of {PIPE_ROWS} x {PIPE_SEQ}, SGD: build "
+              f"{b['build_s']:.2f} s; losses "
+              f"{[round(x, 5) for x in b['losses']]}, {equal} of "
+              f"{len(local)} bit-equal to the same chunk math in this "
+              f"process (largest relative difference {rel:.2e}, rtol "
+              f"{TRAIN_PARITY_RTOL:g}); gap to the fused model on the card "
+              f"{gap:.2e}; step {dt * 1e3:.1f} ms "
+              f"({[round(x, 1) for x in b['timed_step_ms']]}), "
+              f"{tokens / dt:.0f} tokens/s; card stage busy "
+              f"{[round(x, 4) for x in card_share]} of each step; bubble "
+              f"stage 0 {[round(x, 4) for x in b['bubble'][0]]}, stage 1 "
+              f"{[round(x, 4) for x in b['bubble'][1]]}; rpc calls per "
+              f"report {b['rpc_calls']}; card stage flash launches "
+              f"{b['launches']}", flush=True)
+        _check_stage_launches(b["launches"], want, "(b)")
+        if b["devices"] != {0: "cpu", 1: "cuda:0"}:
+            raise AssertionError(f"(b) stage devices {b['devices']}")
+        if not all(math.isfinite(x) for x in b["losses"]) or \
+                not rel <= TRAIN_PARITY_RTOL:
+            raise AssertionError(f"(b) losses {b['losses']} against the "
+                                 f"in-process chunk math {local}")
+        torch.cuda.empty_cache()
+        # ---- (c) llama_debug, float32, the same placement
+        cfg = presets.llama_debug(ce_chunk=32)
+        batch = _pipe_batch(torch, cfg, 2, 2, 48, 9)
+        c = _pipe_trainer_run(cfg, batch, 2, 3, 0.05, warm=False)
+        cpu = _pipe_fused(torch, cfg, batch, 2, 3, 0.05, "cpu")
+        rel = max(abs(a - x) / abs(x) for a, x in zip(c["losses"], cpu))
+        lo1, hi1 = presets.pipeline_splits(cfg.num_layers, 2)[1]
+        want = _stage_launches(cfg, hi1 - lo1, 2 * 3)
+        r["llama_debug"] = dict(c, fused_cpu_losses=cpu, max_rel=rel,
+                                rtol=TRAIN_PARITY_RTOL, want_launches=want)
+        print(f"pipeline (c): llama_debug float32, stage 0 on "
+              f"{c['devices'][0]}, stage 1 on {c['devices'][1]}, 3 steps: "
+              f"losses {[round(x, 6) for x in c['losses']]} against the "
+              f"fused model on the CPU within {rel:.2e} (rtol "
+              f"{TRAIN_PARITY_RTOL:g}); card stage flash launches "
+              f"{c['launches']}", flush=True)
+        _check_stage_launches(c["launches"], want, "(c)")
+        if not rel <= TRAIN_PARITY_RTOL:
+            raise AssertionError(f"(c) losses {c['losses']} against the "
+                                 f"fused CPU model {cpu}")
+    finally:
+        rt.shutdown()
+    return r
+
+
 def main() -> int:
     import torch
 
@@ -3404,6 +3802,7 @@ def main() -> int:
     train_parity = train_parity_phase(torch)
     dp_train = dp_train_phase(torch, train,
                               serve_app["llama3_8b"]["push_weights"])
+    pipeline = pipeline_phase(torch)
     main_case = kern["decode_bfloat16"]
     kernels = {"kernels": [{
         "name": "paged_attention",
@@ -3480,12 +3879,22 @@ def main() -> int:
             launches=dp_train["trainer"]["launches"][{
                 "fwd": "flash_forward", "dq": "flash_dq",
                 "dkv": "flash_dkv"}[name]]))
+    # and inside PipelineTrainer's card stage (phase 14 (b), timed steps)
+    for name in ("fwd", "dq", "dkv"):
+        base = next(k for k in kernels["kernels"]
+                    if k["name"] == f"flash_attention_{name}")
+        kernels["kernels"].append(dict(
+            base, name=f"flash_attention_{name}_pipeline_stage",
+            launches=pipeline["trainer"]["launches"][{
+                "fwd": "flash_forward", "dq": "flash_dq",
+                "dkv": "flash_dkv"}[name]]))
     detail = {"card": card, "build": build, "kernel": kern, "flash": flash,
               "serve": serve, "spec_serve": spec_serve,
               "serve_lanes": lanes, "runtime": runtime,
               "serve_app": serve_app, "parity": parity,
               "train": train,
               "train_parity": train_parity, "dp_train": dp_train,
+              "pipeline": pipeline,
               "seconds": time.perf_counter() - t_start}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -90,9 +90,39 @@ class Config:
     # between the copy stage and the reduce stage
     collective_overlap_depth: int = 2
     # ---- compiled-graph channels (dag.experimental_compile) ----
+    # payload capacity of each mutable channel; a step whose packed
+    # value exceeds it raises (train.PipelineTrainer takes buffer_bytes=)
+    channel_buffer_bytes: int = 4 * 1024**2
+    # slot-ring depth: how many committed-but-unacked steps a channel
+    # holds before its writer blocks. 1 is the one-in-flight-step
+    # seqlock protocol; the pipeline trainer raises it (1F1B runs
+    # microbatches ahead of their consumer)
+    channel_depth: int = 1
     # total budget for one cross-node per-step push (chunk window +
     # commit); the commit side also waits for remote reader acks under it
     channel_remote_timeout_s: float = 120.0
+    # ---- pipeline-parallel training (train.PipelineTrainer) ----
+    # interleaved 1F1B virtual stages: each of the S stage actors owns
+    # this many non-contiguous model chunks (stage s owns chunks s, s+S,
+    # ...), shrinking the bubble roughly by 1/V. An explicit 0 (env or
+    # argument) RAISES at build: 0 never silently means 1
+    pipeline_virtual_stages: int = 1
+    # tensor-parallel width: each stage's chunk params are Megatron
+    # column/row-sharded over this many ranks, partial sums allreduced
+    # over per-(stage, dp-rank) collective groups. An explicit 0 RAISES
+    pipeline_tp: int = 1
+    # ---- elastic membership (util/collective/resizable.py,
+    # _private/elastic.py) ----
+    # max respawns PER SLOT over a workload's lifetime before a departure
+    # is terminal; explicit zeros are REJECTED at build (pass
+    # elastic=False for no elasticity)
+    elastic_respawn_budget: int = 3
+    # base backoff between respawn attempts on the same slot; attempt n
+    # waits backoff * 2**(n-1) seconds (capped at 30s)
+    elastic_backoff_s: float = 1.0
+    # budget for the post-resize first operation: survivor re-rendezvous
+    # at the new generation + joiner param sync over broadcast
+    elastic_resize_timeout_s: float = 120.0
     # ---- OOM defense (≈ memory_monitor.h:52) ----
     # kill the newest leased worker when host memory use crosses this
     # fraction; <= 0 disables the monitor

@@ -5,7 +5,10 @@ as numpy arrays (``jax.tree.map(np.asarray, params)``), with the blocks
 either scan-stacked (each leaf has a leading layer axis) or per-layer under
 ``"0".."L-1"``, and returns the port's params: the same names and layouts,
 the blocks as a list of per-layer dicts, float32 CPU tensors as given.
-``to_jax`` is its inverse.
+``to_jax`` is its inverse. Both take a pipeline chunk shard as well (any
+dict with ``"blocks"``, ``presets.partition_pipeline_params``'s shape), and
+``shards_from_jax``/``shards_to_jax`` carry a whole list of chunk shards,
+each chunk either one shard or a list of tensor-parallel rank shards.
 
 ``train_state_from_jax`` carries a JAX ``TrainState`` across (params, the
 optax AdamW moments ``mu``/``nu``, its count, and the step), so a run that
@@ -33,21 +36,36 @@ def _tensor(path: str, a) -> torch.Tensor:
 
 
 def from_jax(tree: Dict[str, Any]) -> Dict[str, Any]:
-    """JAX param tree of numpy arrays -> the port's param tree."""
-    tree = dict(tree)
-    blocks = tree.pop("blocks")
-    out = map_params(_tensor, tree)
+    """JAX param tree (or chunk shard) of numpy arrays -> the port's, its
+    keys in the given order."""
+    return {k: _blocks_from_jax(v) if k == "blocks"
+            else map_params(_tensor, v) for k, v in tree.items()}
+
+
+def _blocks_from_jax(blocks) -> list:
     if all(k.isdigit() for k in blocks):
-        out["blocks"] = [map_params(_tensor, blocks[str(i)])
-                         for i in range(len(blocks))]
-        return out
+        return [map_params(_tensor, blocks[str(i)])
+                for i in range(len(blocks))]
     n = len(blocks["attn"]["wq"])
 
     def layer(i):
         return map_params(lambda p, a: _tensor(p, np.asarray(a)[i]), blocks)
 
-    out["blocks"] = [layer(i) for i in range(n)]
-    return out
+    return [layer(i) for i in range(n)]
+
+
+def shards_from_jax(shards) -> list:
+    """JAX ``partition_pipeline_params`` output (numpy leaves) -> the
+    port's: per chunk one shard, or (tensor_parallel > 1) a list of rank
+    shards."""
+    return [[from_jax(s) for s in c] if isinstance(c, list)
+            else from_jax(c) for c in shards]
+
+
+def shards_to_jax(shards, stacked: bool = True) -> list:
+    """Inverse of ``shards_from_jax``."""
+    return [[to_jax(s, stacked) for s in c] if isinstance(c, list)
+            else to_jax(c, stacked) for c in shards]
 
 
 def to_jax(params: Dict[str, Any], stacked: bool = True) -> Dict[str, Any]:
@@ -56,9 +74,9 @@ def to_jax(params: Dict[str, Any], stacked: bool = True) -> Dict[str, Any]:
     def arr(_p, t):
         return t.detach().to("cpu", torch.float32).numpy()
 
-    tree = {k: map_params(arr, v) for k, v in params.items()
-            if k != "blocks"}
     blocks = [map_params(arr, b) for b in params["blocks"]]
+    tree = {k: None if k == "blocks" else map_params(arr, v)
+            for k, v in params.items()}
     if not stacked:
         tree["blocks"] = {str(i): b for i, b in enumerate(blocks)}
         return tree

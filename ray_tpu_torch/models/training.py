@@ -132,6 +132,24 @@ class AdamW:
         return g_norm
 
 
+class SGD:
+    """``optax.sgd(lr)`` without momentum, in the shape of ``AdamW``:
+    ``init(params)`` (no state) and ``update(grads, state, params)``,
+    which applies ``p + (-lr * g)`` to ``params`` in place (two roundings,
+    as optax's scale then apply_updates)."""
+
+    def __init__(self, learning_rate: float):
+        self.learning_rate = float(learning_rate)
+
+    def init(self, params) -> None:
+        return None
+
+    @torch.no_grad()
+    def update(self, grads: List[torch.Tensor], state, params) -> None:
+        torch._foreach_add_(_leaves(params),
+                            torch._foreach_mul(grads, -self.learning_rate))
+
+
 def make_optimizer(ocfg: OptimizerConfig) -> AdamW:
     return AdamW(ocfg)
 

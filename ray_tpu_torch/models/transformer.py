@@ -145,6 +145,25 @@ def init_params(cfg: TransformerConfig, seed: int = 0,
     once. With ``param_dtype`` every leaf is in that dtype (training keeps
     ``cfg.param_dtype``); without it they are placed as ``place_params``
     does, so a full-size served model never holds a float32 copy."""
+    groups = _draw_params(cfg, seed, device, param_dtype,
+                          range(cfg.num_layers), True, True)
+    params: Dict[str, Any] = {"embed": groups["embed"],
+                              "final_norm": groups["final_norm"]}
+    for key in ("pos_embed", "lm_head"):
+        if key in groups:
+            params[key] = groups[key]
+    params["blocks"] = groups["blocks"]
+    return params
+
+
+def _draw_params(cfg: TransformerConfig, seed: int, device, param_dtype,
+                 layers: range, first: bool, last: bool) -> Dict[str, Any]:
+    """``init_params``'s draws in its order (embed, pos_embed, lm_head,
+    then block by block), keeping only the blocks in ``layers`` and, with
+    ``first``, the embeddings, with ``last`` the final norm and the
+    lm_head. A dropped tensor is drawn all the same and let go at once,
+    so the kept ones are bit for bit those of ``init_params`` and the
+    whole model is never held (a pipeline stage's chunk init)."""
     if cfg.mlp == "moe" and cfg.moe_num_experts < 2:
         raise ValueError("mlp='moe' needs moe_num_experts >= 2")
     device = resolve_device(device)
@@ -156,42 +175,53 @@ def init_params(cfg: TransformerConfig, seed: int = 0,
                         cfg.head_dim, cfg.hidden_dim)
     out_std = 0.02 / math.sqrt(2 * cfg.num_layers)
 
-    def normal(shape, std=0.02):
+    def normal(shape, std=0.02, keep=True):
         t = torch.randn(shape, generator=gen, device=device,
                         dtype=torch.float32)
-        return t.mul_(std).to(weight_dtype)
+        return t.mul_(std).to(weight_dtype) if keep else None
 
     def zeros(shape):
         return torch.zeros(shape, device=device, dtype=weight_dtype)
 
-    params: Dict[str, Any] = {
-        "embed": {"table": normal((cfg.vocab_size, d))},
-        "final_norm": _norm_params(cfg, d, device, norm_dtype),
-    }
+    out: Dict[str, Any] = {}
+    table = normal((cfg.vocab_size, d), keep=first)
+    if first:
+        out["embed"] = {"table": table}
     if cfg.pos == "learned":
-        params["pos_embed"] = {"table": normal((cfg.max_seq_len, d))}
+        table = normal((cfg.max_seq_len, d), keep=first)
+        if first:
+            out["pos_embed"] = {"table": table}
     if not cfg.tie_embeddings:
-        params["lm_head"] = {"kernel": normal((d, cfg.vocab_size))}
+        kernel = normal((d, cfg.vocab_size), keep=last)
+        if last:
+            out["lm_head"] = {"kernel": kernel}
+    if last:
+        out["final_norm"] = _norm_params(cfg, d, device, norm_dtype)
     blocks = []
-    for _ in range(cfg.num_layers):
-        b = {"attn": {"wq": normal((d, h, hd)), "wk": normal((d, kvh, hd)),
-                      "wv": normal((d, kvh, hd)),
-                      "wo": normal((h, hd, d), out_std)},
-             "ln1": _norm_params(cfg, d, device, norm_dtype),
-             "ln2": _norm_params(cfg, d, device, norm_dtype)}
+    for i in range(min(cfg.num_layers, layers.stop)):
+        keep = i in layers
+        attn = {"wq": normal((d, h, hd), keep=keep),
+                "wk": normal((d, kvh, hd), keep=keep),
+                "wv": normal((d, kvh, hd), keep=keep),
+                "wo": normal((h, hd, d), out_std, keep=keep)}
         if cfg.mlp == "moe":
-            b["mlp"] = init_moe_params(gen, d, f, cfg.moe_num_experts,
-                                       dtype=weight_dtype)
+            mlp = init_moe_params(gen, d, f, cfg.moe_num_experts,
+                                  dtype=weight_dtype)
         elif cfg.mlp == "swiglu":
-            b["mlp"] = {"w_gate": normal((d, f)), "w_up": normal((d, f)),
-                        "w_down": normal((f, d), out_std)}
+            mlp = {"w_gate": normal((d, f), keep=keep),
+                   "w_up": normal((d, f), keep=keep),
+                   "w_down": normal((f, d), out_std, keep=keep)}
         else:
-            b["mlp"] = {"w_in": normal((d, f)), "b_in": zeros((f,)),
-                        "w_out": normal((f, d), out_std),
-                        "b_out": zeros((d,))}
-        blocks.append(b)
-    params["blocks"] = blocks
-    return params
+            mlp = {"w_in": normal((d, f), keep=keep), "b_in": zeros((f,)),
+                   "w_out": normal((f, d), out_std, keep=keep),
+                   "b_out": zeros((d,))}
+        if keep:
+            blocks.append({"attn": attn,
+                           "ln1": _norm_params(cfg, d, device, norm_dtype),
+                           "ln2": _norm_params(cfg, d, device, norm_dtype),
+                           "mlp": mlp})
+    out["blocks"] = blocks
+    return out
 
 
 def count_params(params) -> int:
@@ -263,8 +293,10 @@ def _rope_tables(head_dim: int, max_len: int, theta: float,
 
 def _attn(cfg: TransformerConfig, p, x, rope: Rope, positions,
           kv_cache=None):
+    """The head counts are the weights' own: a tensor-parallel rank's
+    shard holds its local heads (``_tp_attn_partial``)."""
     B, S, d = x.shape
-    H, Hkv, hd = cfg.num_heads, cfg.kv_heads, cfg.head_dim
+    H, Hkv, hd = p["wq"].shape[1], p["wk"].shape[1], cfg.head_dim
     q = (x @ _w(cfg, p["wq"]).reshape(d, H * hd)).view(B, S, H, hd)
     k = (x @ _w(cfg, p["wk"]).reshape(d, Hkv * hd)).view(B, S, Hkv, hd)
     v = (x @ _w(cfg, p["wv"]).reshape(d, Hkv * hd)).view(B, S, Hkv, hd)
@@ -302,17 +334,20 @@ def _save_dots(ctx, op, *args, **kwargs):
             else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
-def _block_fn(cfg: TransformerConfig):
-    """The block under the config's remat policy. 'full' keeps only the
-    block's inputs and runs the block again in backward (the flash forward
-    kernel with it); 'dots' keeps the matmul outputs as well."""
+def _block_fn(cfg: TransformerConfig, block=None):
+    """The block (``_block`` unless another is given, e.g. a
+    tensor-parallel one) under the config's remat policy. 'full' keeps
+    only the block's inputs and runs the block again in backward (the
+    flash forward kernel with it); 'dots' keeps the matmul outputs as
+    well."""
+    block = block or _block
     if not cfg.remat:
-        return _block
+        return block
     if cfg.remat_policy == "full":
-        return functools.partial(checkpoint, _block, use_reentrant=False)
+        return functools.partial(checkpoint, block, use_reentrant=False)
     if cfg.remat_policy == "dots":
         return functools.partial(
-            checkpoint, _block, use_reentrant=False,
+            checkpoint, block, use_reentrant=False,
             context_fn=functools.partial(create_selective_checkpoint_contexts,
                                          _save_dots))
     raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}; expected "
@@ -357,6 +392,143 @@ def forward(cfg: TransformerConfig, params, tokens: torch.Tensor, *,
         return x, aux_total
     logits = _project(cfg, params, x)
     return (logits, aux_total) if return_aux else logits
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism (Megatron column/row sharding, arXiv:1909.09756)
+#
+# Each block is cut over tp ranks: QKV / ffn-up are COLUMN-parallel (output
+# features sharded: heads for attention, ffn columns for the mlp) and the
+# attention proj / ffn-down are ROW-parallel (input features sharded), so a
+# rank's block forward needs exactly one partial-sum allreduce per sublayer:
+# the conjugate (g, f) operator pair of ``util/collective/tp.py``. Norms,
+# post-reduce biases, embeddings and the lm_head stay replicated and get
+# exact replicated grads through f's backward reduce.
+
+
+def tp_block_shard_spec(cfg: TransformerConfig) -> Dict[str, Dict[str, int]]:
+    """path -> shard axis for ONE block's sharded leaves (the port's
+    blocks are per-layer dicts; a JAX scan-stacked block adds 1 to every
+    axis). Column-parallel leaves shard their output-feature axis,
+    row-parallel leaves their input-feature axis; leaves absent from the
+    spec (norms, gelu's post-reduce b_out) are replicated."""
+    spec: Dict[str, Dict[str, int]] = {
+        "attn": {"wq": 1, "wk": 1, "wv": 1,   # (d, heads, hd): heads
+                 "wo": 0},                     # (heads, hd, d): heads
+    }
+    if cfg.mlp == "swiglu":
+        spec["mlp"] = {"w_gate": 1, "w_up": 1,  # (d, f): ffn columns
+                       "w_down": 0}             # (f, d): ffn columns
+    elif cfg.mlp == "gelu":
+        spec["mlp"] = {"w_in": 1, "b_in": 0,    # column-parallel (+ its bias)
+                       "w_out": 0}              # row-parallel (b_out: no)
+    else:
+        raise ValueError(
+            "tensor parallelism does not support cfg.mlp='moe': experts "
+            "are already expert-parallel; shard with moe_num_experts "
+            "instead, or set cfg.mlp to 'swiglu'/'gelu'")
+    return spec
+
+
+def _tp_map_block(cfg, block, fn, stacked: bool):
+    """fn(leaf, shard_axis_or_None) over one block's leaves."""
+    spec = tp_block_shard_spec(cfg)
+    off = 1 if stacked else 0
+    return {group: {name: fn(leaf, spec.get(group, {})[name] + off
+                             if name in spec.get(group, {}) else None)
+                    for name, leaf in leaves.items()}
+            for group, leaves in block.items()}
+
+
+def shard_block_params(cfg: TransformerConfig, block, tp: int, tp_rank: int,
+                       *, stacked: bool = False):
+    """Rank ``tp_rank``'s shard of one block's params: each sharded leaf a
+    contiguous copy of its slice, replicated leaves passed through as they
+    are. ``stacked``: the block carries a leading layers axis."""
+    def cut(leaf, axis):
+        if axis is None:
+            return leaf
+        k = leaf.shape[axis] // tp
+        return leaf.narrow(axis, tp_rank * k, k).clone()
+
+    return _tp_map_block(cfg, block, cut, stacked)
+
+
+def merge_tp_block_params(cfg: TransformerConfig, shards, *,
+                          stacked: bool = False):
+    """Bit-exact inverse of ``shard_block_params``: the rank shards
+    concatenated back into the fused block (replicated leaves taken from
+    rank 0)."""
+    spec = tp_block_shard_spec(cfg)
+    off = 1 if stacked else 0
+    out: Dict[str, Any] = {}
+    for group in shards[0]:
+        gspec = spec.get(group, {})
+        out[group] = {
+            name: (torch.cat([s[group][name] for s in shards],
+                             dim=gspec[name] + off)
+                   if name in gspec else shards[0][group][name])
+            for name in shards[0][group]}
+    return out
+
+
+def _tp_attn_partial(cfg, p, x, rope: Rope, positions=None):
+    """Attention over this rank's local heads; returns the PARTIAL output
+    projection (the sum over the local heads only: g completes it). On a
+    CUDA tensor the attention is the flash kernels (K1 forward, K2/K3
+    backward)."""
+    return _attn(cfg, p, x, rope, positions)
+
+
+def _tp_mlp_partial(cfg, p, x):
+    """The MLP over this rank's local ffn columns; returns the PARTIAL
+    down projection (gelu's replicated b_out is added after g, in
+    ``_tp_mlp_finish``)."""
+    if cfg.mlp == "swiglu":
+        return _mlp(cfg, p, x)[0]
+    hid = F.gelu(x @ _w(cfg, p["w_in"]) + _w(cfg, p["b_in"]),
+                 approximate="tanh")
+    return hid @ _w(cfg, p["w_out"])
+
+
+def _tp_mlp_finish(cfg, p, reduced):
+    """Post-reduce epilogue: the replicated bias (gelu) rides on the FULL
+    sum, so each rank adds it exactly once."""
+    if cfg.mlp == "gelu":
+        return reduced + _w(cfg, p["b_out"])
+    return reduced
+
+
+def _tp_block(cfg, p, x, rope: Rope, g, f):
+    """Sharded block forward, the fused ``_block``'s math: f on the norm
+    outputs (the column-parallel inputs) makes the replicated params' and
+    the residual's cotangents exact; g on the row-parallel partial sums
+    completes each sublayer's activation."""
+    a = g(_tp_attn_partial(cfg, p["attn"], f(_norm(cfg, p["ln1"], x)),
+                           rope))
+    x = x + a
+    m = _tp_mlp_finish(cfg, p["mlp"], g(_tp_mlp_partial(
+        cfg, p["mlp"], f(_norm(cfg, p["ln2"], x)))))
+    return x + m
+
+
+def _tp_block_tail(cfg, p, x, rope: Rope, g, f):
+    """Last block of a forward chunk, tail-split: returns (u,
+    mlp_partial), the full output being u + allreduce(mlp_partial). The
+    pipeline trainer issues that last reduce asynchronously and overlaps
+    it with the next microbatch's compute. Valid only without a
+    post-reduce epilogue (swiglu: ``tp_tail_supported``)."""
+    a = g(_tp_attn_partial(cfg, p["attn"], f(_norm(cfg, p["ln1"], x)),
+                           rope))
+    u = x + a
+    mp = _tp_mlp_partial(cfg, p["mlp"], f(_norm(cfg, p["ln2"], u)))
+    return u, mp
+
+
+def tp_tail_supported(cfg: TransformerConfig) -> bool:
+    """Whether forward chunks may tail-split their last block (the partial
+    sum must BE the block's residual delta: no post-reduce bias)."""
+    return cfg.mlp == "swiglu"
 
 
 def loss_fn(cfg: TransformerConfig, params, batch, *,

@@ -5,9 +5,9 @@ Counterpart: ``ray_tpu/train/__init__.py``. Public surface mirrors
 `ray.train` (`python/ray/train/__init__.py`): Checkpoint,
 ScalingConfig/RunConfig/FailureConfig/CheckpointConfig,
 report/get_checkpoint/get_context/get_dataset_shard, the data-parallel
-trainers and the gradient averager. ``TorchConfig``/``TorchTrainer`` take
-the place of ``JaxConfig``/``JaxTrainer``. The pipeline-parallel trainer
-(``PipelineTrainer``, ``StageSpec``) is not ported yet (ROADMAP A6).
+trainers, the gradient averager and the pipeline-parallel trainer
+(``PipelineTrainer``, ``StageSpec``). ``TorchConfig``/``TorchTrainer``
+take the place of ``JaxConfig``/``JaxTrainer``.
 """
 
 from ray_tpu_torch.air.config import (  # noqa: F401
@@ -26,6 +26,10 @@ from ray_tpu_torch.train._internal.session import (  # noqa: F401
 )
 from ray_tpu_torch.train._internal.gradients import (  # noqa: F401
     GradientAverager,
+)
+from ray_tpu_torch.train._internal.pipeline import (  # noqa: F401
+    PipelineTrainer,
+    StageSpec,
 )
 from ray_tpu_torch.train.backend import (  # noqa: F401
     Backend,

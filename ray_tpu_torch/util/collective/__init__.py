@@ -4,11 +4,11 @@ the chunked peer-to-peer ring across nodes) and "nccl" (a torch.distributed
 process group per collective group). Every worker registers the ring's
 frame handler at start-up.
 
-Counterpart: ``ray_tpu/util/collective/__init__.py``. Its tensor-parallel
-reduce ops (``tp``: ``TpOps``, ``make_tp_reduce_ops``, ``psum_tp_ops``)
-and elastic groups (``resizable``: ``ResizableGroup``,
-``refresh_membership``, ``sync_tree``) belong with the pipeline and
-tensor-parallel trainer and are not ported yet (ROADMAP A6)."""
+Counterpart: ``ray_tpu/util/collective/__init__.py``, with the
+tensor-parallel reduce ops (``tp``: ``TpOps``, ``make_tp_reduce_ops``,
+and ``ThreadReducer`` in place of JAX's vmap-only ``psum_tp_ops``) and the
+elastic groups (``resizable``: ``ResizableGroup``, ``refresh_membership``,
+``sync_tree``)."""
 
 from ray_tpu_torch.util.collective.async_work import CollectiveWork  # noqa: F401
 from ray_tpu_torch.util.collective.collective import (  # noqa: F401
@@ -29,6 +29,17 @@ from ray_tpu_torch.util.collective.collective import (  # noqa: F401
     reducescatter,
     send,
     synchronize,
+)
+from ray_tpu_torch.util.collective.tp import (  # noqa: F401
+    ThreadReducer,
+    emulate_tp,
+    TpOps,
+    make_tp_reduce_ops,
+)
+from ray_tpu_torch.util.collective.resizable import (  # noqa: F401
+    ResizableGroup,
+    refresh_membership,
+    sync_tree,
 )
 from ray_tpu_torch.util.collective.types import (  # noqa: F401
     Backend,

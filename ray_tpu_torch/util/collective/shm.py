@@ -206,10 +206,12 @@ class ShmGroup:
     def allreduce(self, arr, op: ReduceOp, timeout_ms: int,
                   out: Optional[np.ndarray] = None) -> np.ndarray:
         """``out=`` is the result buffer and MAY alias ``arr`` (the
-        donated/in-place form: each chunk is written to the channel
-        before peers fold into it, so clobbering the source is safe) —
-        a steady-state caller reusing one staging buffer pays zero
-        allocations here."""
+        donated/in-place form). Every rank folds the contributions in
+        rank order, ((x0 + x1) + x2) + ..., so every rank gets the same
+        bits, and those of the JAX package's rank 0. A chunk starts as
+        rank 0's contribution; where ``out`` aliases the source, a rank
+        other than 0 keeps its own chunk in a scratch copy made before
+        the chunk is overwritten (one buffer per call)."""
         self._ensure_channels()
         arr = np.asarray(arr)
         deadline = time.monotonic() + timeout_ms / 1000.0
@@ -221,6 +223,7 @@ class ShmGroup:
             if out is not src:
                 np.copyto(out.reshape(-1), src.reshape(-1))
         fold = reduce_ufunc(op)
+        aliased = self.rank != 0 and np.shares_memory(out, src)
         with _metrics.round_timer(self.algo):
             self._post_header(src, deadline)
             for p in self._others():
@@ -235,15 +238,27 @@ class ShmGroup:
             src_flat = src.reshape(-1)
             out_flat = out.reshape(-1)
             epr = self._elems_per_round(src.itemsize)
+            scratch = (np.empty(min(epr, src_flat.size), src.dtype)
+                       if aliased else None)
             for start in range(0, src_flat.size, epr):
                 stop = min(start + epr, src_flat.size)
-                self._write(
-                    memoryview(src_flat[start:stop]).cast("B"), deadline)
-                for p in self._others():
+                mine = src_flat[start:stop]
+                if scratch is not None:
+                    mine = scratch[:stop - start]
+                    np.copyto(mine, src_flat[start:stop])
+                self._write(memoryview(mine).cast("B"), deadline)
+                seg = out_flat[start:stop]
+                for p in range(self.world_size):
+                    if p == self.rank:
+                        if p:
+                            fold(seg, mine, out=seg)
+                        continue  # rank 0's chunk is already in seg
                     view = self._read(p, deadline)
                     peer = np.frombuffer(view, dtype=src.dtype)
-                    seg = out_flat[start:stop]
-                    fold(seg, peer, out=seg)
+                    if p == 0:
+                        np.copyto(seg, peer)
+                    else:
+                        fold(seg, peer, out=seg)
                     self._ack(p)
         _metrics.ops_total.inc(labels=_metrics.labels(self.algo))
         if op is ReduceOp.MEAN:

@@ -11,12 +11,14 @@ work in flight ends in ``CollectiveError``, not a hang. One case holds the
 port's host group against the JAX package's on the same inputs, both
 runtimes in this process.
 
-Tolerances: float32 sums and means of 2-3 terms rtol 1e-6 (ranks fold the
-terms in their own order); bfloat16 reductions run in float32 and round
-once, so they equal numpy's float32 result rounded to bfloat16, exactly;
-max, min, broadcast, gather, send/recv and integer ops are exact. The port
-against JAX: float32 to the same rtol 1e-6 (each folds in its own order),
-the rest exact. Every ``get`` waits at most ``TIMEOUT`` seconds.
+Tolerances: float32 sums and means of 2-3 terms rtol 1e-6 (numpy sums in
+float64; the shm group folds the terms in rank order, so its ranks agree
+bit for bit: ``tests/test_torch_shm_order.py``); bfloat16 reductions run
+in float32 and round once, so they equal numpy's float32 result rounded to
+bfloat16, exactly; max, min, broadcast, gather, send/recv and integer ops
+are exact. The port against JAX: float32 to the same rtol 1e-6 (each
+folds in its own order), the rest exact. Every ``get`` waits at most
+``TIMEOUT`` seconds.
 """
 
 import os

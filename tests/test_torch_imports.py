@@ -79,7 +79,8 @@ def test_importing_the_ingress_loads_no_torch():
     assert out.stdout.strip() == "[]"
 
 
-# the collectives' group API, placement groups, air and Train
+# the collectives' group API, placement groups, air, Train, and the
+# pipeline trainer with its tp ops and elastic groups
 TRAIN_MODULES = (
     "ray_tpu_torch.util.collective",
     "ray_tpu_torch.util.collective.collective",
@@ -94,7 +95,14 @@ TRAIN_MODULES = (
     "ray_tpu_torch.train._internal.checkpoint_manager",
     "ray_tpu_torch.train._internal.worker_group",
     "ray_tpu_torch.train._internal.backend_executor",
-    "ray_tpu_torch.train._internal.gradients")
+    "ray_tpu_torch.train._internal.gradients",
+    # the pipeline and tensor-parallel trainer and the elastic groups
+    "ray_tpu_torch.train._internal.pipeline",
+    "ray_tpu_torch.util.collective.tp",
+    "ray_tpu_torch.util.collective.resizable",
+    "ray_tpu_torch._private.elastic",
+    "ray_tpu_torch.util.scheduling_strategies",
+    "ray_tpu_torch.models.presets", "ray_tpu_torch.models.transformer")
 
 
 def _module_file(mod: str) -> Path:
