@@ -211,7 +211,7 @@ of its checks fails:
      ``remat=False``, 4 layers, ``stage_options=[{"num_gpus": 0},
      {"num_gpus": 1}]`` (the embedding and 2 blocks on the CPU, then 2
      blocks, the head and the loss on the card), M=4 microbatches of 2 x
-     1024, SGD, 1 warm and 3 timed steps, ``buffer_bytes`` holding a
+     1024, SGD, 1 warm and 2 timed steps, ``buffer_bytes`` holding a
      3 MiB bf16 activation. Gates: the losses within
      ``TRAIN_PARITY_RTOL`` of the same chunk math run in this process on
      the same devices (bit-equal steps counted), finite; the card stage's
@@ -228,8 +228,64 @@ of its checks fails:
      fused model in one process on the CPU; the card stage's K1 twice per
      block and microbatch (llama_debug runs under remat, which runs the
      block again in the backward), K2 and K3 once.
+ 15. tune (run after phase 14, with its own ``rt.init``): Tune on the
+     card, gpt2_small at full width (``remat=False``, CE chunk 8192, bf16
+     compute), params from seed 0, AdamW with no warmup, phase 13's batch
+     recipe at B8 x S1024. (a) ASHA (max_t 6, grace 2, rf 2, metric loss,
+     min) over ``with_resources(fn, {"CPU": 1, "GPU": 1})`` at 12 layers,
+     lr 3e-3, 1e-4 (the stronger first: one trial at a time,
+     ``max_concurrent_trials=1``), one step and one report per
+     iteration. Gates: each trial's process sees card 0 alone
+     (``CUDA_VISIBLE_DEVICES``, ``cuda:0``); K1, K2 and K3 launch exactly
+     12 x its iterations in each trial; at least one trial stops before
+     max_t; the stop decisions equal a replay of the recorded results
+     through a fresh ``ASHAScheduler``; every trial's first loss within
+     ``TRAIN_PARITY_RTOL`` of one in-process step (bit-equal trials
+     counted). (c) ``Tuner`` over ``TorchTrainer(ScalingConfig(
+     num_workers=1, use_gpu=True))``, 12 layers, two trials over
+     ``train_loop_config.lr``, 3 steps each, gang ``[{"CPU": 1}, {"CPU":
+     1, "GPU": 1}]``, the two trials together on the node of (b) below
+     that lists the one card twice. Gates: the inner worker sees card 0;
+     K1-K3 exactly
+     12 x 3 in each inner worker; ``get_best_result()`` the lower final
+     loss; the losses within ``TRAIN_PARITY_RTOL`` of the same steps in
+     process (bit-equal steps counted). (b) PBT (perturbation interval 2)
+     over the same function at 4 layers, lr 1e-4 and 3e-3, 6 iterations,
+     a checkpoint (CPU tensors) every 2; PBT compares live trials, so the
+     two run together, on a node that lists the one card twice
+     (``CUDA_VISIBLE_DEVICES=0,0``, ``num_gpus=2``). Gates: at least one
+     exploit (a trial's rate changes); every restarted trial's params and
+     Adam moments, loaded onto ``cuda:0``, equal its checkpoint byte for
+     byte (sha256 of the card copy, of the saving trial's card copy and
+     of the file); its step counter goes on from the checkpoint's.
+     Counted: seconds per trial (start, CUDA init, setup) and step ms
+     against the in-process step and phase 13's.
+ 16. dag (run after phase 15, with its own ``rt.init``): the DAG API on
+     the card. (a) ``Learner.step.bind(prep.bind(InputNode()))``: a CPU
+     task byte-tokenizes text into a B8 x S1024 batch, a ``num_gpus=1``
+     actor runs gpt2_small's train step (12 layers, seed 0); 3 executes.
+     (b) The same chain compiled (``prep`` a CPU actor's method, a fresh
+     ``Learner``), 2 warm and 10 timed executes. Gates: the losses within
+     ``TRAIN_PARITY_RTOL`` of (a)'s (bit-equal steps counted); K1-K3
+     exactly 12 per execute in the card actor; the driver's outbound RPC
+     count unchanged over the timed executes; ``teardown()`` returns the
+     store's pins and the pin gauge to where they were. Counted: ms per
+     execute, compiled against dynamic against the in-process step. (c)
+     ``workflow.run`` of prep, a ``num_gpus=1`` task that takes the loss
+     of gpt2_small's seed-0 weights (one marker file per run), and a
+     summary that fails on this first run; then ``workflow.resume``,
+     which must take the card step's loss from its checkpoint, and a
+     second resume with every step checkpointed. Gates: the first run
+     raises, the resumed results agree bit for bit, one marker. (d) A
+     ``ray_tpu_torch.util.client.server`` process owns a cluster with the
+     card; a client process connects with ``init(address="client://...")``
+     and runs the same loss task. Gates: the loss equals (c)'s resumed
+     one bit for bit (so the card step's checkpoint held the loss a fresh
+     run computes), arrives as a CPU float32 tensor, and the client
+     process never initialized CUDA.
 
-The line before the last is ``{"kernels": [...]}``; the last is
+Before them a line gives each phase's seconds on the host clock. The
+line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Details go to
 ``chiprun_out/chip_smoke.json``.
 """
@@ -3411,7 +3467,7 @@ def dp_train_phase(torch, train_ref, push) -> dict:
 PIPE_M = 4                 # (b) microbatches per step
 PIPE_ROWS, PIPE_SEQ = 2, 1024
 PIPE_LAYERS = 4            # (b) depth cut from 12: stage 0 runs on the CPU
-PIPE_STEPS = 3             # (b) timed steps, after one warm-up step
+PIPE_STEPS = 2             # (b) timed steps, after one warm-up step
 PIPE_LR = 0.01
 PIPE_BUFFER = 4 * 2 ** 20  # channel slots: a 3 MiB bf16 activation + header
 PIPE_OPTIONS = [{"num_gpus": 0}, {"num_gpus": 1}]
@@ -3769,6 +3825,868 @@ def pipeline_phase(torch) -> dict:
     return r
 
 
+# ----------------------------------------------------------------- tune
+
+TUNE_B, TUNE_S = 8, 1024
+# (a) ASHA over the lr grid, best-first: with one trial at a time an
+# asynchronous rung only ever compares a trial with those before it, so
+# ascending rates (each later trial learning faster) would let every trial
+# through. Two rates, not four: each trial is a fresh process on the card
+# (about 20 s before its first step ends), and the run has a limit; the
+# second is still stopped at the rung at 4 iterations
+TUNE_LRS = [3e-3, 1e-4]
+TUNE_MAX_T = 6
+PBT_LAYERS, PBT_ITERS, PBT_LRS = 4, 6, [1e-4, 3e-3]
+GANG_LRS, GANG_STEPS = [1e-4, 1e-3], 3
+
+
+def _gpt2_tune_setup(torch, layers: int, lr: float):
+    """gpt2_small at full width (``layers`` deep), ``remat=False``, CE
+    chunk 8192, params from seed 0, AdamW at ``lr`` with no warmup (the
+    rate acts from the first update), the batch phase 13's recipe makes
+    (a seeded card generator), B8 x S1024."""
+    from ray_tpu_torch import presets
+    from ray_tpu_torch.models.training import (OptimizerConfig,
+                                               init_train_state,
+                                               make_train_step)
+
+    cfg = presets.gpt2_small(remat=False, ce_chunk=8192, num_layers=layers)
+    state, tx = init_train_state(
+        cfg, OptimizerConfig(learning_rate=lr, warmup_steps=0,
+                             decay_steps=1000), seed=0, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (TUNE_B, TUNE_S),
+                                     generator=g, device="cuda")}
+    return cfg, state, make_train_step(cfg, tx), batch
+
+
+def _state_leaves(state):
+    from ray_tpu_torch.models.transformer import _leaves
+
+    return (_leaves(state.params) + _leaves(state.opt_state.mu)
+            + _leaves(state.opt_state.nu))
+
+
+def _digest(torch, leaves) -> str:
+    """sha256 over the leaves' bytes, in order (wherever they live)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in leaves:
+        h.update(t.detach().contiguous().reshape(-1).view(torch.uint8)
+                 .cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _tune_trial(config):
+    """A phase 15 (a)/(b) trial, in its own process on its card:
+    ``_gpt2_tune_setup`` at the trial's depth and rate, one step and one
+    ``tune.report`` per iteration; with ``ckpt_every``, a checkpoint of
+    the params and Adam moments (CPU tensors, with a digest taken from the
+    card) every that many iterations. A trial restarted from a checkpoint
+    loads it onto its card, continues its step counter, and reports the
+    digest of what it loaded. With ``barrier``, a fresh trial first waits
+    until ``population`` trials have reached it (PBT only compares trials
+    that are live together). The flash launch counters of this process go
+    to 0 before the first step and are reported with every result."""
+    import os
+    import tempfile
+
+    import torch
+
+    from ray_tpu_torch import tune
+    from ray_tpu_torch._private.device import resolve_device
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.train import Checkpoint
+
+    t_enter = time.time()
+    t0 = time.perf_counter()
+    resolve_device("cuda")
+    torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    cuda_s = time.perf_counter() - t0
+    cfg, state, step, batch = _gpt2_tune_setup(torch, config["layers"],
+                                               config["lr"])
+    start, restored = 0, None
+    ckpt = tune.get_checkpoint()
+    if ckpt is not None:
+        with ckpt.as_directory() as d:
+            blob = torch.load(os.path.join(d, "state.pt"))
+        # the file holds CPU tensors: onto this trial's card
+        for t, saved in zip(_state_leaves(state), blob["leaves"]):
+            t.data.copy_(saved.to(t.device))
+        state.opt_state.count = state.step = start = blob["step"]
+        restored = {"from": ckpt.path, "from_step": blob["step"],
+                    "saved_digest": blob["digest"],
+                    "digest": _digest(torch, _state_leaves(state)),
+                    "device": str(_state_leaves(state)[0].device)}
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0 - cuda_s
+    if config.get("barrier") and ckpt is None:
+        os.makedirs(config["barrier"], exist_ok=True)
+        open(os.path.join(config["barrier"], str(os.getpid())), "w").close()
+        deadline = time.time() + RT_TIMEOUT
+        while len(os.listdir(config["barrier"])) < config["population"]:
+            if time.time() > deadline:
+                raise TimeoutError("the population never came up")
+            time.sleep(0.05)
+    _reset_counters(fa)
+    leaf = _state_leaves(state)[0]
+    for it in range(start + 1, config["iters"] + 1):
+        t1 = time.perf_counter()
+        state, m = step(state, batch)
+        loss = float(m["loss"])
+        metrics = {"loss": loss, "step": it, "lr": config["lr"],
+                   "t": time.time(),
+                   "step_ms": (time.perf_counter() - t1) * 1e3,
+                   "launches": {f.__name__: f.launches for f in fa.KERNELS},
+                   "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                   "device": str(leaf.device),
+                   "device_count": torch.cuda.device_count(),
+                   "layers": cfg.num_layers, "pid": os.getpid()}
+        if it == start + 1:
+            metrics.update(t_enter=t_enter, cuda_s=cuda_s, setup_s=setup_s,
+                           restored=restored)
+        every = config.get("ckpt_every")
+        if every and it % every == 0:
+            leaves = _state_leaves(state)
+            with tempfile.TemporaryDirectory() as d:
+                torch.save({"step": it, "digest": _digest(torch, leaves),
+                            "leaves": [t.detach().cpu() for t in leaves]},
+                           os.path.join(d, "state.pt"))
+                tune.report(metrics, checkpoint=Checkpoint.from_directory(d))
+        else:
+            tune.report(metrics)
+
+
+def _tune_gang_loop(config):
+    """Phase 15 (c), in ``TorchTrainer``'s worker: ``_gpt2_tune_setup`` at
+    12 layers and the trial's rate, ``GANG_STEPS`` steps, one
+    ``train.report`` each; the flash launch counters go to 0 before the
+    first step and come with the last report, beside every loss."""
+    import os
+
+    import torch
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch._private.device import resolve_device
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    resolve_device("cuda")
+    cfg, state, step, batch = _gpt2_tune_setup(torch, 12, config["lr"])
+    _reset_counters(fa)
+    losses, ms = [], []
+    for i in range(GANG_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        metrics = {"loss": losses[-1], "step": i + 1}
+        if i == GANG_STEPS - 1:
+            metrics.update(
+                losses=losses, step_ms=ms,
+                launches={f.__name__: f.launches for f in fa.KERNELS},
+                visible=os.environ.get("CUDA_VISIBLE_DEVICES"),
+                device=str(_state_leaves(state)[0].device),
+                layers=cfg.num_layers)
+        train.report(metrics)
+
+
+def _in_process_losses(torch, layers, lr, steps) -> dict:
+    """The same setup and steps in this process on the card."""
+    cfg, state, step, batch = _gpt2_tune_setup(torch, layers, lr)
+    losses, ms = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    del state, step, batch
+    torch.cuda.empty_cache()
+    return {"losses": losses, "step_ms": ms}
+
+
+def _asha_replay(grid, max_t) -> dict:
+    """Feed the recorded results, trial by trial in the order they ran
+    (one at a time), to a fresh port ``ASHAScheduler``; for each trial
+    the iteration at which it says STOP."""
+    import types
+
+    from ray_tpu_torch.tune import ASHAScheduler
+
+    s = ASHAScheduler(grace_period=2, reduction_factor=2, max_t=max_t)
+    s.set_objective("loss", "min")
+    out = {}
+    for r in grid:
+        stub = types.SimpleNamespace(trial_id=r.metrics["trial_id"],
+                                     config=r.config)
+        for m in r.metrics_history:
+            if s.on_trial_result(stub, m) == "STOP":
+                out[stub.trial_id] = m["training_iteration"]
+                break
+        s.on_trial_complete(stub, r.metrics)
+    return out
+
+
+def _check_trial_card(m, what):
+    if (m["visible"], m["device"], m["device_count"]) != ("0", "cuda:0", 1):
+        raise AssertionError(f"{what}: the trial's process sees "
+                             f"{m['visible']!r}, {m['device']}, "
+                             f"{m['device_count']} cards")
+
+
+def tune_phase(torch, train_ref, dp_ref) -> dict:
+    """Phase 15: Tune on the card. (a) ASHA over a function trainable,
+    one trial process per rate on the card; then, on a node that lists
+    the card twice, (c) ``Tuner`` over ``TorchTrainer``, the gang path,
+    and (b) PBT with checkpoints, each with its two trials sharing the
+    card."""
+    import os
+    import shutil
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.air.config import RunConfig
+    from ray_tpu_torch.train import ScalingConfig, TorchTrainer
+    from ray_tpu_torch.tune import (ASHAScheduler, PopulationBasedTraining,
+                                    TuneConfig, Tuner)
+
+    r = {}
+    storage = ROOT / "build" / "tune"
+    shutil.rmtree(storage, ignore_errors=True)
+    # in-process references: (c)'s rates, 12 layers; the first loss does
+    # not depend on the rate, and is (a)'s reference too
+    ref = {lr: _in_process_losses(torch, 12, lr, GANG_STEPS)
+           for lr in GANG_LRS}
+    first = ref[GANG_LRS[0]]["losses"][0]
+    in_ms = ref[GANG_LRS[0]]["step_ms"][1:]
+    r["in_process"] = {str(lr): v for lr, v in ref.items()}
+    t_init = time.perf_counter()
+    rt.init(num_gpus=1)
+    try:
+        r["init_s"] = time.perf_counter() - t_init
+        # ---- (a) ASHA over a function trainable, one trial at a time
+        t0 = time.time()
+        grid = Tuner(
+            tune.with_resources(_tune_trial, {"CPU": 1, "GPU": 1}),
+            param_space={"lr": tune.grid_search(TUNE_LRS), "layers": 12,
+                         "iters": TUNE_MAX_T},
+            tune_config=TuneConfig(
+                metric="loss", mode="min", max_concurrent_trials=1,
+                scheduler=ASHAScheduler(max_t=TUNE_MAX_T, grace_period=2,
+                                        reduction_factor=2)),
+            run_config=RunConfig(storage_path=str(storage), name="asha"),
+        ).fit()
+        fit_s = time.time() - t0
+        if grid.num_errors:
+            raise AssertionError(f"(a) trials failed: {grid.errors}")
+        trials, prev_end = [], t0  # one trial at a time, in grid order
+        for res in grid:
+            hist = res.metrics_history
+            last, m0 = hist[-1], hist[0]
+            for m in hist:
+                _check_trial_card(m, "(a)")
+            n = len(hist)
+            want = {"flash_forward": 12 * n, "flash_dq": 12 * n,
+                    "flash_dkv": 12 * n}
+            if last["launches"] != want:
+                raise AssertionError(f"(a) lr {res.config['lr']}: flash "
+                                     f"launches {last['launches']}, "
+                                     f"expected {want}")
+            rel = abs(m0["loss"] - first) / abs(first)
+            if not rel <= TRAIN_PARITY_RTOL:
+                raise AssertionError(f"(a) lr {res.config['lr']}: first loss "
+                                     f"{m0['loss']} against {first} in "
+                                     f"process")
+            trials.append(dict(
+                lr=res.config["lr"], iterations=n,
+                losses=[m["loss"] for m in hist], launches=last["launches"],
+                first_loss_rel=rel, first_loss_equal=m0["loss"] == first,
+                start_s=m0["t_enter"] - prev_end, cuda_s=m0["cuda_s"],
+                setup_s=m0["setup_s"],
+                step_ms=[m["step_ms"] for m in hist]))
+            prev_end = last["t"]
+        stopped = {res.metrics["trial_id"]: len(res.metrics_history)
+                   for res in grid}
+        replay = _asha_replay(grid, TUNE_MAX_T)
+        if replay != stopped:
+            raise AssertionError(f"(a) stop decisions {stopped} differ from "
+                                 f"a replay through a fresh ASHA {replay}")
+        early = [t["lr"] for t in trials if t["iterations"] < TUNE_MAX_T]
+        if not early:
+            raise AssertionError(f"(a) no trial stopped before max_t: "
+                                 f"{[t['iterations'] for t in trials]}")
+        r["asha"] = dict(trials=trials, fit_s=fit_s, stopped_early=early,
+                         first_loss_in_process=first,
+                         in_process_step_ms=in_ms,
+                         launches={k: sum(t["launches"][k] for t in trials)
+                                   for k in trials[0]["launches"]})
+        a = r["asha"]
+        bit = sum(t["first_loss_equal"] for t in trials)
+        print(f"tune (a): ASHA(max_t {TUNE_MAX_T}, grace 2, rf 2) over "
+              f"gpt2_small 12 layers B{TUNE_B} x S{TUNE_S}, lr "
+              f"{TUNE_LRS}, one trial process at a time on the card "
+              f"(CUDA_VISIBLE_DEVICES=0, cuda:0): fit {fit_s:.1f} s; "
+              f"iterations {[t['iterations'] for t in trials]}, stopped "
+              f"early lr {early}, equal to a replay through a fresh ASHA; "
+              f"flash launches 12 x iterations in every trial; first losses"
+              f" within {max(t['first_loss_rel'] for t in trials):.2e} of "
+              f"the in-process step ({bit} of {len(trials)} bit-equal); per"
+              f" trial start {[round(t['start_s'], 2) for t in trials]} s, "
+              f"CUDA init {[round(t['cuda_s'], 2) for t in trials]} s, "
+              f"setup {[round(t['setup_s'], 2) for t in trials]} s; step "
+              f"ms in the trials "
+              f"{[round(min(t['step_ms'][1:]), 1) for t in trials]} (best "
+              f"after the first), in process "
+              f"{[round(x, 1) for x in in_ms]}, phase 13 (B16) "
+              f"{train_ref['gpt2_small']['step_ms']:.1f} in process and "
+              f"{dp_ref['trainer']['step_ms']:.1f} in its train worker",
+              flush=True)
+    finally:
+        rt.shutdown()
+    # ---- (c) and (b) on a node that lists the one card twice
+    # (CUDA_VISIBLE_DEVICES=0,0 with num_gpus=2: each trial is handed
+    # "card 0", the same device): PBT compares live trials, so its two
+    # trials run together, and (c)'s two gangs run together to save a
+    # trial's start-up
+    saved = os.environ.get("CUDA_VISIBLE_DEVICES")
+    os.environ["CUDA_VISIBLE_DEVICES"] = "0,0"
+    try:
+        rt.init(num_gpus=2)
+    finally:
+        if saved is None:
+            del os.environ["CUDA_VISIBLE_DEVICES"]
+        else:
+            os.environ["CUDA_VISIBLE_DEVICES"] = saved
+    try:
+        # ---- (c) Tuner over TorchTrainer: the gang path, the two
+        # trials' gangs placed together on the card listed twice
+        t0 = time.time()
+        trainer = TorchTrainer(
+            _tune_gang_loop, train_loop_config={"lr": 0.0},
+            scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
+            run_config=RunConfig(storage_path=str(storage / "inner")))
+        tuner = Tuner(
+            trainer,
+            param_space={"train_loop_config": {
+                "lr": tune.grid_search(GANG_LRS)}},
+            tune_config=TuneConfig(metric="loss", mode="min",
+                                   max_concurrent_trials=2),
+            run_config=RunConfig(storage_path=str(storage), name="gang"))
+        gang = tuner._resolve_trainable()[2]
+        if gang != [{"CPU": 1.0}, {"CPU": 1.0, "GPU": 1.0}]:
+            raise AssertionError(f"(c) gang bundles {gang}")
+        grid = tuner.fit()
+        fit_s = time.time() - t0
+        if grid.num_errors:
+            raise AssertionError(f"(c) trials failed: {grid.errors}")
+        rows = []
+        for res in grid:
+            m, lr = res.metrics, res.config["train_loop_config"]["lr"]
+            want = {"flash_forward": 12 * GANG_STEPS,
+                    "flash_dq": 12 * GANG_STEPS,
+                    "flash_dkv": 12 * GANG_STEPS}
+            if (m["visible"], m["device"]) != ("0", "cuda:0"):
+                raise AssertionError(f"(c) the inner worker sees "
+                                     f"{m['visible']!r}, {m['device']}")
+            if m["launches"] != want:
+                raise AssertionError(f"(c) flash launches {m['launches']}, "
+                                     f"expected {want}")
+            want_l = ref[lr]["losses"]
+            rel = max(abs(a - b) / abs(b) for a, b in zip(m["losses"],
+                                                          want_l))
+            if not rel <= TRAIN_PARITY_RTOL:
+                raise AssertionError(f"(c) lr {lr}: losses {m['losses']} "
+                                     f"against {want_l} in process")
+            rows.append(dict(lr=lr, losses=m["losses"], max_rel=rel,
+                             bit_equal=sum(a == b for a, b in zip(
+                                 m["losses"], want_l)),
+                             step_ms=m["step_ms"], launches=m["launches"]))
+        best = grid.get_best_result().config["train_loop_config"]["lr"]
+        lowest = min(rows, key=lambda x: x["losses"][-1])["lr"]
+        if best != lowest:
+            raise AssertionError(f"(c) best result lr {best}, the lowest "
+                                 f"final loss lr {lowest}")
+        r["gang"] = dict(trials=rows, fit_s=fit_s, best_lr=best, gang=gang)
+        print(f"tune (c): Tuner over TorchTrainer(num_workers=1, "
+              f"use_gpu=True), gang {gang}, gpt2_small 12 layers, lr "
+              f"{GANG_LRS}, {GANG_STEPS} steps each, the two trials "
+              f"together on the card listed twice: fit {fit_s:.1f} s; the"
+              f" inner worker on card 0 (cuda:0), flash launches "
+              f"12 x {GANG_STEPS} in each; best lr {best} (the lower final"
+              f" loss); losses within "
+              f"{max(x['max_rel'] for x in rows):.2e} of the in-process "
+              f"run ({sum(x['bit_equal'] for x in rows)} of "
+              f"{GANG_STEPS * len(rows)} steps bit-equal); inner step ms "
+              f"{[[round(v, 1) for v in x['step_ms']] for x in rows]}",
+              flush=True)
+        # ---- (b) PBT with checkpoints
+        t0 = time.time()
+        grid = Tuner(
+            tune.with_resources(_tune_trial, {"CPU": 1, "GPU": 1}),
+            param_space={"lr": tune.grid_search(PBT_LRS),
+                         "layers": PBT_LAYERS, "iters": PBT_ITERS,
+                         "ckpt_every": 2, "population": len(PBT_LRS),
+                         "barrier": str(storage / "pbt_barrier")},
+            tune_config=TuneConfig(
+                metric="loss", mode="min", max_concurrent_trials=2,
+                scheduler=PopulationBasedTraining(
+                    perturbation_interval=2,
+                    hyperparam_mutations={"lr": tune.loguniform(1e-4, 3e-3)},
+                    seed=0)),
+            run_config=RunConfig(storage_path=str(storage), name="pbt"),
+        ).fit()
+        fit_s = time.time() - t0
+        if grid.num_errors:
+            raise AssertionError(f"(b) trials failed: {grid.errors}")
+        restores, exploits = [], 0
+        for res in grid:
+            lrs = [m["lr"] for m in res.metrics_history]
+            exploits += sum(a != b for a, b in zip(lrs, lrs[1:]))
+            for m in res.metrics_history:
+                _check_trial_card(m, "(b)")
+                rs = m.get("restored")
+                if rs is None:
+                    continue
+                with open(Path(rs["from"]) / "state.pt", "rb") as f:
+                    blob = torch.load(f)
+                file_digest = _digest(torch, blob["leaves"])
+                own = f"trial_{res.metrics['trial_id']}" in rs["from"]
+                restores.append(dict(
+                    trial=res.metrics["trial_id"], from_own=own,
+                    from_step=rs["from_step"], first_step=m["step"],
+                    device=rs["device"],
+                    equal=rs["digest"] == rs["saved_digest"] == file_digest))
+        if not exploits or not restores:
+            raise AssertionError(f"(b) no exploit: restores {restores}")
+        for x in restores:
+            if not x["equal"] or x["device"] != "cuda:0":
+                raise AssertionError(f"(b) a restarted trial's state on "
+                                     f"the card differs from its "
+                                     f"checkpoint: {x}")
+            if x["first_step"] != x["from_step"] + 1:
+                raise AssertionError(f"(b) the step counter does not "
+                                     f"continue from the checkpoint: {x}")
+        cross = sum(not x["from_own"] for x in restores)
+        r["pbt"] = dict(fit_s=fit_s, restores=restores, exploits=exploits,
+                        from_other_trial=cross,
+                        final={str(res.config["lr"]): res.metrics["loss"]
+                               for res in grid})
+        print(f"tune (b): PBT(perturbation_interval 2) over gpt2_small "
+              f"{PBT_LAYERS} layers, lr {PBT_LRS}, {PBT_ITERS} iterations, "
+              f"a checkpoint every 2, the two trials on the one card "
+              f"together: fit {fit_s:.1f} s; {exploits} exploit(s) (the "
+              f"rate changed), {len(restores)} restart(s) from a checkpoint"
+              f" ({cross} from the other trial's); every "
+              f"restarted trial's params and Adam moments on cuda:0 equal "
+              f"its checkpoint byte for byte (sha256), its step counter "
+              f"going on from the checkpoint's step", flush=True)
+    finally:
+        rt.shutdown()
+        shutil.rmtree(storage, ignore_errors=True)
+    return r
+
+
+# ------------------------------------------------------------------ dag
+
+DAG_WARM, DAG_TIMED = 2, 10
+DAG_DYNAMIC = 3
+CLIENT_TIMEOUT = 300
+
+
+def _dag_text(i: int) -> str:
+    """Execute i's input: TUNE_B x TUNE_S printable characters from a
+    seed."""
+    import numpy as np
+
+    rng = np.random.default_rng(100 + i)
+    return bytes(rng.integers(32, 127, TUNE_B * TUNE_S).astype(
+        np.uint8)).decode()
+
+
+def _dag_prep(text: str):
+    """Byte-tokenize the text into a [B, S] batch of token ids (CPU)."""
+    import torch
+
+    ids = torch.tensor(list(text.encode()), dtype=torch.int64)
+    return ids[:TUNE_B * TUNE_S].reshape(TUNE_B, TUNE_S)
+
+
+class DagPrep:
+    """Phase 16 (b)'s CPU stage."""
+
+    def prep(self, text):
+        return _dag_prep(text)
+
+
+class DagLearner:
+    """Phase 16's card stage: gpt2_small (12 layers) from seed 0, AdamW at
+    phase 13's settings, one train step per call on the batch it is given
+    (moved onto its card); the flash launch counters of its process go to
+    0 when it is built."""
+
+    def __init__(self):
+        import torch
+
+        from ray_tpu_torch import presets
+        from ray_tpu_torch._private.device import resolve_device
+        from ray_tpu_torch.models.training import (OptimizerConfig,
+                                                   init_train_state,
+                                                   make_train_step)
+        from ray_tpu_torch.ops import flash_attention as fa
+
+        resolve_device("cuda")
+        cfg = presets.gpt2_small(remat=False, ce_chunk=8192)
+        self.state, tx = init_train_state(
+            cfg, OptimizerConfig(warmup_steps=10, decay_steps=1000), seed=0,
+            device="cuda")
+        self.step_fn = make_train_step(cfg, tx)
+        self.torch, self.fa = torch, fa
+        _reset_counters(fa)
+
+    def step(self, tokens):
+        import os
+
+        torch = self.torch
+        t0 = time.perf_counter()
+        self.state, m = self.step_fn(self.state,
+                                     {"tokens": tokens.to("cuda")})
+        loss = float(m["loss"])
+        return {"loss": loss, "step_ms": (time.perf_counter() - t0) * 1e3,
+                "launches": {f.__name__: f.launches for f in self.fa.KERNELS},
+                "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                "device": str(_state_leaves(self.state)[0].device),
+                "cuda_initialized": torch.cuda.is_initialized()}
+
+
+def _card_loss(tokens, marker_dir):
+    """gpt2_small (12 layers) from seed 0 in bf16 on this task's card: the
+    loss of the batch, as a 0-dim float32 CUDA tensor (the object layer
+    hands it out as a CPU tensor); one marker file per run."""
+    import os
+
+    import torch
+
+    from ray_tpu_torch import presets
+    from ray_tpu_torch._private.device import resolve_device
+    from ray_tpu_torch.models.transformer import init_params, loss_fn
+
+    resolve_device("cuda")
+    open(os.path.join(marker_dir, f"{os.getpid()}-{time.time_ns()}"),
+         "w").close()
+    cfg = presets.gpt2_small(remat=False, ce_chunk=8192)
+    params = init_params(cfg, 0, "cuda", param_dtype=cfg.param_dtype)
+    with torch.no_grad():
+        _, m = loss_fn(cfg, params, {"tokens": tokens.to("cuda")})
+    return m["loss"].detach().float()
+
+
+def _wf_summary(loss, flag):
+    """The workflow's last step; it fails until ``flag`` exists, so the
+    resume that follows must load the card step's checkpoint."""
+    import math
+    import os
+
+    if not os.path.exists(flag):
+        raise RuntimeError("the summary step fails on its first run")
+    return {"loss": loss, "bits_per_token": float(loss) / math.log(2)}
+
+
+def _bits(torch, t) -> int:
+    return int(t.reshape(1).view(torch.int32)[0])
+
+
+_CLIENT_SERVER = """
+import asyncio, signal, sys
+sys.path.insert(0, {root!r})
+import ray_tpu_torch as rt
+from ray_tpu_torch.util.client.server import ClientServer
+
+async def main():
+    srv = ClientServer(None, host="127.0.0.1", port=0,
+                       init_kwargs={{"num_gpus": 1}})
+    addr = await srv.start()
+    stop = asyncio.Event()
+    asyncio.get_running_loop().add_signal_handler(signal.SIGTERM, stop.set)
+    print("READY", addr[1], flush=True)
+    await stop.wait()
+    await srv.stop()
+    await asyncio.to_thread(rt.shutdown)
+
+asyncio.run(main())
+"""
+
+_CLIENT = """
+import json, sys, time
+sys.path.insert(0, {root!r})
+import cloudpickle, torch
+import chip_smoke as c
+import ray_tpu_torch as rt
+
+cloudpickle.register_pickle_by_value(c)
+t0 = time.perf_counter()
+info = rt.init(address="client://127.0.0.1:{port}")
+tokens = c._dag_prep(c._dag_text(0))
+loss = rt.get(rt.remote(c._card_loss).options(num_gpus=1).remote(
+    tokens, {marker!r}), timeout={timeout})
+out = {{"client": info.get("client"), "type": type(loss).__name__,
+        "device": str(loss.device), "dtype": str(loss.dtype),
+        "bits": int(loss.reshape(1).view(torch.int32)[0]),
+        "loss": float(loss), "seconds": time.perf_counter() - t0,
+        "cuda_initialized": torch.cuda.is_initialized(),
+        "nodes": len(rt.nodes())}}
+rt.shutdown()
+print("RESULT " + json.dumps(out), flush=True)
+"""
+
+
+def _client_mode(marker_dir) -> dict:
+    """(d): a client server process owns a cluster with the card; a client
+    process connects through ``client://`` and runs ``_card_loss``."""
+    proc = subprocess.Popen(
+        [sys.executable, "-c", _CLIENT_SERVER.format(root=str(ROOT))],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        port, lines = None, []
+        deadline = time.time() + CLIENT_TIMEOUT
+        while time.time() < deadline:
+            line = proc.stdout.readline()
+            lines.append(line)
+            if line.startswith("READY"):
+                port = int(line.split()[1])
+                break
+            if proc.poll() is not None:
+                break
+        if port is None:
+            raise AssertionError(f"(d) the client server did not start: "
+                                 f"{''.join(lines)[-3000:]}")
+        out = subprocess.run(
+            [sys.executable, "-c", _CLIENT.format(
+                root=str(ROOT), port=port, marker=str(marker_dir),
+                timeout=CLIENT_TIMEOUT)],
+            capture_output=True, text=True, timeout=CLIENT_TIMEOUT)
+        res = [ln for ln in out.stdout.splitlines()
+               if ln.startswith("RESULT ")]
+        if out.returncode != 0 or not res:
+            raise AssertionError(f"(d) the client failed: "
+                                 f"{out.stdout[-2000:]} {out.stderr[-3000:]}")
+        return json.loads(res[0][len("RESULT "):])
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
+
+
+def _store_pins(core) -> int:
+    stats = core._run(core.clients.get(core.supervisor_addr).call(
+        "store_stats"))
+    return stats["pins_total"]
+
+
+def dag_phase(torch, tune_ref) -> dict:
+    """Phase 16: the DAG API on the card. (a) a dynamic DAG, a CPU task
+    then a card actor's train step; (b) the same chain compiled onto
+    channels; (c) a workflow with a card step, run and resumed; (d) the
+    card step from a client process through ``client://``."""
+    import gc
+    import shutil
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import workflow
+    from ray_tpu_torch._private import api
+    from ray_tpu_torch._private.core_worker import _m_pins
+    from ray_tpu_torch._private.rpc import _m_client_calls
+    from ray_tpu_torch.dag import InputNode
+
+    r = {}
+    work = ROOT / "build" / "dag"
+    shutil.rmtree(work, ignore_errors=True)
+    (work / "markers").mkdir(parents=True)
+    texts = [_dag_text(i) for i in range(DAG_WARM + DAG_TIMED)]
+    rt.init(num_gpus=1)
+    try:
+        prep_fn = rt.remote(_dag_prep)
+        learner_cls = rt.remote(DagLearner).options(num_gpus=1)
+        # ---- (a) dynamic: prep task -> Learner.step
+        learner = learner_cls.remote()
+        with InputNode() as inp:
+            dag = learner.step.bind(prep_fn.bind(inp))
+        dyn, dyn_ms = [], []
+        for i in range(DAG_DYNAMIC):
+            t0 = time.perf_counter()
+            dyn.append(rt.get(dag.execute(texts[i]), timeout=RT_TIMEOUT))
+            dyn_ms.append((time.perf_counter() - t0) * 1e3)
+        rt.kill(learner)
+        want = {k: 12 * DAG_DYNAMIC for k in
+                ("flash_forward", "flash_dq", "flash_dkv")}
+        if dyn[-1]["launches"] != want or dyn[-1]["visible"] != "0" or \
+                dyn[-1]["device"] != "cuda:0":
+            raise AssertionError(f"(a) the card actor: {dyn[-1]}")
+        r["dynamic"] = dict(losses=[x["loss"] for x in dyn],
+                            execute_ms=dyn_ms,
+                            step_ms=[x["step_ms"] for x in dyn],
+                            launches=dyn[-1]["launches"])
+        print(f"dag (a): prep.bind(InputNode()) -> Learner.step (num_gpus=1"
+              f", gpt2_small 12 layers, B{TUNE_B} x S{TUNE_S} byte tokens)"
+              f": {DAG_DYNAMIC} executes, "
+              f"{[round(x, 1) for x in dyn_ms]} ms each (the actor's step "
+              f"{[round(x['step_ms'], 1) for x in dyn]} ms); losses "
+              f"{[round(x['loss'], 5) for x in dyn]}; flash launches "
+              f"{dyn[-1]['launches']}", flush=True)
+        # ---- (b) compiled: a CPU actor's prep -> a fresh Learner
+        core = api._core
+        gc.collect()
+        time.sleep(0.5)
+        pins0, gauge0 = _store_pins(core), _m_pins.value()
+        prep = rt.remote(DagPrep).remote()
+        learner = learner_cls.remote()
+        with InputNode() as inp:
+            dag = learner.step.bind(prep.prep.bind(inp))
+        t0 = time.perf_counter()
+        compiled = dag.experimental_compile()
+        compile_s = time.perf_counter() - t0
+        if not compiled.is_channel_backed:
+            raise AssertionError("(b) the chain did not compile onto "
+                                 "channels")
+        try:
+            comp, comp_ms = [], []
+            for i in range(DAG_WARM):
+                comp.append(rt.get(compiled.execute(texts[i]),
+                                   timeout=RT_TIMEOUT))
+            gc.collect()
+            time.sleep(0.5)
+            rpc0 = _m_client_calls.total()
+            for i in range(DAG_WARM, DAG_WARM + DAG_TIMED):
+                t0 = time.perf_counter()
+                comp.append(rt.get(compiled.execute(texts[i]),
+                                   timeout=RT_TIMEOUT))
+                comp_ms.append((time.perf_counter() - t0) * 1e3)
+            rpcs = int(_m_client_calls.total() - rpc0)
+            pins_live = _store_pins(core)
+        finally:
+            compiled.teardown()
+        deadline = time.monotonic() + 15
+        while time.monotonic() < deadline and (
+                _store_pins(core) != pins0 or _m_pins.value() != gauge0):
+            time.sleep(0.2)
+        pins_after, gauge_after = _store_pins(core), _m_pins.value()
+        rt.kill(learner)
+        rt.kill(prep)
+        n = DAG_WARM + DAG_TIMED
+        want = {k: 12 * n for k in ("flash_forward", "flash_dq",
+                                    "flash_dkv")}
+        losses = [x["loss"] for x in comp]
+        rel = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                  for a, b in zip(comp, dyn))
+        equal = sum(a["loss"] == b["loss"] for a, b in zip(comp, dyn))
+        if comp[-1]["launches"] != want or comp[-1]["visible"] != "0" or \
+                comp[-1]["device"] != "cuda:0":
+            raise AssertionError(f"(b) the card actor: {comp[-1]}")
+        if not rel <= TRAIN_PARITY_RTOL or \
+                not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"(b) compiled losses {losses} against "
+                                 f"the dynamic DAG's {r['dynamic']}")
+        if rpcs != 0:
+            raise AssertionError(f"(b) {rpcs} control RPCs over "
+                                 f"{DAG_TIMED} compiled executes")
+        if not pins_live > pins0 or pins_after != pins0 or \
+                gauge_after != gauge0:
+            raise AssertionError(f"(b) channel pins {pins0} -> "
+                                 f"{pins_live} -> {pins_after}, gauge "
+                                 f"{gauge0} -> {gauge_after}")
+        step_ms = [x["step_ms"] for x in comp[DAG_WARM:]]
+        r["compiled"] = dict(
+            losses=losses, execute_ms=comp_ms, step_ms=step_ms,
+            compile_s=compile_s, launches=comp[-1]["launches"],
+            control_rpcs=rpcs, max_rel_vs_dynamic=rel, bit_equal=equal,
+            pins=[pins0, pins_live, pins_after],
+            in_process_step_ms=tune_ref["asha"]["in_process_step_ms"])
+        med = sorted(comp_ms)[len(comp_ms) // 2]
+        print(f"dag (b): the same chain compiled (prep a CPU actor's "
+              f"method, a fresh Learner): compile {compile_s:.2f} s; "
+              f"{DAG_WARM} warm + {DAG_TIMED} timed executes, median "
+              f"{med:.1f} ms ({min(comp_ms):.1f}-{max(comp_ms):.1f}), the "
+              f"actor's step {sorted(step_ms)[len(step_ms) // 2]:.1f} ms, "
+              f"against the dynamic DAG's "
+              f"{[round(x, 1) for x in dyn_ms]} ms and the in-process step"
+              f" {[round(x, 1) for x in tune_ref['asha']['in_process_step_ms']]}"
+              f" ms (phase 15); {rpcs} control RPCs over the timed "
+              f"executes; losses against the dynamic DAG's within "
+              f"{rel:.2e} ({equal} of {len(dyn)} bit-equal); flash "
+              f"launches {comp[-1]['launches']} = 12 x {n}; channel pins "
+              f"{pins0} -> {pins_live} -> {pins_after} after teardown",
+              flush=True)
+        # ---- (c) a workflow with a card step; its last step fails on
+        # the first run, so the resume loads the card step's checkpoint
+        markers = work / "markers"
+        flag = work / "summary_may_run"
+        loss_fn_node = rt.remote(_card_loss).options(num_gpus=1)
+        with InputNode() as inp:
+            wf = rt.remote(_wf_summary).bind(
+                loss_fn_node.bind(prep_fn.bind(inp), str(markers)),
+                str(flag))
+        t0 = time.perf_counter()
+        try:
+            first = workflow.run(wf, texts[0], workflow_id="card",
+                                 storage=str(work / "wf"))
+        except Exception as e:  # noqa: BLE001 - the failure is the gate
+            first = e
+        run_s = time.perf_counter() - t0
+        if not isinstance(first, Exception) or \
+                "first run" not in str(first):
+            raise AssertionError(f"(c) the first run did not fail in its "
+                                 f"summary step: {first!r}")
+        flag.touch()
+        t0 = time.perf_counter()
+        out = workflow.resume("card", storage=str(work / "wf"))
+        resume_s = time.perf_counter() - t0
+        again = workflow.resume("card", storage=str(work / "wf"))
+        n_markers = len(list(markers.iterdir()))
+        loss = out["loss"]
+        if not (torch.is_tensor(loss) and loss.device.type == "cpu"
+                and math.isfinite(float(loss))):
+            raise AssertionError(f"(c) workflow result {out}")
+        if _bits(torch, again["loss"]) != _bits(torch, loss) or \
+                again["bits_per_token"] != out["bits_per_token"]:
+            raise AssertionError(f"(c) resumed {again} != {out}")
+        if n_markers != 1:
+            raise AssertionError(f"(c) the card step ran {n_markers} times")
+        r["workflow"] = dict(loss=float(loss), run_s=run_s,
+                             resume_s=resume_s, card_runs=n_markers)
+        print(f"dag (c): workflow.run of prep -> the card's loss "
+              f"(num_gpus=1, gpt2_small 12 layers) -> summary: the summary "
+              f"failed as planned after {run_s:.2f} s; workflow.resume "
+              f"took the card step's loss from its checkpoint: loss "
+              f"{float(loss):.6f} in {resume_s:.2f} s, a second resume the "
+              f"same bit for bit, the card step run once", flush=True)
+    finally:
+        rt.shutdown()
+    # ---- (d) client mode
+    try:
+        d = _client_mode(work / "markers")
+        if d["bits"] != _bits(torch, loss):
+            raise AssertionError(f"(d) the client's loss {d['loss']} != "
+                                 f"(c)'s {float(loss)}")
+        if (d["type"], d["device"], d["dtype"]) != ("Tensor", "cpu",
+                                                    "torch.float32"):
+            raise AssertionError(f"(d) the result: {d}")
+        if d["cuda_initialized"] or not d["client"]:
+            raise AssertionError(f"(d) the client process: {d}")
+        r["client"] = d
+        print(f"dag (d): a client process through client:// (CUDA not "
+              f"initialized there) ran the card step on the server's "
+              f"cluster: loss {d['loss']:.6f}, a CPU float32 tensor equal "
+              f"to (c)'s bit for bit, {d['seconds']:.2f} s", flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return r
+
+
 def main() -> int:
     import torch
 
@@ -3784,25 +4702,38 @@ def main() -> int:
 
     resolve_device()  # TF32 off
     t_start = time.perf_counter()
+    phase_s = {}  # each phase's seconds on the host clock, for the budget
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = time.perf_counter() - t0
+        return out
+
     card = card_line()
-    build = build_phase()
-    kern = kernel_phase(torch)
-    flash = flash_kernel_phase(torch)
-    serve = serve_phase(torch)
+    build = timed("build", build_phase)
+    kern = timed("kernel", kernel_phase, torch)
+    flash = timed("flash", flash_kernel_phase, torch)
+    serve = timed("serve", serve_phase, torch)
     _free(torch)
-    spec_serve = spec_serve_phase(torch, card, serve["texts"])
+    spec_serve = timed("spec_serve", spec_serve_phase, torch, card,
+                       serve["texts"])
     _free(torch)
-    lanes = serve_lanes_phase(torch, serve["texts"])
+    lanes = timed("serve_lanes", serve_lanes_phase, torch, serve["texts"])
     _free(torch)
-    runtime = runtime_phase(torch, serve)
+    runtime = timed("runtime", runtime_phase, torch, serve)
     _free(torch)
-    serve_app = serve_app_phase(torch, serve, runtime)
-    parity = parity_phase(torch)
-    train = train_phase(torch)
-    train_parity = train_parity_phase(torch)
-    dp_train = dp_train_phase(torch, train,
-                              serve_app["llama3_8b"]["push_weights"])
-    pipeline = pipeline_phase(torch)
+    serve_app = timed("serve_app", serve_app_phase, torch, serve, runtime)
+    parity = timed("parity", parity_phase, torch)
+    train = timed("train", train_phase, torch)
+    train_parity = timed("train_parity", train_parity_phase, torch)
+    dp_train = timed("dp_train", dp_train_phase, torch, train,
+                     serve_app["llama3_8b"]["push_weights"])
+    pipeline = timed("pipeline", pipeline_phase, torch)
+    tune_r = timed("tune", tune_phase, torch, train, dp_train)
+    dag = timed("dag", dag_phase, torch, tune_r)
+    print("phase seconds: " + json.dumps(
+        {k: round(v, 1) for k, v in phase_s.items()}), flush=True)
     main_case = kern["decode_bfloat16"]
     kernels = {"kernels": [{
         "name": "paged_attention",
@@ -3888,13 +4819,25 @@ def main() -> int:
             launches=pipeline["trainer"]["launches"][{
                 "fwd": "flash_forward", "dq": "flash_dq",
                 "dkv": "flash_dkv"}[name]]))
+    # in Tune's trial processes (phase 15 (a), all trials together) and in
+    # the compiled graph's card actor (phase 16 (b))
+    for suffix, counts in (("tune_trial", tune_r["asha"]["launches"]),
+                           ("compiled_dag", dag["compiled"]["launches"])):
+        for name in ("fwd", "dq", "dkv"):
+            base = next(k for k in kernels["kernels"]
+                        if k["name"] == f"flash_attention_{name}")
+            kernels["kernels"].append(dict(
+                base, name=f"flash_attention_{name}_{suffix}",
+                launches=counts[{"fwd": "flash_forward", "dq": "flash_dq",
+                                 "dkv": "flash_dkv"}[name]]))
     detail = {"card": card, "build": build, "kernel": kern, "flash": flash,
               "serve": serve, "spec_serve": spec_serve,
               "serve_lanes": lanes, "runtime": runtime,
               "serve_app": serve_app, "parity": parity,
               "train": train,
               "train_parity": train_parity, "dp_train": dp_train,
-              "pipeline": pipeline,
+              "pipeline": pipeline, "tune": tune_r, "dag": dag,
+              "phase_seconds": phase_s,
               "seconds": time.perf_counter() - t_start}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

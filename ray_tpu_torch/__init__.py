@@ -19,7 +19,13 @@ It runs, serves and trains:
     kernels on the card; ``ray_tpu_torch.train`` (``TorchTrainer``,
     ``GradientAverager``) runs a data-parallel loop in the runtime's
     workers, over ``ray_tpu_torch.util.collective``'s host and NCCL
-    groups, gang-placed by ``ray_tpu_torch.util.placement_group``.
+    groups, gang-placed by ``ray_tpu_torch.util.placement_group``;
+  * ``ray_tpu_torch.tune`` (``Tuner``, schedulers, searchers) runs one
+    trial process per configuration; ``.bind`` builds a DAG
+    (``ray_tpu_torch.dag``), compiled onto shared-memory channels with
+    ``experimental_compile``; ``ray_tpu_torch.workflow`` runs a DAG with
+    its step results kept; ``init(address="client://...")`` drives a
+    cluster from a process outside it (``ray_tpu_torch.util.client``).
 
 Importing the package imports the runtime only: its daemons start as
 ``python -m ray_tpu_torch._private...`` and never import torch. The model

@@ -38,16 +38,16 @@ Intended deltas, and nothing else:
   ``serve_affinity_skew`` and ``serve_migration_budget`` (the router and
   the scheduler read them); the data, pipeline, podracer and elastic
   knobs that nothing here reads are left out;
-- cut to ``NotImplementedError``: the DAG API (``.bind``) and client
-  addresses; the ``placement_group`` option takes only a
+- the ``placement_group`` option takes only a
   ``util.placement_group.PlacementGroup`` (anything else raises
   ``TypeError``);
 - two repairs of the copy: ``core_worker`` pins an actor-creation task's
   ref arguments until ``__init__`` ran, and ``default_worker`` holds its
   liveness-bond task so the collector cannot destroy it.
 
-Kept although nothing reaches it yet, so that the copy stays diffable
-against the reference: the compiled-graph half of ``channels`` (with the
-DAG API, A8); its channels also carry the host collectives' shared-memory
-rounds (``util/collective/shm.py``).
+The compiled-graph half of ``channels`` carries ``ray_tpu_torch.dag``'s
+compiled graphs; its channels also carry the host collectives'
+shared-memory rounds (``util/collective/shm.py``). ``api`` proxies
+through ``ray_tpu_torch.util.client`` when ``init`` was given a
+``client://`` address.
 """

@@ -216,10 +216,18 @@ def init(
             if ignore_reinit_error:
                 return {"address": f"{_core.controller_addr[0]}:{_core.controller_addr[1]}"}
             raise RuntimeError("ray_tpu_torch.init() called twice; use shutdown() first")
+        if _client is not None:
+            if ignore_reinit_error:
+                return {"address": _client._address, "client": True}
+            raise RuntimeError("ray_tpu_torch.init() called twice; use shutdown() first")
         if address and address.startswith("client://"):
-            raise NotImplementedError(
-                "client mode (client:// addresses) is not ported yet "
-                "(ROADMAP A8, moved from A4)")
+            from ray_tpu_torch.util import client as _client_mod
+
+            _namespace = namespace
+            ctx = _client_mod.connect(address[len("client://"):],
+                                      namespace=namespace)
+            return {"address": address, "client": True,
+                    "namespace": ctx._server_namespace}
         config = Config.from_env(_system_config)
         if object_store_memory:
             config.object_store_memory_bytes = object_store_memory
@@ -348,9 +356,33 @@ def _connect_existing(core: CoreWorker) -> None:
     _core = core
 
 
+# ------------------------------------------------------------------ client mode
+# ≈ ray.util.client: when connected through a client server, the module-level
+# API proxies through a ClientContext instead of a local CoreWorker.
+
+_client = None
+
+
+def _install_client(ctx) -> None:
+    global _client
+    if _core is not None:
+        raise RuntimeError(
+            "cannot enter client mode: this process already runs a driver "
+            "(call shutdown() first)")
+    _client = ctx
+
+
+def _uninstall_client() -> None:
+    global _client
+    if _client is not None:
+        _client.disconnect()
+        _client = None
+
+
 def shutdown() -> None:
     global _core, _node_handle
     with _global_lock:
+        _uninstall_client()
         if _node_handle is not None:
             # local usage report (usage.py; collector POST is opt-in)
             try:
@@ -377,7 +409,7 @@ def shutdown() -> None:
 
 
 def is_initialized() -> bool:
-    return _core is not None
+    return _core is not None or _client is not None
 
 
 def _require_core() -> CoreWorker:
@@ -390,6 +422,8 @@ def _require_core() -> CoreWorker:
 
 
 def put(value: Any) -> ObjectRef:
+    if _client is not None:
+        return _client.put(value)
     core = _require_core()
     oid, owner = core.put(value)
     return ObjectRef(oid, owner)
@@ -403,6 +437,8 @@ def get(
         # directly — no object layer, no RPCs (ray.get parity for
         # CompiledDAGRef)
         return refs.get(timeout=timeout)
+    if _client is not None:
+        return _client.get(refs, timeout=timeout)
     core = _require_core()
     single = isinstance(refs, ObjectRef)
     batch = [refs] if single else list(refs)
@@ -448,11 +484,16 @@ def wait(
 ) -> Tuple[List[ObjectRef], List[ObjectRef]]:
     if num_returns > len(refs):
         raise ValueError("num_returns exceeds the number of refs")
+    if _client is not None:
+        return _client.wait(refs, num_returns=num_returns, timeout=timeout)
     core = _require_core()
     return core.wait(list(refs), num_returns=num_returns, timeout=timeout)
 
 
 def kill(actor: "ActorHandle", *, no_restart: bool = True) -> None:
+    if _client is not None:
+        _client.kill(actor, no_restart=no_restart)
+        return
     _require_core().kill_actor(actor._actor_id, no_restart=no_restart)
 
 
@@ -460,6 +501,9 @@ def cancel(ref, *, force: bool = False) -> None:
     """Best-effort cancellation of a queued task (ObjectRef or
     ObjectRefGenerator — cancelling a generator stops the stream between
     yields; items already yielded stay consumable)."""
+    if _client is not None:
+        _client.cancel(ref, force=force)
+        return
     core = _require_core()
     if isinstance(ref, ObjectRefGenerator):
         task_id = ref._task_id
@@ -487,17 +531,23 @@ def cancel(ref, *, force: bool = False) -> None:
 
 
 def nodes() -> List[Dict[str, Any]]:
+    if _client is not None:
+        return _client.nodes()
     core = _require_core()
     return core._run(core.clients.get(core.controller_addr).call("node_views"))
 
 
 def cluster_resources() -> Dict[str, float]:
+    if _client is not None:
+        return _client.cluster_resources()
     core = _require_core()
     status = core._run(core.clients.get(core.controller_addr).call("cluster_status"))
     return status["total_resources"]
 
 
 def available_resources() -> Dict[str, float]:
+    if _client is not None:
+        return _client.available_resources()
     core = _require_core()
     status = core._run(core.clients.get(core.controller_addr).call("cluster_status"))
     return status["available_resources"]
@@ -574,6 +624,10 @@ class RemoteFunction:
         return rf
 
     def remote(self, *args, **kwargs):
+        if _client is not None:
+            key, blob = self._materialize()
+            return _client.submit_task(
+                blob, self._fn.__qualname__, args, kwargs, self._options)
         core = _require_core()
         opts = self._options
         key, blob = self._materialize()
@@ -600,10 +654,10 @@ class RemoteFunction:
         return refs[0] if num_returns == 1 else refs
 
     def bind(self, *args, **kwargs):
-        """A lazy DAG node (ray.dag analog): not ported yet."""
-        raise NotImplementedError(
-            "the DAG API (.bind) is not ported yet "
-            "(ROADMAP A8, moved from A4)")
+        """Build a lazy DAG node instead of submitting (ray.dag analog)."""
+        from ray_tpu_torch.dag import FunctionNode
+
+        return FunctionNode(self, args, kwargs)
 
     def __call__(self, *args, **kwargs):
         raise TypeError(
@@ -714,10 +768,10 @@ class ActorMethod:
                           else self._backpressure))
 
     def bind(self, *args, **kwargs):
-        """A lazy DAG node for this actor method: not ported yet."""
-        raise NotImplementedError(
-            "the DAG API (.bind) is not ported yet "
-            "(ROADMAP A8, moved from A4)")
+        """Build a lazy DAG node for this actor method (ray.dag analog)."""
+        from ray_tpu_torch.dag import ClassMethodNode
+
+        return ClassMethodNode(self, args, kwargs)
 
     def remote(self, *args, **kwargs):
         core = _require_core()
@@ -775,6 +829,8 @@ class ActorClass:
         return ActorClass(self._cls, new)
 
     def remote(self, *args, **kwargs) -> ActorHandle:
+        if _client is not None:
+            return _client.create_actor(self._cls, args, kwargs, self._options)
         core = _require_core()
         opts = self._options
         resources = _resources_from_options(opts)
@@ -837,6 +893,8 @@ def method(**opts):
 
 
 def get_actor(name: str, namespace: Optional[str] = None) -> ActorHandle:
+    if _client is not None:
+        return _client.get_actor(name, namespace)
     core = _require_core()
     rec = core._run(
         core.clients.get(core.controller_addr).call(

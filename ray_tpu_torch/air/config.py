@@ -6,17 +6,15 @@ ScalingConfig/RunConfig/FailureConfig/CheckpointConfig). The JAX package's
 ``use_tpu``/``tpus_per_worker`` become ``use_gpu``/``gpus_per_worker``, in
 whole cards as the runtime hands them out. Its slice ``topology`` (a gang
 label for a TPU pod slice) has no counterpart on a node of cards and is
-left out, and so are the fields that only Tune reads or that nothing reads
-(``trainer_resources``, ``as_placement_group_bundles``, ``total_workers``;
-``RunConfig``'s ``stop``, ``verbose``, ``log_to_file``, ``callbacks``):
-Tune is not ported.
+left out, and so are the fields that nothing reads (``total_workers``;
+``RunConfig``'s ``verbose``, ``log_to_file``, ``callbacks``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Dict, Optional
+from typing import Any, Dict, List, Optional
 
 
 @dataclasses.dataclass
@@ -36,6 +34,8 @@ class ScalingConfig:
     gpus_per_worker: Optional[int] = None
     resources_per_worker: Optional[Dict[str, float]] = None
     placement_strategy: str = "PACK"
+    #: what a Tune trial's own process holds (bundle 0 of its gang)
+    trainer_resources: Optional[Dict[str, float]] = None
 
     def __post_init__(self):
         if self.num_workers < 1:
@@ -59,6 +59,9 @@ class ScalingConfig:
             if per > 0:
                 bundle["GPU"] = float(per)
         return bundle
+
+    def as_placement_group_bundles(self) -> List[Dict[str, float]]:
+        return [dict(self._worker_bundle) for _ in range(self.num_workers)]
 
 
 @dataclasses.dataclass
@@ -96,6 +99,9 @@ class RunConfig:
     storage_path: Optional[str] = None
     failure_config: Optional[FailureConfig] = None
     checkpoint_config: Optional[CheckpointConfig] = None
+    #: tune stop criteria: {"metric": threshold} — a trial stops once any
+    #: reported metric reaches its threshold (reference RunConfig.stop)
+    stop: Optional[Dict[str, Any]] = None
 
     def __post_init__(self):
         if self.storage_path is None:

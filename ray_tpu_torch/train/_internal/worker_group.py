@@ -7,10 +7,10 @@ gang-placed under one placement group, each able to run arbitrary
 functions. Ranks are assigned by grouping workers on the same node
 (node_rank / local_rank), matching the reference's rank assignment in
 `backend_executor.py`. A bundle that holds ``GPU`` gives its worker whole
-cards (``CUDA_VISIBLE_DEVICES`` set at spawn). Left out with Tune, which
-is not ported: joining a placement group made elsewhere (the JAX group's
-``placement_group``/``bundle_offset`` arguments and its ambient group, a
-trial's gang covering its trainer's workers) and ``set_env_vars``.
+cards (``CUDA_VISIBLE_DEVICES`` set at spawn), whether the group made its
+placement group itself or joined one made elsewhere (a Tune trial's gang,
+``placement_group``/``bundle_offset`` or the ambient group). The JAX
+worker's ``ping`` and ``set_env_vars`` are left out: nothing calls them.
 """
 
 from __future__ import annotations
@@ -46,6 +46,12 @@ class RayTrainWorker:
     def start_session(self, session_kwargs: Dict[str, Any]) -> bool:
         from ray_tpu_torch.train._internal import session as session_mod
 
+        session_kwargs = dict(session_kwargs)
+        gang_pg = session_kwargs.pop("gang_pg", None)
+        if gang_pg is not None:
+            # this process hosts a Tune trial whose gang PG also covers
+            # the trainer's workers (bundles 1..N)
+            set_ambient_placement_group(gang_pg, bundle_offset=1)
         self._session = session_mod.init_session(**session_kwargs)
         self._session.start()
         return True
@@ -58,6 +64,7 @@ class RayTrainWorker:
         from ray_tpu_torch.train._internal import session as session_mod
 
         session_mod.shutdown_session()
+        set_ambient_placement_group(None)
         self._session = None
 
 
@@ -74,29 +81,57 @@ class WorkerMetadata:
         self.local_world_size = 1
 
 
+# Ambient gang placement group: a Tune trial reserves ONE placement group
+# covering the trial actor AND its trainer's whole worker gang (bundle 0 =
+# trial actor, bundles 1..N = train workers); the trainer's WorkerGroup
+# inside the trial joins that group instead of creating its own, so
+# concurrent trials can never hold actors while starving each other's
+# worker bundles (reference: tune/execution/placement_groups.py).
+_ambient_pg: Optional[PlacementGroup] = None
+_ambient_bundle_offset: int = 0
+
+
+def set_ambient_placement_group(pg: Optional[PlacementGroup],
+                                bundle_offset: int = 1) -> None:
+    global _ambient_pg, _ambient_bundle_offset
+    _ambient_pg = pg
+    _ambient_bundle_offset = bundle_offset
+
+
 class WorkerGroup:
     def __init__(
         self,
         num_workers: int,
         resources_per_worker: Optional[Dict[str, float]] = None,
         placement_strategy: str = "PACK",
+        placement_group: Optional[PlacementGroup] = None,
+        bundle_offset: int = 0,
     ):
         self._num_workers = num_workers
         self._resources = dict(resources_per_worker or {"CPU": 1.0})
-        self._pg: Optional[PlacementGroup] = None
+        self._pg: Optional[PlacementGroup] = placement_group
+        self._owns_pg = placement_group is None
+        self._bundle_offset = bundle_offset
         self.workers: List[WorkerMetadata] = []
         self._placement_strategy = placement_strategy
+        if self._pg is None and _ambient_pg is not None:
+            self._pg = _ambient_pg
+            self._bundle_offset = _ambient_bundle_offset
+            self._owns_pg = False
 
     @property
     def num_gpus_per_worker(self) -> int:
         return int(self._resources.get("GPU", 0))
 
     def start(self, timeout: float = 60.0) -> None:
-        bundles = [dict(self._resources) for _ in range(self._num_workers)]
-        self._pg = placement_group(bundles,
-                                   strategy=self._placement_strategy)
+        if self._owns_pg:
+            bundles = [dict(self._resources)
+                       for _ in range(self._num_workers)]
+            self._pg = placement_group(bundles,
+                                       strategy=self._placement_strategy)
         if not self._pg.wait(timeout=timeout):
-            remove_placement_group(self._pg)
+            if self._owns_pg:
+                remove_placement_group(self._pg)
             raise TimeoutError(
                 f"placement group for {self._num_workers} workers "
                 f"({self._resources}) not ready in {timeout}s")
@@ -111,7 +146,7 @@ class WorkerGroup:
                 num_gpus=self.num_gpus_per_worker or None,
                 resources=res or None,
                 placement_group=self._pg,
-                placement_group_bundle_index=i,
+                placement_group_bundle_index=self._bundle_offset + i,
             ).remote()
             for i in range(self._num_workers)
         ]
@@ -161,7 +196,7 @@ class WorkerGroup:
             except Exception:
                 pass
         self.workers = []
-        if self._pg is not None:
+        if self._pg is not None and self._owns_pg:
             try:
                 remove_placement_group(self._pg)
             except Exception:

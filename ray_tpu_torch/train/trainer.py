@@ -4,7 +4,10 @@ Counterpart: ``ray_tpu/train/trainer.py``. Analog of
 `ray.train.base_trainer.BaseTrainer` (`python/ray/train/base_trainer.py:567`
 fit) and `ray.train.data_parallel_trainer.DataParallelTrainer`
 (`python/ray/train/data_parallel_trainer.py:25`, training_loop `:428`).
-fit() drives the BackendExecutor directly (no Tune trial around it).
+fit() drives the BackendExecutor directly (no Tune trial around it); Tune
+wraps a trainer as a trainable instead (``tune/tuner.py``'s
+``_trainer_to_fn``: a copy of the trainer per trial, its
+``train_loop_config`` merged, its storage nested under the trial's).
 
 `TorchTrainer` takes the place of the JAX package's `JaxTrainer` (the
 reference's TorchTrainer, `train/torch/torch_trainer.py`): workers form a

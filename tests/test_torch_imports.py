@@ -105,6 +105,17 @@ TRAIN_MODULES = (
     "ray_tpu_torch.models.presets", "ray_tpu_torch.models.transformer")
 
 
+# Tune, the DAG API, workflows and client mode
+TUNE_DAG_MODULES = (
+    "ray_tpu_torch.tune", "ray_tpu_torch.tune.trial",
+    "ray_tpu_torch.tune.search", "ray_tpu_torch.tune.schedulers",
+    "ray_tpu_torch.tune.search_external", "ray_tpu_torch.tune.controller",
+    "ray_tpu_torch.tune.tuner", "ray_tpu_torch.dag",
+    "ray_tpu_torch.workflow", "ray_tpu_torch.util.client",
+    "ray_tpu_torch.util.client.common", "ray_tpu_torch.util.client.client",
+    "ray_tpu_torch.util.client.server")
+
+
 def _module_file(mod: str) -> Path:
     path = ROOT / mod.replace(".", "/")
     return path / "__init__.py" if path.is_dir() else path.with_suffix(".py")
@@ -126,3 +137,43 @@ def test_importing_train_and_collectives_loads_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.strip() == "[]"
+
+
+@pytest.mark.parametrize("mod", TUNE_DAG_MODULES)
+def test_tune_dag_and_client_modules_are_checked(mod):
+    assert _module_file(mod) in FILES
+
+
+def test_importing_tune_dag_and_client_loads_no_jax():
+    code = ("import sys\n"
+            + "".join(f"import {m}\n" for m in TUNE_DAG_MODULES)
+            + "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+              "('jax', 'jaxlib', 'ray_tpu')))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip() == "[]"
+
+
+def test_bind_and_client_addresses_no_longer_raise():
+    """``.bind`` builds DAG nodes and ``client://`` reaches the client
+    branch of ``init``; neither raises ``NotImplementedError``."""
+    api = (ROOT / "ray_tpu_torch/_private/api.py").read_text()
+    assert "NotImplementedError" not in api
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.dag import FunctionNode
+
+    @rt.remote
+    def f(x):
+        return x
+
+    assert isinstance(f.bind(1), FunctionNode)
+    from ray_tpu_torch._private.rpc import RpcConnectionError
+
+    with pytest.raises(RpcConnectionError):
+        # nothing listens there: the client's connection is refused
+        rt.init(address="client://127.0.0.1:1")
+    assert not rt.is_initialized()
+    # ActorMethod.bind builds a ClassMethodNode (tests/test_torch_dag.py
+    # binds the methods of live actors)
+    assert "ClassMethodNode(self, args, kwargs)" in api

@@ -279,10 +279,19 @@ class TestClusterInfo:
             add.options(num_gpus=0.5).remote(1, 2)
 
     def test_unported_branches_raise(self, cluster):
-        with pytest.raises(NotImplementedError, match="A4"):
-            add.bind(1, 2)
-        with pytest.raises(NotImplementedError, match="A4"):
-            Counter.remote().incr.bind()
+        """The branches this test once held to ``NotImplementedError``
+        (``.bind`` on a function and on an actor method) are ported: each
+        builds a DAG node that executes through the runtime."""
+        from ray_tpu_torch.dag import ClassMethodNode, FunctionNode
+
+        node = add.bind(1, 2)
+        assert isinstance(node, FunctionNode)
+        assert rt.get(node.execute(), timeout=60) == 3
+        c = Counter.remote()
+        method_node = c.incr.bind()
+        assert isinstance(method_node, ClassMethodNode)
+        assert rt.get(method_node.execute(), timeout=60) == 1
+        rt.kill(c)
 
     def test_placement_group_option_raises(self, cluster):
         """The option takes a PlacementGroup; anything else raises."""
