@@ -47,6 +47,9 @@ of its checks fails:
      (32 layers), random bf16 weights from a seeded torch.Generator,
      answers 12 streamed requests that share a prefix (8 slots, one request
      sampled at temperature 0.7), through the kernel on every layer.
+     Then serve-8: the same at 8 of its 32 layers (``CUT_LAYERS``),
+     unprofiled, the plain texts and rates that the runtime and serve-app
+     phases' replicas at that depth are held against.
   6. spec-serve: the same server and requests with speculative decoding
      (the self drafter, spec_k 4): every round 4 drafter steps over a
      contiguous slot arena, then one K4 verify window per layer; launches
@@ -105,17 +108,19 @@ of its checks fails:
      (median round trip); a GPU-less actor sees
      ``CUDA_VISIBLE_DEVICES=""`` and its ``LLMServerImpl()`` refuses, a
      ``num_gpus=1`` actor sees the card and builds its replica there;
-     llama3_8b at full width and 32 layers in a ``num_gpus=1`` actor
-     (``ReplicaHost``: no control plane and no weights in the arena, the
-     yardstick for phase 12) on the serve phase's seed-0 weights and
-     settings, its warm-up and 12 requests streamed through
+     llama3_8b at full width and 8 of its 32 layers (``CUT_LAYERS``, cut
+     for time) in a ``num_gpus=1`` actor (``ReplicaHost``: no control
+     plane and no weights in the arena, the yardstick for phase 12) on
+     seed-0 weights and the serve phase's settings, its warm-up and 12
+     requests streamed through
      ``num_returns="streaming"``, arriving together, request 5 sampled at
      0.7, pings to the actor while it serves: every request returns all
      its tokens, K4's launches counted in the worker are exactly layers x
      (prefill chunks + decode steps), a request's stream equals its whole
-     text, temperature-0 texts equal to the serve phase's counted (bf16:
-     not gated); the same 12 again on the warm prefix cache, whole,
-     streamed, whole (all tokens each; tokens/s, decode-step ms, prefill
+     text, temperature-0 texts equal to serve-8's counted (bf16: not
+     gated), tokens/s and decode-step ms beside serve-8's; the same 12
+     again on the warm prefix cache, whole, streamed, whole (all tokens
+     each; tokens/s, decode-step ms, prefill
      chunks and prefix hits per pass, so streaming's cost is read apart
      from the cache); float32 llama_debug texts from a GPU actor equal the
      in-process replica's on the card; 1 GiB tensors through the object
@@ -128,7 +133,8 @@ of its checks fails:
      ``rt.init`` with a 24 GiB arena; ``serve.run`` of ``LLMServer``
      (a subclass defined here that reads K4's counter in the replica's
      worker) with ``num_replicas=1, num_gpus=1``: llama3_8b at full width
-     and 32 layers, the serve phase's arena, slots, chunks and pages,
+     and 8 layers (``CUT_LAYERS``), the serve phase's arena, slots, chunks
+     and pages,
      random bf16 weights from seed 0, shared through the node's arena.
      Gates: ``serve.status()`` RUNNING; ``weights_info()`` "published" and
      shared; the params on ``cuda:0``; the serve controller's worker given
@@ -140,10 +146,10 @@ of its checks fails:
      request 5 sampled at 0.7: every request returns all its tokens, K4's
      launches in the replica's worker exactly layers x (prefill chunks +
      decode steps); a streamed request equals its whole text; counted, not
-     gated, the bf16 texts equal to the serve phase's. Then whole,
-     streamed, whole, streamed on the warm cache (tokens/s, decode-step
-     ms, chunks, prefix hits each, and the streamed/whole step ratio),
-     against the serve phase and the runtime phase's ``ReplicaHost``.
+     gated, the bf16 texts equal to serve-8's. Then whole, streamed,
+     whole, streamed on the warm cache (tokens/s, decode-step ms, chunks,
+     prefix hits each, and the streamed/whole step ratio), against
+     serve-8 and the runtime phase's ``ReplicaHost``.
      Then the ingress, against the same replica: ``serve.start(http_port=0)``
      (the HTTP proxy) and ``serve.start_rpc_ingress()``, driven with
      ``http.client`` and the port's ``ServeRpcClient``. Gates:
@@ -159,7 +165,7 @@ of its checks fails:
      chunk for streams, chunks and prefix hits each; the streamed/whole
      step ratio of HTTP and of RPC beside the handle's); a solo request's
      text streamed and whole over both equals the handle's. Counted, not
-     gated, the bf16 texts of the HTTP pass equal to the serve phase's.
+     gated, the bf16 texts of the HTTP pass equal to serve-8's.
      float32 llama_debug one request at a time through the handle, over
      HTTP and over RPC from a ``num_gpus=1`` replica equals the in-process
      replica's on the card; after ``serve.shutdown()`` a ``num_gpus=1``
@@ -192,7 +198,7 @@ of its checks fails:
      process on the full batch on the card; GB/s of the average. (d) The
      serve-app replica's ``push_weights`` to a GPU-less task that builds
      ``LLMServerImpl(weights_bcast=...)`` on the CPU: its per-leaf sums
-     equal the replica's (291 leaves); seconds and GB/s.
+     equal the replica's (75 leaves: 8 layers); seconds and GB/s.
  14. pipeline (run after phase 13, with its own ``rt.init``): pipeline
      and tensor-parallel training. (a) Emulated tp2 on the card:
      gpt2_small (untied, ``remat=False``, ``ce_chunk=8192``) at full width
@@ -208,9 +214,10 @@ of its checks fails:
      exactly 12 launches per rank (one forward and one backward per
      block), counted per thread. (b) ``PipelineTrainer`` over two stages:
      gpt2_small at full width (d 768, 12 heads, vocab 50257), untied,
-     ``remat=False``, 4 layers, ``stage_options=[{"num_gpus": 0},
-     {"num_gpus": 1}]`` (the embedding and 2 blocks on the CPU, then 2
-     blocks, the head and the loss on the card), M=4 microbatches of 2 x
+     ``remat=False``, 2 layers (``PIPE_LAYERS``, cut for time),
+     ``stage_options=[{"num_gpus": 0}, {"num_gpus": 1}]`` (the embedding
+     and 1 block on the CPU, then 1 block, the head and the loss on the
+     card), M=4 microbatches of 2 x
      1024, SGD, 1 warm and 2 timed steps, ``buffer_bytes`` holding a
      3 MiB bf16 activation. Gates: the losses within
      ``TRAIN_PARITY_RTOL`` of the same chunk math run in this process on
@@ -284,8 +291,42 @@ of its checks fails:
      run computes), arrives as a CPU float32 tensor, and the client
      process never initialized CUDA.
 
-Before them a line gives each phase's seconds on the host clock. The
-line before the last is ``{"kernels": [...]}``; the last is
+ 17. autoscale (run last, with its own ``rt.init(num_gpus=0)``: the
+     head has no GPU, so nothing here reaches the card unless an
+     autoscaler launches its node). Node types ``cpu`` ``{"CPU": 2}`` and
+     ``gpu`` ``{"CPU": 2, "GPU": 2}`` over the one card listed twice
+     (``gpu_ids`` 0, 0), ``max_workers=1``; gpt2_small at full width and
+     depth (12 layers, bf16 compute), weights from a seed-0 generator on
+     the CPU moved to the card, B8 x S1024 numpy token batches. (a) v1's
+     ``StandardAutoscaler`` over ``LocalNodeProvider`` (tick 1 s, idle
+     5 s): an ``ActorPool`` of two ``num_gpus=1`` scorers (each batch's
+     forward loss under no_grad, a ``(batch, pid, ms)`` on a
+     ``util.queue.Queue``, a ``batches_scored`` counter), 16 batches
+     through ``map``, 16 through ``map_unordered``. Gates: exactly one
+     ``gpu`` node launched, labelled and showing GPU 2 in
+     ``state.list_nodes()``; both scorers ALIVE there; ``map`` in input
+     order, ``map_unordered`` all 16; each loss within
+     ``TRAIN_PARITY_RTOL`` of this process's on the card (bit-equal
+     counted); 32 queue entries from both pids; ``batches_scored`` 32 in
+     ``cluster_metrics(all_nodes=True)``; at least 32 finished ``score``
+     calls in ``summarize_tasks()``; ``timeline(path)`` spans naming both
+     pids; K1 exactly 12 x 32 over the scorers, K2 and K3 none; after the
+     kill the node retired within idle + 3 ticks + 10 s (gone from the
+     provider, dead in ``list_nodes``). (b) v2's ``Reconciler`` loop over
+     a fresh provider; ``python -m ray_tpu_torch.scripts.jobs submit
+     --follow`` of a driver whose one ``num_gpus=1`` task scores batch 0.
+     Gates: SUCCEEDED, ``status`` and ``list`` agreeing; the logs' JSON
+     loss within ``TRAIN_PARITY_RTOL`` of this process's, K1 12; the
+     ``gpu`` instance's history QUEUED, REQUESTED, ALLOCATED,
+     RAY_RUNNING, TERMINATING, TERMINATED; a job exiting 1 ends FAILED.
+     Printed: seconds from demand to node, to both ALIVE, to the first
+     batch; ms a batch in the actors and in process; seconds to retire;
+     the job's seconds.
+
+Before phase 2 a preflight line gives what the port's ``reap_all()``
+swept and whether pyarrow, pandas and gymnasium import (with their
+versions). Before the result lines a line gives each phase's seconds on
+the host clock. The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Details go to
 ``chiprun_out/chip_smoke.json``.
 """
@@ -297,6 +338,7 @@ import json
 import math
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -317,6 +359,11 @@ TENSOR_CORE_KERNELS = (
 ARENA_LEN = 2048          # serve arena per slot: 128 pages of 16 tokens
 SERVE_NEW_TOKENS = 32
 SPEC_K = 4                # draft tokens per speculative round
+# the runtime and serve-app phases' llama3_8b: full width, 8 of its 32
+# layers (cut for time; the serve, spec-serve and serve-lanes phases keep
+# all 32 in process, and serve-8 gives the cut model's plain texts)
+CUT_LAYERS = 8
+CUT_OVERRIDES = {"num_layers": CUT_LAYERS}
 # the verify window's slot cursors: 0 to the last that fits the arena
 VERIFY_LENGTHS = [0, 16, 37, 100, 255, 640, 1024, ARENA_LEN - SPEC_K - 1]
 TOL = {"float32": (1e-5, 1e-5),       # atol, rtol: sum order differs
@@ -1371,12 +1418,18 @@ def _check_paged_run(texts, st) -> None:
         raise AssertionError(f"attn_lane is {st['attn_lane']!r}")
 
 
-def serve_phase(torch) -> dict:
-    srv = _llama3_8b_server(torch, "serve")
+def serve_phase(torch, overrides=None) -> dict:
+    """llama3_8b in this process, the 12 requests; with ``overrides``
+    (``CUT_OVERRIDES``) at fewer layers and unprofiled: the plain
+    yardstick at the depth of the runtime and serve-app phases' replicas,
+    whose texts and rates are held against it."""
+    name = "serve" if overrides is None else f"serve-{CUT_LAYERS}"
+    srv = _llama3_8b_server(torch, name, preset_overrides=overrides)
     try:
         cfg = srv.cfg
         texts, ttfts, wall, launches, before, st = _serve_requests(srv)
-        prof = profile_decode(torch, srv, SYSTEM_PROMPT)
+        prof = (profile_decode(torch, srv, SYSTEM_PROMPT)
+                if overrides is None else None)
     finally:
         srv.shutdown()
     _check_paged_run(texts, st)
@@ -1402,8 +1455,8 @@ def serve_phase(torch) -> dict:
              prefix_hits=st["prefix_hits"] - before.get("prefix_hits", 0),
              max_active_slots=st["max_active_slots"],
              peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
-             profile=prof, texts=texts)
-    print(f"serve: {r['requests']} requests, {tokens} tokens in {wall:.2f} s"
+             layers=cfg.num_layers, profile=prof, texts=texts)
+    print(f"{name}: {r['requests']} requests, {tokens} tokens in {wall:.2f} s"
           f" = {r['tokens_per_s']:.1f} tokens/s; mean decode step "
           f"{r['decode_step_ms']:.2f} ms over {steps} steps; TTFT mean "
           f"{r['ttft_mean_s']:.3f} s, max {r['ttft_max_s']:.3f} s; "
@@ -2147,8 +2200,8 @@ def _consume(rt, gen):
 
 
 def _actor_serve(torch, rt, serve) -> dict:
-    """llama3_8b at full width and 32 layers in a num_gpus=1 actor, the
-    serve phase's arena, slots, chunks and pages and its seed-0 bf16
+    """llama3_8b at full width and ``CUT_LAYERS`` layers in a num_gpus=1
+    actor, the serve phase's arena, slots, chunks and pages, seed-0 bf16
     weights: the warm-up, then the 12 requests streamed, arriving
     together, request 5 sampled at 0.7; pings to the actor while it
     serves; K4's launches counted in the worker."""
@@ -2156,7 +2209,8 @@ def _actor_serve(torch, rt, serve) -> dict:
 
     Host = rt.remote(ReplicaHost).options(num_gpus=1, max_concurrency=64)
     t0 = time.perf_counter()
-    h = Host.remote(preset="llama3_8b", arena_len=ARENA_LEN,
+    h = Host.remote(preset="llama3_8b", preset_overrides=CUT_OVERRIDES,
+                    arena_len=ARENA_LEN,
                     max_new_tokens=SERVE_NEW_TOKENS, detokenize=_ids_text)
     info = rt.get(h.info.remote(), timeout=RT_TIMEOUT)
     start_s = time.perf_counter() - t0
@@ -2235,14 +2289,14 @@ def _actor_serve(torch, rt, serve) -> dict:
           f"(CUDA_VISIBLE_DEVICES={info['visible']}, {info['card']}, "
           f"params on {info['param_devices']}); up in {start_s:.2f} s "
           f"(weights {info['init_s']:.2f} s); {tokens} tokens in "
-          f"{wall:.2f} s = {r['tokens_per_s']:.1f} tokens/s (in-process "
+          f"{wall:.2f} s = {r['tokens_per_s']:.1f} tokens/s (serve-8 "
           f"{serve['tokens_per_s']:.1f}); decode step "
-          f"{r['decode_step_ms']:.2f} ms (in-process "
+          f"{r['decode_step_ms']:.2f} ms (serve-8 "
           f"{serve['decode_step_ms']:.2f}); TTFT mean "
           f"{r['ttft_mean_s']:.3f} s, max {r['ttft_max_s']:.3f} s; "
           f"{launches} K4 launches in the worker = {layers} x ({chunks} + "
           f"{steps}); streamed = whole; {equal} of 11 temperature-0 texts "
-          f"equal the serve phase's; {len(pings)} pings while serving, "
+          f"equal serve-8's; {len(pings)} pings while serving, "
           f"median {r['ping_during_serve_median_s'] * 1e3:.2f} ms, max "
           f"{r['ping_during_serve_max_s'] * 1e3:.2f} ms; this pass "
           f"{chunks} prefill chunks, {r['prefix_hits']} prefix hits",
@@ -2469,11 +2523,12 @@ def runtime_phase(torch, serve) -> dict:
 
 # ------------------------------------------------------------- serve-app
 
-# the serve-app phase's arena: llama3_8b's 16.06 GB tree once, plus room
+# the serve-app phase's arena: the 8-layer llama3_8b tree once, plus room
 # for the phase's other objects (requests, the float32 llama_debug tree),
 # and below the store's 0.8 spilling threshold with the tree in it
 SERVE_APP_STORE = 24 * 2 ** 30
-SERVE_APP_KEY = "llm:llama3_8b:seed0"   # LLMServerImpl's default key
+# LLMServerImpl's default key for that tree
+SERVE_APP_KEY = f"llm:llama3_8b:num_layers={CUT_LAYERS}:seed0"
 PARITY_PROMPTS = ["hi", "hello 123", "a much longer prompt than the others!"]
 
 
@@ -2804,8 +2859,9 @@ def _serve_app_llama3_8b(torch, rt, rt_api, serve, LLM, cls, serve_ref,
     t0 = time.perf_counter()
     app = LLM.options(func_or_class=cls, num_replicas=1,
                       ray_actor_options={"num_gpus": 1}).bind(
-        preset="llama3_8b", arena_len=ARENA_LEN,
-        max_new_tokens=SERVE_NEW_TOKENS, detokenize=_ids_text)
+        preset="llama3_8b", preset_overrides=CUT_OVERRIDES,
+        arena_len=ARENA_LEN, max_new_tokens=SERVE_NEW_TOKENS,
+        detokenize=_ids_text)
     h = serve.run(app, name="llama3_8b", route_prefix="/llama3_8b",
                   timeout_s=RT_TIMEOUT)
     deploy_s = time.perf_counter() - t0
@@ -2898,16 +2954,16 @@ def _serve_app_llama3_8b(torch, rt, rt_api, serve, LLM, cls, serve_ref,
              ingress=ingress, peak_mem_gb=peak, push_weights=push,
              texts=first["texts"])
     print(f"serve-app: 12 requests streamed through the handle, sent "
-          f"together: {first['tokens_per_s']:.1f} tokens/s (in-process "
-          f"serve {serve_ref['tokens_per_s']:.1f}, runtime ReplicaHost "
+          f"together: {first['tokens_per_s']:.1f} tokens/s (serve-8 "
+          f"{serve_ref['tokens_per_s']:.1f}, runtime ReplicaHost "
           f"{rtx['tokens_per_s']:.1f}); decode step "
-          f"{first['decode_step_ms']:.2f} ms (in-process "
+          f"{first['decode_step_ms']:.2f} ms (serve-8 "
           f"{serve_ref['decode_step_ms']:.2f}, ReplicaHost "
           f"{rtx['decode_step_ms']:.2f}); TTFT mean "
           f"{first['ttft_mean_s']:.3f} s, max {first['ttft_max_s']:.3f} s;"
           f" {launches} K4 launches in the replica = {layers} x ({chunks} + "
           f"{steps}); {first['prefix_hits']} prefix hits; streamed = whole;"
-          f" {equal} of 11 temperature-0 texts equal the serve phase's; "
+          f" {equal} of 11 temperature-0 texts equal serve-8's; "
           f"peak {peak:.1f} GB", flush=True)
     print("serve-app, the same 12 on the warm cache: " + "; ".join(
         f"{p['kind']} {p['tokens_per_s']:.1f} tokens/s, decode step "
@@ -2931,7 +2987,7 @@ def _serve_app_llama3_8b(torch, rt, rt_api, serve, LLM, cls, serve_ref,
           f"({cold['prefill_chunks']} + {cold['decode_steps']}); "
           f"{cold['prefix_hits']} prefix hits; solo texts streamed = whole "
           f"over both; {ing['texts_equal_serve']} of 11 temperature-0 texts"
-          f" equal the serve phase's", flush=True)
+          f" equal serve-8's", flush=True)
     print("serve-app ingress, warm: " + "; ".join(
         f"{p['kind']} {p['tokens_per_s']:.1f} tokens/s, decode step "
         f"{p['decode_step_ms']:.2f} ms ({p['decode_steps']} steps), TTFT "
@@ -3254,7 +3310,8 @@ def _bcast_receive(group: str) -> dict:
     from ray_tpu_torch import LLMServerImpl
 
     t0 = time.perf_counter()
-    srv = LLMServerImpl(preset="llama3_8b", device="cpu", share_weights=False,
+    srv = LLMServerImpl(preset="llama3_8b", preset_overrides=CUT_OVERRIDES,
+                        device="cpu", share_weights=False,
                         scheduler="batch",
                         weights_bcast={"group": group, "world_size": 2,
                                        "rank": 1})
@@ -3466,7 +3523,7 @@ def dp_train_phase(torch, train_ref, push) -> dict:
 
 PIPE_M = 4                 # (b) microbatches per step
 PIPE_ROWS, PIPE_SEQ = 2, 1024
-PIPE_LAYERS = 4            # (b) depth cut from 12: stage 0 runs on the CPU
+PIPE_LAYERS = 2            # (b) depth cut from 12: stage 0 runs on the CPU
 PIPE_STEPS = 2             # (b) timed steps, after one warm-up step
 PIPE_LR = 0.01
 PIPE_BUFFER = 4 * 2 ** 20  # channel slots: a 3 MiB bf16 activation + header
@@ -4687,6 +4744,485 @@ def dag_phase(torch, tune_ref) -> dict:
     return r
 
 
+# ------------------------------------------------------------- autoscale
+
+AUTOSCALE_BATCHES = 16     # per pass: pool.map, then pool.map_unordered
+AUTOSCALE_TICK_S = 1.0     # the autoscalers' update interval
+AUTOSCALE_IDLE_S = 5.0     # idle seconds before a launched node is retired
+AUTOSCALE_TIMEOUT = 300.0  # a node, an actor or a job that never comes fails
+JOB_BATCH = 0              # the batch the job's task scores
+
+
+def _autoscale_node_types():
+    """Phase 17's node types: a CPU host, and a GPU host over the one card
+    listed twice (so the pool's two scorers can share it)."""
+    from ray_tpu_torch.autoscaler import NodeType
+
+    return [NodeType("cpu", {"CPU": 2}),
+            NodeType("gpu", {"CPU": 2, "GPU": 2}, max_workers=1,
+                     node_config={"gpu_ids": ["0", "0"]})]
+
+
+def _score_tokens(i: int):
+    """Batch i: TUNE_B x TUNE_S token ids from numpy, seed 1000 + i."""
+    import numpy as np
+
+    return np.random.default_rng(1000 + i).integers(
+        0, 50257, (TUNE_B, TUNE_S), dtype=np.int64)
+
+
+def _score_model():
+    """gpt2_small at full width and depth (12 layers, d 768, 12 heads,
+    vocab 50257, bf16 compute), CE chunk 8192; the weights drawn from a
+    seed-0 ``torch.Generator`` on the CPU, then moved to the card, so
+    every process holds the same bits."""
+    from ray_tpu_torch import presets
+    from ray_tpu_torch._private.device import resolve_device
+    from ray_tpu_torch.models.transformer import init_params, map_params
+
+    resolve_device("cuda")
+    cfg = presets.gpt2_small(remat=False, ce_chunk=8192)
+    host = init_params(cfg, 0, "cpu", param_dtype=cfg.param_dtype)
+    return cfg, map_params(lambda _p, t: t.to("cuda"), host)
+
+
+def _params_device(params) -> str:
+    from ray_tpu_torch.models.transformer import _leaves
+
+    return str(_leaves(params)[0].device)
+
+
+def _score(torch, cfg, params, i: int) -> tuple:
+    """Batch i's forward loss under no_grad on the card: (loss, ms)."""
+    from ray_tpu_torch.models.transformer import loss_fn
+
+    t0 = time.perf_counter()
+    tokens = torch.from_numpy(_score_tokens(i)).to("cuda")
+    with torch.no_grad():
+        _, m = loss_fn(cfg, params, {"tokens": tokens})
+    loss = float(m["loss"])  # waits for the card
+    return loss, (time.perf_counter() - t0) * 1e3
+
+
+class Scorer:
+    """Phase 17 (a)'s pool member, a ``num_gpus=1`` actor: gpt2_small's
+    forward loss of a batch; each call puts ``(batch, pid, ms)`` on the
+    queue and adds one to the ``batches_scored`` counter. The flash launch
+    counters of its process go to 0 when it is built."""
+
+    def __init__(self, queue):
+        import torch
+
+        from ray_tpu_torch.ops import flash_attention as fa
+        from ray_tpu_torch.util.metrics import Counter
+
+        self.torch, self.fa, self.queue = torch, fa, queue
+        self.cfg, self.params = _score_model()
+        self.scored = Counter("batches_scored",
+                              "gpt2_small batches scored by the pool")
+        _reset_counters(fa)
+
+    def score(self, i):
+        import os
+
+        loss, ms = _score(self.torch, self.cfg, self.params, i)
+        self.queue.put((i, os.getpid(), ms))
+        self.scored.inc()
+        return {"batch": i, "loss": loss, "ms": ms, "pid": os.getpid()}
+
+    def info(self):
+        import os
+
+        import ray_tpu_torch as rt
+
+        return {"pid": os.getpid(),
+                "node": rt.get_runtime_context().get_node_id(),
+                "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                "device": _params_device(self.params),
+                "launches": {f.__name__: f.launches
+                             for f in self.fa.KERNELS}}
+
+
+def _job_score(i: int) -> dict:
+    """The job's card task: batch i's loss, with this task's flash
+    launches (the counters go to 0 first)."""
+    import os
+
+    import torch
+
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    t0 = time.perf_counter()
+    cfg, params = _score_model()
+    setup_s = time.perf_counter() - t0
+    _reset_counters(fa)
+    loss, ms = _score(torch, cfg, params, i)
+    return {"batch": i, "loss": loss, "ms": ms, "setup_s": setup_s,
+            "pid": os.getpid(),
+            "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+            "device": _params_device(params),
+            "launches": {f.__name__: f.launches for f in fa.KERNELS}}
+
+
+_JOB = """
+import json, sys
+sys.path.insert(0, {root!r})
+import cloudpickle
+import chip_smoke as c
+import ray_tpu_torch as rt
+
+cloudpickle.register_pickle_by_value(c)
+rt.init(address="auto")  # the cluster this job was submitted to
+out = rt.get(rt.remote(c._job_score).options(num_gpus=1).remote({batch}),
+             timeout={timeout})
+rt.shutdown()
+print("SCORE " + json.dumps(out), flush=True)
+"""
+
+
+def _wait(what: str, cond, timeout: float = AUTOSCALE_TIMEOUT,
+          every: float = 0.1):
+    """Poll ``cond()`` until it returns a true value; fail the run after
+    ``timeout`` seconds."""
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        out = cond()
+        if out:
+            return out
+        time.sleep(every)
+    raise AssertionError(f"autoscale: {what} not within {timeout:.0f} s")
+
+
+def _jobs_cli(address: str, *args, timeout: float = AUTOSCALE_TIMEOUT):
+    """``python -m ray_tpu_torch.scripts.jobs`` with these arguments."""
+    return subprocess.run(
+        [sys.executable, "-m", "ray_tpu_torch.scripts.jobs", args[0],
+         "--address", address, *args[1:]],
+        capture_output=True, text=True, timeout=timeout, cwd=str(ROOT))
+
+
+def _gpu_nodes(state):
+    return [n for n in state.list_nodes()
+            if (n.get("labels") or {}).get("node_type") == "gpu"]
+
+
+def _autoscale_pool(rt, core, session_dir, state, card, ref) -> dict:
+    """(a): v1's ``StandardAutoscaler`` launches the gpu node for the
+    pool's two scorers; 16 batches through ``map``, 16 through
+    ``map_unordered``; the queue, the metrics, the state API and the
+    timeline read; the actors killed and the node retired."""
+    from ray_tpu_torch.autoscaler import (AutoscalerConfig,
+                                          LocalNodeProvider,
+                                          StandardAutoscaler)
+    from ray_tpu_torch.util import ActorPool
+    from ray_tpu_torch.util.queue import Queue
+
+    provider = LocalNodeProvider(session_dir, core.controller_addr)
+    auto = StandardAutoscaler(core.controller_addr, provider,
+                              AutoscalerConfig(
+                                  node_types=_autoscale_node_types(),
+                                  max_workers=2,
+                                  update_interval_s=AUTOSCALE_TICK_S,
+                                  idle_timeout_s=AUTOSCALE_IDLE_S))
+    auto.run_in_thread()
+    try:
+        queue = Queue()
+        scorer = rt.remote(Scorer).options(num_gpus=1)
+        t0 = time.perf_counter()
+        actors = [scorer.remote(queue) for _ in range(2)]
+        (node,) = _wait("the gpu node", lambda: _gpu_nodes(state), every=0.05)
+        node_s = time.perf_counter() - t0
+
+        def both_alive():
+            recs = [a for a in state.list_actors()
+                    if a["class_name"] == "Scorer" and a["state"] == "ALIVE"]
+            return recs if len(recs) == 2 else None
+
+        alive = _wait("both scorers ALIVE", both_alive)
+        alive_s = time.perf_counter() - t0
+        pool = ActorPool(actors)
+        ordered, first_s = [], None
+        for res in pool.map(lambda a, i: a.score.remote(i),
+                            range(AUTOSCALE_BATCHES)):
+            if first_s is None:
+                first_s = time.perf_counter() - t0
+            ordered.append(res)
+        unordered = list(pool.map_unordered(
+            lambda a, i: a.score.remote(i),
+            range(AUTOSCALE_BATCHES, 2 * AUTOSCALE_BATCHES)))
+        infos = rt.get([a.info.remote() for a in actors],
+                       timeout=RT_TIMEOUT)
+        entries = queue.get_nowait_batch(4 * AUTOSCALE_BATCHES)
+        metrics = state.cluster_metrics(all_nodes=True)
+        summary = state.summarize_tasks()
+        trace_path = ROOT / "chiprun_out" / "autoscale_timeline.json"
+        trace_path.parent.mkdir(exist_ok=True)
+        trace = state.timeline(str(trace_path))
+        launched = provider.non_terminated_nodes()
+        registered = [n for n in state.list_nodes()
+                      if (n.get("labels") or {}).get("provider_id")]
+        # ---- kill the scorers; the idle node must be retired
+        t_kill = time.perf_counter()
+        for a in actors:
+            rt.kill(a)
+        bound_s = AUTOSCALE_IDLE_S + 3 * AUTOSCALE_TICK_S + 10.0
+        _wait("the gpu node's retirement",
+              lambda: not provider.non_terminated_nodes() and not any(
+                  n["alive"] for n in _gpu_nodes(state)),
+              timeout=bound_s)
+        down_s = time.perf_counter() - t_kill
+        queue.shutdown()
+    finally:
+        auto.stop()
+        provider.shutdown()
+    # ---- gates
+    pids = {x["pid"] for x in infos}
+    if [n["node_type"] for n in launched] != ["gpu"] or \
+            len(registered) != 1:
+        raise AssertionError(f"(a) launched {launched}, registered "
+                             f"{[n['labels'] for n in registered]}: not "
+                             f"exactly one gpu node")
+    labels = node["labels"]
+    if labels.get("provider_id") != launched[0]["id"] or \
+            node["total"].get("GPU") != 2.0:
+        raise AssertionError(f"(a) the gpu node in list_nodes: {node}")
+    if any(a["node_id_hex"] != node["node_id_hex"] for a in alive) or \
+            any(x["node"] != node["node_id_hex"] for x in infos):
+        raise AssertionError(f"(a) the scorers are not on the gpu node: "
+                             f"{[a['node_id_hex'] for a in alive]}")
+    if any((x["visible"], x["device"]) != ("0", "cuda:0") for x in infos) \
+            or len(pids) != 2:
+        raise AssertionError(f"(a) the scorers' processes: {infos}")
+    if [r["batch"] for r in ordered] != list(range(AUTOSCALE_BATCHES)):
+        raise AssertionError(f"(a) map's order "
+                             f"{[r['batch'] for r in ordered]}")
+    if sorted(r["batch"] for r in unordered) != list(
+            range(AUTOSCALE_BATCHES, 2 * AUTOSCALE_BATCHES)):
+        raise AssertionError(f"(a) map_unordered returned "
+                             f"{[r['batch'] for r in unordered]}")
+    results = ordered + unordered
+    rel = max(abs(r["loss"] - ref["losses"][r["batch"]])
+              / abs(ref["losses"][r["batch"]]) for r in results)
+    equal = sum(r["loss"] == ref["losses"][r["batch"]] for r in results)
+    if not rel <= TRAIN_PARITY_RTOL or \
+            not all(math.isfinite(r["loss"]) for r in results):
+        raise AssertionError(f"(a) losses {[r['loss'] for r in results]} "
+                             f"against in-process {ref['losses']}")
+    if len(entries) != 2 * AUTOSCALE_BATCHES or \
+            {p for _, p, _ in entries} != pids:
+        raise AssertionError(f"(a) the queue gave {len(entries)} entries "
+                             f"from pids {sorted({p for _, p, _ in entries})}")
+    scored = sum(float(ln.rsplit(" ", 1)[1]) for ln in metrics.splitlines()
+                 if ln.startswith("batches_scored{"))
+    if scored != 2 * AUTOSCALE_BATCHES:
+        raise AssertionError(f"(a) batches_scored sums to {scored}")
+    finished = summary.get("score", {}).get("FINISHED", 0)
+    if finished < 2 * AUTOSCALE_BATCHES:
+        raise AssertionError(f"(a) summarize_tasks: {summary.get('score')}")
+    traced = {e["args"].get("worker_pid") for e in trace
+              if e["name"] == "score:run"}
+    if not pids <= traced or json.loads(trace_path.read_text()) != trace:
+        raise AssertionError(f"(a) the timeline's score spans name pids "
+                             f"{traced}, not both of {pids}")
+    launches = {k: sum(x["launches"][k] for x in infos)
+                for k in infos[0]["launches"]}
+    want = {"flash_forward": 12 * 2 * AUTOSCALE_BATCHES, "flash_dq": 0,
+            "flash_dkv": 0}
+    if launches != want:
+        raise AssertionError(f"(a) flash launches over the scorers "
+                             f"{launches}, expected {want}")
+    ms = sorted(r["ms"] for r in results)
+    r = dict(node_s=node_s, alive_s=alive_s, first_batch_s=first_s,
+             scale_down_s=down_s, scale_down_bound_s=bound_s,
+             batch_ms_median=ms[len(ms) // 2], batch_ms=[x["ms"] for x in
+                                                       results],
+             max_rel_vs_in_process=rel, bit_equal=equal,
+             launches=launches, per_actor=infos, queue_entries=len(entries),
+             batches_scored=scored, finished_calls=finished,
+             timeline_events=len(trace), node=node["node_id_hex"])
+    print(f"autoscale (a) [{card}]: StandardAutoscaler over "
+          f"LocalNodeProvider (tick {AUTOSCALE_TICK_S} s, idle "
+          f"{AUTOSCALE_IDLE_S} s), a head with no GPU: two num_gpus=1 "
+          f"scorers -> one gpu node (card 0 listed twice, GPU 2) registered"
+          f" {node_s:.2f} s after the demand, both scorers ALIVE there at "
+          f"{alive_s:.2f} s, the first batch scored at {first_s:.2f} s; "
+          f"{2 * AUTOSCALE_BATCHES} batches (gpt2_small 12 layers, "
+          f"B{TUNE_B} x S{TUNE_S}) through map (in order) and map_unordered"
+          f": median {r['batch_ms_median']:.1f} ms a batch in the actors "
+          f"({ms[0]:.1f}-{ms[-1]:.1f}), {ref['ms_median']:.1f} in process; "
+          f"losses within {rel:.2e} of the in-process ones ({equal} of "
+          f"{len(results)} bit-equal); queue {len(entries)} entries from "
+          f"pids {sorted(pids)}; batches_scored {scored:.0f} over the "
+          f"cluster scrape; {finished} score calls FINISHED; timeline "
+          f"{len(trace)} events with both pids; flash launches {launches};"
+          f" the node retired {down_s:.2f} s after the kill (bound "
+          f"{bound_s:.0f} s)", flush=True)
+    return r
+
+
+def _autoscale_job(core, session_dir, address, card, ref, work) -> dict:
+    """(b): v2's ``Reconciler`` over a fresh ``LocalNodeProvider``, its
+    ``reconcile`` driven every tick from a thread here; a job submitted
+    through the CLI with ``--follow`` runs one card task, which makes the
+    reconciler launch the gpu node; status, list and logs through the
+    CLI; the instance's history; a failing job."""
+    from ray_tpu_torch.autoscaler import AutoscalerConfig, LocalNodeProvider
+    from ray_tpu_torch.autoscaler.autoscaler import fetch_autoscaler_state
+    from ray_tpu_torch.autoscaler.v2 import Reconciler
+
+    job_file = work / "score_job.py"
+    job_file.write_text(_JOB.format(root=str(ROOT), batch=JOB_BATCH,
+                                    timeout=AUTOSCALE_TIMEOUT))
+    provider = LocalNodeProvider(session_dir, core.controller_addr)
+    rec = Reconciler(AutoscalerConfig(node_types=_autoscale_node_types(),
+                                      max_workers=2,
+                                      update_interval_s=AUTOSCALE_TICK_S),
+                     provider, idle_timeout_s=AUTOSCALE_IDLE_S)
+    stop, failed = threading.Event(), []
+
+    def loop():  # rec.im is read only once this thread has ended
+        while not stop.wait(AUTOSCALE_TICK_S):
+            try:
+                rec.reconcile(fetch_autoscaler_state(core.controller_addr))
+            except Exception as e:  # noqa: BLE001 — raised after the join
+                failed.append(e)
+                return
+
+    thread = threading.Thread(target=loop, name="autoscaler-v2", daemon=True)
+    thread.start()
+    try:
+        t0 = time.perf_counter()
+        sub = _jobs_cli(address, "submit", "--follow", "--submission-id",
+                        "score-gpt2", "--", sys.executable, str(job_file))
+        job_s = time.perf_counter() - t0
+        if sub.returncode != 0:
+            raise AssertionError(f"(b) the job: rc {sub.returncode}\n"
+                                 f"{sub.stdout[-3000:]}\n{sub.stderr[-3000:]}")
+        st = json.loads(_jobs_cli(address, "status", "score-gpt2").stdout)
+        listed = {j["job_id"]: j["status"] for j in json.loads(
+            _jobs_cli(address, "list").stdout)}
+        logs = _jobs_cli(address, "logs", "score-gpt2").stdout
+        t_done = time.perf_counter()
+        # the pass that terminates the node marks its instance TERMINATED
+        _wait("the gpu instance's retirement",
+              lambda: failed or not provider.non_terminated_nodes(),
+              timeout=AUTOSCALE_IDLE_S + 3 * AUTOSCALE_TICK_S + 30.0)
+        down_s = time.perf_counter() - t_done
+        bad = _jobs_cli(address, "submit", "--follow", "--submission-id",
+                        "exits-1", "--",
+                        f"{sys.executable} -c 'import sys; sys.exit(1)'")
+        bad_st = json.loads(_jobs_cli(address, "status", "exits-1").stdout)
+    finally:
+        stop.set()
+        thread.join(60.0)
+        provider.shutdown()
+    if failed or thread.is_alive():
+        raise AssertionError(f"(b) the reconcile loop: {failed or 'hung'}")
+    lines = [ln for ln in logs.splitlines() if ln.startswith("SCORE ")]
+    if st["status"] != "SUCCEEDED" or listed.get("score-gpt2") != \
+            "SUCCEEDED" or len(lines) != 1:
+        raise AssertionError(f"(b) status {st['status']}, list {listed}, "
+                             f"logs {logs[-2000:]}")
+    out = json.loads(lines[0][len("SCORE "):])
+    want_loss = ref["losses"][JOB_BATCH]
+    rel = abs(out["loss"] - want_loss) / abs(want_loss)
+    if not rel <= TRAIN_PARITY_RTOL:
+        raise AssertionError(f"(b) the job's loss {out['loss']} against "
+                             f"in-process {want_loss}")
+    if out["launches"] != {"flash_forward": 12, "flash_dq": 0,
+                           "flash_dkv": 0} or \
+            (out["visible"], out["device"]) != ("0", "cuda:0"):
+        raise AssertionError(f"(b) the job's task: {out}")
+    insts = list(rec.im.instances.values())
+    walk = [s for _, s, _ in insts[0].history] if len(insts) == 1 else None
+    if walk != ["QUEUED", "REQUESTED", "ALLOCATED", "RAY_RUNNING",
+                "TERMINATING", "TERMINATED"] or insts[0].node_type != "gpu":
+        raise AssertionError(f"(b) the instances: "
+                             f"{[(i.node_type, i.history) for i in insts]}")
+    if bad.returncode != 1 or bad_st["status"] != "FAILED" or \
+            bad_st.get("exit_code") != 1:
+        raise AssertionError(f"(b) the failing job: rc {bad.returncode}, "
+                             f"{bad_st}")
+    hist = insts[0].history
+    t_q = hist[0][0]
+    r = dict(job_s=job_s, loss=out["loss"], rel_vs_in_process=rel,
+             bit_equal=out["loss"] == want_loss, task=out,
+             history=[(s, round(t - t_q, 3), why) for t, s, why in hist],
+             scale_down_s=down_s, failing_job=bad_st)
+    print(f"autoscale (b) [{card}]: v2 Reconciler loop; `python -m "
+          f"ray_tpu_torch.scripts.jobs submit --follow` -> SUCCEEDED in "
+          f"{job_s:.2f} s (status and list agree); its num_gpus=1 task "
+          f"(CUDA_VISIBLE_DEVICES={out['visible']}, {out['device']}, "
+          f"model {out['setup_s']:.2f} s, the batch {out['ms']:.1f} ms) "
+          f"loss {out['loss']:.6f}, within {rel:.2e} of in-process, flash "
+          f"launches {out['launches']}; the gpu instance "
+          + " -> ".join(f"{s} (+{t:.2f} s)" for s, t, _ in r["history"])
+          + f", retired {down_s:.2f} s after the job; a job exiting 1 "
+          f"ends {bad_st['status']} (CLI rc {bad.returncode})", flush=True)
+    return r
+
+
+def autoscale_phase(torch, card) -> dict:
+    """Phase 17: a head node with no GPU; the autoscalers launch the
+    card's node. (a) v1 with the pool, the queue, metrics and the state
+    API; (b) v2 with a job submitted through the CLI."""
+    import shutil
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch._private import api
+    from ray_tpu_torch.util import state
+
+    # the in-process references: every batch's loss on the card here
+    cfg, params = _score_model()
+    _score(torch, cfg, params, 0)  # warm-up
+    losses, ms = {}, []
+    for i in range(2 * AUTOSCALE_BATCHES):
+        losses[i], t = _score(torch, cfg, params, i)
+        ms.append(t)
+    del params
+    _free(torch)
+    ms.sort()
+    ref = {"losses": losses, "ms_median": ms[len(ms) // 2]}
+    work = ROOT / "build" / "autoscale"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    info = rt.init(num_gpus=0)
+    try:
+        core = api._require_core()
+        pool = _autoscale_pool(rt, core, info["session_dir"], state, card,
+                               ref)
+        job = _autoscale_job(core, info["session_dir"], info["address"],
+                             card, ref, work)
+    finally:
+        rt.shutdown()
+        shutil.rmtree(work, ignore_errors=True)
+    return {"pool": pool, "job": job, "in_process_ms_median":
+            ref["ms_median"]}
+
+
+def preflight_line() -> dict:
+    """What the port's ``reap_all()`` swept before the run, and whether
+    pyarrow, pandas and gymnasium import here (and their versions)."""
+    from ray_tpu_torch._private.reaper import reap_all
+
+    swept = reap_all()
+    code = ("import importlib, json\nout = {}\n"
+            "for m in ('pyarrow', 'pandas', 'gymnasium'):\n"
+            "    try:\n"
+            "        out[m] = importlib.import_module(m).__version__\n"
+            "    except Exception as e:\n"
+            "        out[m] = None\n"
+            "print(json.dumps(out))\n")
+    mods = json.loads(subprocess.run(
+        [sys.executable, "-c", code], check=True, capture_output=True,
+        text=True, timeout=300).stdout.strip().splitlines()[-1])
+    r = {"reaped": swept, "modules": mods}
+    print("preflight: reap_all() swept " + json.dumps(swept) + "; "
+          + ", ".join(f"{m} {v}" if v else f"{m} absent"
+                      for m, v in mods.items()), flush=True)
+    return r
+
+
 def main() -> int:
     import torch
 
@@ -4708,22 +5244,27 @@ def main() -> int:
         t0 = time.perf_counter()
         out = fn(*args)
         phase_s[name] = time.perf_counter() - t0
+        print(f"phase {name}: {phase_s[name]:.1f} s", flush=True)
         return out
 
     card = card_line()
+    preflight = preflight_line()
     build = timed("build", build_phase)
     kern = timed("kernel", kernel_phase, torch)
     flash = timed("flash", flash_kernel_phase, torch)
     serve = timed("serve", serve_phase, torch)
+    _free(torch)
+    serve_cut = timed("serve_cut", serve_phase, torch, CUT_OVERRIDES)
     _free(torch)
     spec_serve = timed("spec_serve", spec_serve_phase, torch, card,
                        serve["texts"])
     _free(torch)
     lanes = timed("serve_lanes", serve_lanes_phase, torch, serve["texts"])
     _free(torch)
-    runtime = timed("runtime", runtime_phase, torch, serve)
+    runtime = timed("runtime", runtime_phase, torch, serve_cut)
     _free(torch)
-    serve_app = timed("serve_app", serve_app_phase, torch, serve, runtime)
+    serve_app = timed("serve_app", serve_app_phase, torch, serve_cut,
+                      runtime)
     parity = timed("parity", parity_phase, torch)
     train = timed("train", train_phase, torch)
     train_parity = timed("train_parity", train_parity_phase, torch)
@@ -4732,6 +5273,8 @@ def main() -> int:
     pipeline = timed("pipeline", pipeline_phase, torch)
     tune_r = timed("tune", tune_phase, torch, train, dp_train)
     dag = timed("dag", dag_phase, torch, tune_r)
+    _free(torch)
+    autoscale = timed("autoscale", autoscale_phase, torch, card)
     print("phase seconds: " + json.dumps(
         {k: round(v, 1) for k, v in phase_s.items()}), flush=True)
     main_case = kern["decode_bfloat16"]
@@ -4830,13 +5373,24 @@ def main() -> int:
                 base, name=f"flash_attention_{name}_{suffix}",
                 launches=counts[{"fwd": "flash_forward", "dq": "flash_dq",
                                  "dkv": "flash_dkv"}[name]]))
-    detail = {"card": card, "build": build, "kernel": kern, "flash": flash,
-              "serve": serve, "spec_serve": spec_serve,
+    # K1 in the autoscaled node's processes (phase 17): the pool's two
+    # scorers together, and the job's card task
+    base = next(k for k in kernels["kernels"]
+                if k["name"] == "flash_attention_fwd")
+    for suffix, counts in (("actor_pool", autoscale["pool"]["launches"]),
+                           ("job", autoscale["job"]["task"]["launches"])):
+        kernels["kernels"].append(dict(
+            base, name=f"flash_attention_fwd_{suffix}",
+            launches=counts["flash_forward"]))
+    detail = {"card": card, "preflight": preflight, "build": build,
+              "kernel": kern, "flash": flash, "serve": serve,
+              "serve_cut": serve_cut, "spec_serve": spec_serve,
               "serve_lanes": lanes, "runtime": runtime,
               "serve_app": serve_app, "parity": parity,
               "train": train,
               "train_parity": train_parity, "dp_train": dp_train,
               "pipeline": pipeline, "tune": tune_r, "dag": dag,
+              "autoscale": autoscale,
               "phase_seconds": phase_s,
               "seconds": time.perf_counter() - t_start}
     out_dir = ROOT / "chiprun_out"

@@ -25,7 +25,13 @@ It runs, serves and trains:
     (``ray_tpu_torch.dag``), compiled onto shared-memory channels with
     ``experimental_compile``; ``ray_tpu_torch.workflow`` runs a DAG with
     its step results kept; ``init(address="client://...")`` drives a
-    cluster from a process outside it (``ray_tpu_torch.util.client``).
+    cluster from a process outside it (``ray_tpu_torch.util.client``);
+  * ``ray_tpu_torch.util`` has ``ActorPool``, a distributed ``Queue``,
+    the state API (``util.state``) and user metrics (``util.metrics``);
+    ``ray_tpu_torch.autoscaler`` launches and retires nodes on demand
+    (v1's ``StandardAutoscaler`` and v2's ``Reconciler``, over a
+    ``NodeProvider``; a node type may count cards), and
+    ``python -m ray_tpu_torch.scripts.jobs`` submits and follows jobs.
 
 Importing the package imports the runtime only: its daemons start as
 ``python -m ray_tpu_torch._private...`` and never import torch. The model

@@ -1055,7 +1055,8 @@ class CoreWorker:
                         self._drop_sentinel_stream(task_id)
                 any_shared = any_shared or body.get("stream_any_shared", False)
             if spec is not None:
-                self._record_event(spec, "FINISHED")
+                self._record_event(spec, "FINISHED", body.get("worker_pid"),
+                                   body.get("run_start"))
                 if any_shared:
                     self._record_lineage(spec)
         if task is not None:
@@ -2578,18 +2579,23 @@ class CoreWorker:
 
     # ------------------------------------------------------------- events
 
-    def _record_event(self, spec: TaskSpec, state: str) -> None:
-        self._task_events.append(
-            {
-                "task_id": spec.task_id.hex(),
-                "name": spec.name,
-                "state": state,
-                "ts": time.time(),
-                "job_id": spec.job_id.hex(),
-                "kind": spec.kind.name,
-                "node": self.node_id_hex,
-            }
-        )
+    def _record_event(self, spec: TaskSpec, state: str,
+                      worker_pid: Optional[int] = None,
+                      run_start: Optional[float] = None) -> None:
+        event = {
+            "task_id": spec.task_id.hex(),
+            "name": spec.name,
+            "state": state,
+            "ts": time.time(),
+            "job_id": spec.job_id.hex(),
+            "kind": spec.kind.name,
+            "node": self.node_id_hex,
+        }
+        if worker_pid is not None:
+            event["worker_pid"] = worker_pid  # the process that ran it
+        if run_start is not None:
+            event["run_start"] = run_start  # its wall clock when it began
+        self._task_events.append(event)
         if len(self._task_events) >= 100:
             events = list(self._task_events)
             self._task_events.clear()

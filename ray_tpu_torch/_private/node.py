@@ -99,9 +99,17 @@ def start_supervisor(
     resources: Optional[Dict[str, float]] = None,
     node_name: str = "",
     labels: Optional[Dict[str, str]] = None,
+    env: Optional[Dict[str, str]] = None,
 ) -> Tuple[subprocess.Popen, Address]:
+    """Start a supervisor for one node. ``env`` is set in its environment
+    over this process's (a launched node's ``CUDA_VISIBLE_DEVICES``: the
+    card ids it hands its workers)."""
     tag = node_name or f"node{int(time.monotonic_ns() % 1_000_000)}"
     addr_file = os.path.join(session_dir, f"supervisor_{tag}_address")
+    try:  # a dead node of the same name must not hand over its address
+        os.remove(addr_file)
+    except FileNotFoundError:
+        pass
     log = open(os.path.join(session_dir, "logs", f"supervisor_{tag}.log"), "ab")
     cmd = [
         sys.executable,
@@ -121,7 +129,8 @@ def start_supervisor(
     if labels:
         cmd += ["--labels", json.dumps(labels)]
     proc = subprocess.Popen(
-        cmd, env=_daemon_env(config.to_env()), stdout=log, stderr=subprocess.STDOUT
+        cmd, env=_daemon_env({**config.to_env(), **(env or {})}), stdout=log,
+        stderr=subprocess.STDOUT
     )
     addr = _wait_for_address_file(addr_file)
     return proc, addr

@@ -30,6 +30,7 @@ import inspect
 import logging
 import os
 import threading
+import time
 import traceback
 from collections import OrderedDict, deque
 from concurrent.futures import ThreadPoolExecutor
@@ -70,6 +71,8 @@ class Executor:
         # append/popleft are thread-safe)
         self._done_outbox: deque = deque()
         self._done_flushing = False
+        # wall-clock start of each task running here, until its report
+        self._run_start: Dict[TaskID, float] = {}
         self._gpu_env_checked = False
         self._lock = threading.Lock()
 
@@ -219,6 +222,7 @@ class Executor:
         from ray_tpu_torch._private import chaos
 
         chaos.maybe_crash("worker.execute")
+        self._run_start[spec.task_id] = time.time()
         if spec.task_id in self._cancelled:
             from ray_tpu_torch._private.exceptions import TaskCancelledError
 
@@ -266,6 +270,7 @@ class Executor:
             self._report_error(spec, err, retryable)
 
     async def _execute_async(self, spec: TaskSpec) -> None:
+        self._run_start[spec.task_id] = time.time()
         try:
             args, kwargs = await asyncio.get_running_loop().run_in_executor(
                 None, self._resolve_args, spec
@@ -534,6 +539,10 @@ class Executor:
         # not be processed twice — a duplicated retryable-error body would
         # double-requeue the task at the owner
         body["report_id"] = os.urandom(8)
+        body["worker_pid"] = os.getpid()  # the owner's task events name it
+        run_start = self._run_start.pop(spec.task_id, None)
+        if run_start is not None:
+            body["run_start"] = run_start  # the timeline's span begins here
         self._done_outbox.append((tuple(spec.owner), body, 0))
         self.core._run_nowait(self._flush_done())
 

@@ -177,3 +177,40 @@ def test_bind_and_client_addresses_no_longer_raise():
     # ActorMethod.bind builds a ClassMethodNode (tests/test_torch_dag.py
     # binds the methods of live actors)
     assert "ClassMethodNode(self, args, kwargs)" in api
+
+
+# the rest of util, the autoscaler, the job CLI and the reaper
+UTIL_AUTOSCALER_MODULES = (
+    "ray_tpu_torch.util.metrics", "ray_tpu_torch.util.actor_pool",
+    "ray_tpu_torch.util.queue", "ray_tpu_torch.util.state",
+    "ray_tpu_torch.autoscaler", "ray_tpu_torch.autoscaler.node_provider",
+    "ray_tpu_torch.autoscaler.autoscaler", "ray_tpu_torch.autoscaler.v2",
+    "ray_tpu_torch.scripts", "ray_tpu_torch.scripts.jobs",
+    "ray_tpu_torch._private.reaper")
+
+
+@pytest.mark.parametrize("mod", UTIL_AUTOSCALER_MODULES)
+def test_util_autoscaler_jobs_and_reaper_modules_are_checked(mod):
+    assert _module_file(mod) in FILES
+
+
+def test_importing_util_autoscaler_jobs_and_reaper_loads_no_jax_or_torch():
+    """The autoscaler, the job CLI, the reaper and these utilities run in
+    processes that need no card: importing them loads neither JAX nor
+    torch."""
+    code = ("import sys\n"
+            + "".join(f"import {m}\n" for m in UTIL_AUTOSCALER_MODULES)
+            + "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+              "('jax', 'jaxlib', 'ray_tpu', 'torch')))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip() == "[]"
+
+
+def test_job_manager_names_a_cli_that_exists():
+    text = (ROOT / "ray_tpu_torch/_private/job_manager.py").read_text()
+    assert "ray_tpu_torch.scripts.jobs" in text
+    assert _module_file("ray_tpu_torch.scripts.jobs").exists()
+    util = (ROOT / "ray_tpu_torch/util/__init__.py").read_text()
+    assert "not ported" not in util
