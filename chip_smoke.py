@@ -291,7 +291,7 @@ of its checks fails:
      run computes), arrives as a CPU float32 tensor, and the client
      process never initialized CUDA.
 
- 17. autoscale (run last, with its own ``rt.init(num_gpus=0)``: the
+ 17. autoscale (run after phase 16, with its own ``rt.init(num_gpus=0)``: the
      head has no GPU, so nothing here reaches the card unless an
      autoscaler launches its node). Node types ``cpu`` ``{"CPU": 2}`` and
      ``gpu`` ``{"CPU": 2, "GPU": 2}`` over the one card listed twice
@@ -322,6 +322,44 @@ of its checks fails:
      Printed: seconds from demand to node, to both ALIVE, to the first
      batch; ms a batch in the actors and in process; seconds to retire;
      the job's seconds.
+
+ 18. data (run after phase 17, with its own ``rt.init`` and a 4 GiB
+     store): the data library feeding gpt2_small at full size (12 layers,
+     d 768, 12 heads, vocab 50257, bf16 compute, ``remat=False``, CE chunk
+     8192, params from seed 0, AdamW with no warmup), B8 x S1024. (a)
+     bench.py's ``data_regime_main`` on the card: ``range(192,
+     parallelism=24).map_batches(_feed_tokens_batch)`` through
+     ``StreamingExecutor(num_readers=1, epochs=3, seed=0).feed``, then the
+     same loader with ``.random_shuffle(seed=1)`` through
+     ``ExchangeExecutor(num_producers=1, num_consumers=2,
+     drop_last=True).feed`` (``is_channel_backed`` asserted), each
+     compute-bound (all 3 epochs) and input-bound (a block delay of 2x the
+     bare step, 24 steps); each read-only arena view copied out and to the
+     card inside the step, which ends in ``float(loss)``. Gates: every
+     batch equal bit for bit to ``task_epoch_batches`` /
+     ``task_exchange_batches`` (merged) at the same seed; each step's loss
+     within ``TRAIN_PARITY_RTOL`` of the same steps in process on the
+     baseline's batches (bit-equal steps counted); K1, K2 and K3 exactly
+     12 x steps here; each arm's input-bound stall fraction above its
+     compute-bound one. Counted: stall fractions and steps/s over 24 steps,
+     each warm epoch's ``consumer_rpc_calls`` and its stages' rpc calls,
+     the bare step's ms. (b) ``TorchTrainer(ScalingConfig(num_workers=1,
+     use_gpu=True), datasets={"train": range(48, parallelism=6)
+     .map_batches(_feed_tokens_batch)})``, the worker's loop
+     ``get_dataset_shard("train").iter_device_batches(batch_size=8,
+     prefetch=2)``, one step and one report per batch. Gates: the worker
+     sees card 0; every batch on ``cuda:0``, int32, from pinned staging;
+     every row exactly once (the first 4 tokens of each row); K1-K3
+     exactly 12 x 6 in the worker; the losses within
+     ``TRAIN_PARITY_RTOL`` of the same batches stepped in process. (c)
+     ``range_tensor(64, shape=(1024, 1024))`` (int64, 8 MiB a row) in
+     batches of 8 through ``iter_device_batches`` at prefetch 2 and 0:
+     every tensor on ``cuda:0`` equal bit for bit, the staging buffers
+     pinned, ``device="cpu"`` equal; counted: the copy's GB/s from CUDA
+     events against a pageable ``torch.as_tensor(...).to("cuda")``, the
+     consumer's wait per batch. (d) the native codec loaded in this
+     process and in a worker; (a)'s first epoch of token rows through
+     ``write_tfrecords`` and ``read_tfrecords`` equal.
 
 Before phase 2 a preflight line gives what the port's ``reap_all()``
 swept and whether pyarrow, pandas and gymnasium import (with their
@@ -5200,6 +5238,522 @@ def autoscale_phase(torch, card) -> dict:
             ref["ms_median"]}
 
 
+# ------------------------------------------------------------------ data
+
+DATA_B, DATA_S = 8, 1024
+DATA_STEPS = 24            # (a) steps of each arm in its stall window
+DATA_EPOCHS = 3            # (a) epochs each executor is built with
+INGEST_BATCHES = 6         # (b) batches through TorchTrainer's shard
+DEVICE_ROWS, DEVICE_SHAPE, DEVICE_BATCH = 64, (1024, 1024), 8  # (c)
+DATA_STORE = 4 * 2 ** 30   # the phase's object store
+
+
+def _feed_tokens_batch(vocab: int, seq: int, delay_s: float, b):
+    """The streaming feed's transform (bench.py's): ids -> a [rows, seq]
+    int32 token block, with an optional per-block sleep that makes the
+    loader the bottleneck (the input-bound regime)."""
+    import numpy as np
+
+    if delay_s:
+        time.sleep(delay_s)
+    ids = np.asarray(b["id"])
+    rng = np.random.default_rng(1234 + int(ids[0]))
+    return {"tokens": rng.integers(
+        0, vocab, (len(ids), seq)).astype(np.int32)}
+
+
+def _data_model(torch):
+    """Phase 18's model: gpt2_small at full size (12 layers, d 768, 12
+    heads, vocab 50257, bf16 compute), ``remat=False``, CE chunk 8192,
+    params from seed 0 on the card, AdamW with no warmup."""
+    from ray_tpu_torch import presets
+    from ray_tpu_torch.models.training import (OptimizerConfig,
+                                               init_train_state,
+                                               make_train_step)
+
+    cfg = presets.gpt2_small(remat=False, ce_chunk=8192)
+    state, tx = init_train_state(
+        cfg, OptimizerConfig(warmup_steps=0, decay_steps=1000), seed=0,
+        device="cuda")
+    return cfg, state, make_train_step(cfg, tx)
+
+
+def _data_calibrate(torch, state, step, vocab):
+    """bench.py's calibration: one step, then 3 timed on seed-0 tokens
+    (the bare step, which sizes the input-bound block delay)."""
+    import numpy as np
+
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, vocab, (DATA_B, DATA_S)).astype(np.int32)).to("cuda")
+    state, m = step(state, {"tokens": tokens})
+    float(m["loss"])
+    t0 = time.perf_counter()
+    for _ in range(3):
+        state, m = step(state, {"tokens": tokens})
+    float(m["loss"])
+    return state, (time.perf_counter() - t0) / 3
+
+
+def _feed_arm(torch, ex, box, step, full: bool) -> dict:
+    """Drive the train step through ``ex.feed``: each read-only arena view
+    is copied out (the host copy the gate compares) and to the card inside
+    the step, which ends in ``float(loss)``, so the slot is acked only
+    after the step really ran. The stall window is bench.py's: from the
+    end of the first step to the end of step ``DATA_STEPS``; ``full``
+    goes on through every epoch (the warm epochs' stats)."""
+    import numpy as np
+
+    stall, last_end, seen, losses = [0.0], [None], [], []
+
+    def train_step(b):
+        now = time.perf_counter()
+        if last_end[0] is not None:
+            stall[0] += now - last_end[0]
+        host = np.array(b["tokens"])
+        box[0], m = step(box[0], {"tokens": torch.from_numpy(host)
+                                  .to("cuda")})
+        losses.append(float(m["loss"]))
+        seen.append(host)
+        last_end[0] = time.perf_counter()
+
+    t_first = window = None
+    try:
+        for _ in ex.feed(train_step):
+            if t_first is None:
+                t_first, stall[0] = last_end[0], 0.0
+            if len(seen) == DATA_STEPS:
+                total = max(last_end[0] - t_first, 1e-9)
+                window = {"stall_fraction": stall[0] / total,
+                          "steps_per_s": (DATA_STEPS - 1) / total}
+                if not full:
+                    break
+        stats = ex.epoch_stats
+    finally:
+        t0 = time.perf_counter()
+        ex.shutdown()
+        shutdown_s = time.perf_counter() - t0
+    warm = [{"epoch": e["epoch"],
+             "consumer_rpc_calls": e["consumer_rpc_calls"],
+             "stage_rpc_calls": [s.get("rpc_calls")
+                                 for s in e["stage_reports"]]}
+            for e in stats[1:]]
+    return dict(window, steps=len(seen), batches=seen, losses=losses,
+                warm_epochs=warm, shutdown_s=shutdown_s)
+
+
+def _ingest_loop(config):
+    """Phase 18 (b), in ``TorchTrainer``'s worker: the rank's dataset
+    shard through ``iter_device_batches(batch_size=8, prefetch=2)``, one
+    train step and one ``train.report`` per batch. Each report carries
+    the batch's device, dtype and shape, each row's first 4 tokens, the
+    step's loss and ms, and this process's flash launches (the counters
+    go to 0 before the first step)."""
+    import os
+
+    import torch
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch._private.device import resolve_device
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    resolve_device("cuda")
+    cfg, state, step = _data_model(torch)
+    _reset_counters(fa)
+    it = train.get_dataset_shard("train").iter_device_batches(
+        batch_size=DATA_B, prefetch=2)
+    for batch in it:
+        t = batch["tokens"]
+        t0 = time.perf_counter()
+        state, m = step(state, {"tokens": t})
+        loss = float(m["loss"])
+        train.report({
+            "loss": loss, "step_ms": (time.perf_counter() - t0) * 1e3,
+            "device": str(t.device), "dtype": str(t.dtype),
+            "shape": list(t.shape), "rows": t[:, :4].cpu().tolist(),
+            "launches": {f.__name__: f.launches for f in fa.KERNELS},
+            "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+            "pinned": [b.is_pinned() for ring in it.staging.values()
+                       for b in ring if b is not None]})
+
+
+def _codec_is_native() -> bool:
+    from ray_tpu_torch._native import codec
+
+    return codec._get() is not None
+
+
+def _replay_losses(torch, arms, vocab=None) -> list:
+    """The same steps in this process: a fresh seed-0 state (given
+    ``vocab``, through the same calibration first), then each arm's
+    batches in the order they ran."""
+    cfg, state, step = _data_model(torch)
+    if vocab is not None:
+        state, _ = _data_calibrate(torch, state, step, vocab)
+    out = []
+    for batches in arms:
+        losses = []
+        for host in batches:
+            state, m = step(state, {"tokens": torch.from_numpy(host)
+                                    .to("cuda")})
+            losses.append(float(m["loss"]))
+        out.append(losses)
+    del state, step
+    _free(torch)
+    return out
+
+
+def _loss_parity(got, want, what) -> dict:
+    rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+    if len(got) != len(want) or not rel <= TRAIN_PARITY_RTOL or \
+            not all(math.isfinite(x) for x in got):
+        raise AssertionError(f"{what}: losses {got} against {want} in "
+                             f"process (largest relative {rel:.2e})")
+    return {"max_rel": rel, "bit_equal": sum(a == b for a, b in
+                                             zip(got, want)),
+            "steps": len(got)}
+
+
+def _data_feed(torch, rd, ds_mod, dx) -> dict:
+    """(a): the streaming feed and the exchange arm, each compute-bound
+    and input-bound, through one train state in this process."""
+    import functools
+
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    vocab = 50257
+    t0 = time.perf_counter()
+    cfg, state, step = _data_model(torch)
+    state, step_s = _data_calibrate(torch, state, step, vocab)
+    model_s = time.perf_counter() - t0
+    box = [state]
+    del state
+
+    def loader(delay, shuffle):
+        ds = rd.range(DATA_STEPS * DATA_B, parallelism=DATA_STEPS) \
+            .map_batches(functools.partial(_feed_tokens_batch, vocab,
+                                           DATA_S, delay))
+        return ds.random_shuffle(seed=1) if shuffle else ds
+
+    # the task baselines, at the executors' seed (the delay changes no
+    # token, so the undelayed loader stands for both regimes)
+    stream_ops, ex_ops = loader(0.0, False)._ops, loader(0.0, True)._ops
+    t0 = time.perf_counter()
+    base_stream, base_ex = [], []
+    for epoch in range(1, DATA_EPOCHS + 1):
+        base_stream += [b["tokens"] for b in ds_mod.task_epoch_batches(
+            stream_ops, batch_size=DATA_B, epoch=epoch, seed=0)]
+        base_ex += [b["tokens"] for b in dx.task_exchange_batches(
+            ex_ops, batch_size=DATA_B, num_consumers=2, epoch=epoch,
+            seed=0, drop_last=True)]
+    baseline_s = time.perf_counter() - t0
+    _reset_counters(fa)
+    arms = {}
+    for name, shuffle in (("stream", False), ("exchange", True)):
+        for regime, delay in (("compute_bound", 0.0),
+                              ("input_bound", 2.0 * step_s)):
+            ops = loader(delay, shuffle)._ops
+            t1 = time.perf_counter()
+            if shuffle:
+                ex = dx.ExchangeExecutor(
+                    ops, batch_size=DATA_B, epochs=DATA_EPOCHS, seed=0,
+                    num_producers=1, num_consumers=2, drop_last=True)
+                if not ex.is_channel_backed:
+                    ex.shutdown()
+                    raise AssertionError("the exchange arm is not "
+                                         "channel-backed")
+            else:
+                ex = ds_mod.StreamingExecutor(
+                    ops, batch_size=DATA_B, epochs=DATA_EPOCHS, seed=0,
+                    num_readers=1)
+            t2 = time.perf_counter()
+            arm = _feed_arm(torch, ex, box, step,
+                            full=regime == "compute_bound")
+            arm.update(build_s=t2 - t1, seconds=time.perf_counter() - t2,
+                       block_delay_ms=delay * 1e3)
+            base = base_ex if shuffle else base_stream
+            bad = [i for i, (a, b) in enumerate(zip(arm["batches"], base))
+                   if a.dtype != b.dtype or not (a == b).all()]
+            if bad or len(arm["batches"]) > len(base):
+                raise AssertionError(f"(a) {name} {regime}: batches "
+                                     f"{bad[:5]} differ from the task "
+                                     f"baseline")
+            arms[(name, regime)] = arm
+    steps = sum(a["steps"] for a in arms.values())
+    launches = {f.__name__: f.launches for f in fa.KERNELS}
+    want = {k: cfg.num_layers * steps for k in launches}
+    if launches != want:
+        raise AssertionError(f"(a) flash launches {launches}, expected "
+                             f"{want} ({cfg.num_layers} x {steps})")
+    del box, step
+    _free(torch)
+    keys = list(arms)
+    t0 = time.perf_counter()
+    replay = _replay_losses(torch, [arms[k]["batches"] for k in keys],
+                            vocab)
+    r = {"bare_step_ms": step_s * 1e3, "baseline_s": baseline_s,
+         "model_s": model_s, "replay_s": time.perf_counter() - t0,
+         "launches": launches, "steps": steps}
+    for k, ref in zip(keys, replay):
+        arm = arms[k]
+        parity = _loss_parity(arm["losses"], ref, f"(a) {k[0]} {k[1]}")
+        r[f"{k[0]}_{k[1]}"] = dict(
+            {x: arm[x] for x in ("stall_fraction", "steps_per_s", "steps",
+                                 "warm_epochs", "build_s", "seconds",
+                                 "shutdown_s", "block_delay_ms",
+                                 "losses")},
+            parity=parity)
+    for name in ("stream", "exchange"):
+        cb = r[f"{name}_compute_bound"]["stall_fraction"]
+        ib = r[f"{name}_input_bound"]["stall_fraction"]
+        if not ib > cb:
+            raise AssertionError(f"(a) {name}: the input-bound stall "
+                                 f"fraction {ib:.3f} is not above the "
+                                 f"compute-bound {cb:.3f}")
+    r["first_epoch_tokens"] = arms[("stream", "compute_bound")][
+        "batches"][:DATA_STEPS]
+    return r
+
+
+def _data_ingest(torch, rd, dp_ref) -> dict:
+    """(b): ``TorchTrainer(datasets={"train": ds})`` on the card; the
+    worker reads its ``streaming_split(1, equal=True)`` shard through
+    ``iter_device_batches``."""
+    import functools
+    import shutil
+    from collections import Counter
+
+    import numpy as np
+
+    from ray_tpu_torch.train import RunConfig, ScalingConfig, TorchTrainer
+
+    vocab, rows = 50257, INGEST_BATCHES * DATA_B
+    ds = rd.range(rows, parallelism=INGEST_BATCHES).map_batches(
+        functools.partial(_feed_tokens_batch, vocab, DATA_S, 0.0))
+    storage = ROOT / "build" / "data_ingest"
+    shutil.rmtree(storage, ignore_errors=True)
+    t0 = time.perf_counter()
+    res = TorchTrainer(
+        _ingest_loop,
+        scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
+        run_config=RunConfig(storage_path=str(storage), name="ingest"),
+        datasets={"train": ds}).fit()
+    fit_s = time.perf_counter() - t0
+    shutil.rmtree(storage, ignore_errors=True)
+    if res.error is not None:
+        raise AssertionError(f"(b) TorchTrainer: {res.error}")
+    hist = res.metrics_history
+    # every row of ds, computed here block by block
+    full = {}
+    for lo in range(0, rows, DATA_B):
+        tok = _feed_tokens_batch(vocab, DATA_S, 0.0,
+                                 {"id": np.arange(lo, lo + DATA_B)})["tokens"]
+        for row in tok:
+            full[tuple(int(x) for x in row[:4])] = row
+    got = Counter(tuple(row) for m in hist for row in m["rows"])
+    if got != Counter(full.keys()) or len(full) != rows:
+        raise AssertionError(f"(b) the rows the worker saw are not every "
+                             f"row of ds once: {sum(got.values())} rows, "
+                             f"{len(set(got))} distinct of {rows}")
+    bad = [m for m in hist if m["device"] != "cuda:0" or m["dtype"] !=
+           "torch.int32" or m["shape"] != [DATA_B, DATA_S] or
+           m["visible"] != "0" or not m["pinned"] or not all(m["pinned"])]
+    if len(hist) != INGEST_BATCHES or bad:
+        raise AssertionError(f"(b) {len(hist)} reports; off: "
+                             f"{[{k: v for k, v in m.items() if k != 'rows'} for m in bad]}")
+    want = {k: 12 * INGEST_BATCHES for k in hist[-1]["launches"]}
+    if hist[-1]["launches"] != want:
+        raise AssertionError(f"(b) flash launches in the worker "
+                             f"{hist[-1]['launches']}, expected {want}")
+    batches = [np.stack([full[tuple(row)] for row in m["rows"]])
+               for m in hist]
+    (ref,) = _replay_losses(torch, [batches])
+    parity = _loss_parity([m["loss"] for m in hist], ref, "(b)")
+    ms = sorted(m["step_ms"] for m in hist[1:])
+    return {"fit_s": fit_s, "reports": len(hist),
+            "losses": [m["loss"] for m in hist], "parity": parity,
+            "step_ms_each": [m["step_ms"] for m in hist],
+            "step_ms_median": ms[len(ms) // 2],
+            "first_step_ms": hist[0]["step_ms"],
+            "launches": hist[-1]["launches"],
+            "visible": hist[0]["visible"],
+            "dp_train_step_ms": dp_ref["trainer"]["step_ms"]}
+
+
+def _device_pass(torch, ds, prefetch, device=None) -> dict:
+    """(c): one pass of ``range_tensor`` through ``iter_device_batches``;
+    each batch held against the rows it must hold (row i all i)."""
+    it = ds.iter_device_batches(batch_size=DEVICE_BATCH, prefetch=prefetch,
+                                **({} if device is None else
+                                   {"device": device}))
+    waits, n = [], 0
+    t = time.perf_counter()
+    for b in it:
+        waits.append(time.perf_counter() - t)
+        x = b["data"]
+        lo = n * DEVICE_BATCH
+        want = torch.arange(lo, lo + DEVICE_BATCH, dtype=torch.int64,
+                            device=x.device).view(-1, 1, 1).expand(
+            DEVICE_BATCH, *DEVICE_SHAPE)
+        want_dev = "cpu" if device == "cpu" else "cuda:0"
+        if str(x.device) != want_dev or x.dtype != torch.int64 or \
+                not torch.equal(x, want):
+            raise AssertionError(f"(c) batch {n} (prefetch {prefetch}, "
+                                 f"device {device}): {x.device} {x.dtype}"
+                                 f" not the rows {lo}..")
+        n += 1
+        t = time.perf_counter()
+    if n != DEVICE_ROWS // DEVICE_BATCH:
+        raise AssertionError(f"(c) {n} batches")
+    r = {"batches": n, "wait_ms": [w * 1e3 for w in waits]}
+    if device != "cpu":
+        bufs = [b for ring in it.staging.values() for b in ring
+                if b is not None]
+        if not bufs or not all(b.is_pinned() for b in bufs):
+            raise AssertionError(f"(c) staging buffers not pinned: "
+                                 f"{[b.is_pinned() for b in bufs]}")
+        copies = it.copy_ms()
+        ms = sorted(t for t, _ in copies)
+        r.update(staging_buffers=len(bufs),
+                 copy_gb_s=sum(nb for _, nb in copies) / sum(ms) / 1e6,
+                 copy_gb_s_median=copies[0][1] / ms[len(ms) // 2] / 1e6,
+                 copy_ms=[t for t, _ in copies])
+    return r
+
+
+def _pageable_gb_s(torch) -> float:
+    """A pageable ``torch.as_tensor(batch).to("cuda")`` of one (c) batch,
+    timed with CUDA events (median of 5)."""
+    import numpy as np
+
+    arr = np.broadcast_to(np.arange(DEVICE_BATCH, dtype=np.int64).reshape(
+        -1, 1, 1), (DEVICE_BATCH, *DEVICE_SHAPE)).copy()
+    times = []
+    for _ in range(6):
+        a, b = torch.cuda.Event(True), torch.cuda.Event(True)
+        a.record()
+        torch.as_tensor(arr).to("cuda")
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    times = sorted(times[1:])
+    return arr.nbytes / times[len(times) // 2] / 1e6
+
+
+def _data_codec(rd, tokens) -> dict:
+    """(d): the native codec loaded here and in a worker; (a)'s first
+    epoch written with ``write_tfrecords`` and read back equal."""
+    import shutil
+
+    import numpy as np
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.data.block import batch_to_block
+
+    here = _codec_is_native()
+    there = rt.get(rt.remote(_codec_is_native).remote(), timeout=RT_TIMEOUT)
+    if not (here and there):
+        raise AssertionError(f"(d) the native codec: driver {here}, "
+                             f"worker {there} (the Python fallback is in "
+                             f"use)")
+    tok = np.concatenate(tokens)
+    out = ROOT / "build" / "data_tfrecords"
+    shutil.rmtree(out, ignore_errors=True)
+    t0 = time.perf_counter()
+    ds = rd.from_arrow(batch_to_block({"idx": np.arange(len(tok)),
+                                       "tokens": tok}))
+    files = ds.write_tfrecords(str(out))
+    rows = sorted(rd.read_tfrecords(str(out)).take_all(),
+                  key=lambda r: r["idx"])
+    back = np.array([r["tokens"] for r in rows])
+    secs = time.perf_counter() - t0
+    size = sum(Path(f).stat().st_size for f in files)
+    shutil.rmtree(out, ignore_errors=True)
+    if back.shape != tok.shape or not (back == tok).all():
+        raise AssertionError(f"(d) TFRecord round trip: {back.shape} "
+                             f"against {tok.shape}")
+    return {"native": True, "rows": len(tok), "files": len(files),
+            "bytes": size, "seconds": secs}
+
+
+def data_phase(torch, train_ref, dp_ref) -> dict:
+    """Phase 18: Data on the card. (a) the streaming feed and the exchange
+    arm into gpt2_small's train step here; (b) ``TorchTrainer``'s dataset
+    shard through ``iter_device_batches``; (c) the device iterator alone;
+    (d) the native codec and TFRecords."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import data as rd
+    from ray_tpu_torch.data._internal import exchange as dx
+    from ray_tpu_torch.data._internal import streaming as ds_mod
+
+    t_init = time.perf_counter()
+    rt.init(object_store_memory=DATA_STORE)
+    r = {"init_s": time.perf_counter() - t_init}
+    try:
+        t0 = time.perf_counter()
+        feed = _data_feed(torch, rd, ds_mod, dx)
+        tokens = feed.pop("first_epoch_tokens")
+        r["feed"] = dict(feed, seconds=time.perf_counter() - t0)
+        print("data (a): gpt2_small 12 layers B8 x S1024 fed by "
+              "StreamingExecutor.feed (1 reader) and ExchangeExecutor.feed "
+              "(random_shuffle(seed=1), 1 x 2, drop_last): bare step "
+              f"{feed['bare_step_ms']:.1f} ms (train phase in process, "
+              f"B16: {train_ref['gpt2_small']['step_ms']:.1f}); "
+              + "; ".join(
+                  f"{k}: stall {v['stall_fraction']:.3f}, "
+                  f"{v['steps_per_s']:.2f} steps/s, {v['steps']} steps, "
+                  f"loss parity {v['parity']['bit_equal']} of "
+                  f"{v['parity']['steps']} bit-equal (largest relative "
+                  f"{v['parity']['max_rel']:.2e}), warm epochs "
+                  f"{v['warm_epochs']}"
+                  for k, v in feed.items() if isinstance(v, dict)
+                  and "stall_fraction" in v)
+              + f"; every batch equals its task baseline; flash launches "
+              f"{feed['launches']} = 12 x {feed['steps']}", flush=True)
+        t0 = time.perf_counter()
+        ingest = _data_ingest(torch, rd, dp_ref)
+        r["ingest"] = dict(ingest, seconds=time.perf_counter() - t0)
+        print(f"data (b): TorchTrainer(datasets={{'train': ds}}) with "
+              f"ScalingConfig(num_workers=1, use_gpu=True): fit "
+              f"{ingest['fit_s']:.2f} s, {ingest['reports']} reports, every "
+              f"row once on cuda:0 as int32 (CUDA_VISIBLE_DEVICES="
+              f"{ingest['visible']}); first step "
+              f"{ingest['first_step_ms']:.1f} ms, then median "
+              f"{ingest['step_ms_median']:.1f} ms (phase 13 (b), B16: "
+              f"{ingest['dp_train_step_ms']:.1f}); loss parity "
+              f"{ingest['parity']['bit_equal']} of "
+              f"{ingest['parity']['steps']} bit-equal (largest relative "
+              f"{ingest['parity']['max_rel']:.2e}); flash launches in the "
+              f"worker {ingest['launches']}", flush=True)
+        t0 = time.perf_counter()
+        tensors = rd.range_tensor(DEVICE_ROWS, shape=DEVICE_SHAPE)
+        dev = {p: _device_pass(torch, tensors, p) for p in (2, 0)}
+        cpu = _device_pass(torch, tensors, 2, device="cpu")
+        pageable = _pageable_gb_s(torch)
+        r["device_iter"] = {"prefetch_2": dev[2], "prefetch_0": dev[0],
+                            "cpu": cpu, "pageable_gb_s": pageable,
+                            "seconds": time.perf_counter() - t0}
+        print(f"data (c): range_tensor({DEVICE_ROWS}, shape="
+              f"{DEVICE_SHAPE}) int64 through iter_device_batches in "
+              f"batches of {DEVICE_BATCH} (64 MiB): every tensor on cuda:0"
+              f" equal bit for bit, staging pinned; pinned copy "
+              f"{dev[2]['copy_gb_s_median']:.2f} GB/s median, "
+              f"{dev[2]['copy_gb_s']:.2f} over all copies (prefetch 2), "
+              f"{dev[0]['copy_gb_s_median']:.2f} and "
+              f"{dev[0]['copy_gb_s']:.2f} (prefetch 0), against pageable "
+              f"{pageable:.2f} GB/s; consumer wait per batch "
+              f"median {sorted(dev[2]['wait_ms'])[4]:.1f} ms (prefetch 2)"
+              f", {sorted(dev[0]['wait_ms'])[4]:.1f} ms (prefetch 0); "
+              f"device='cpu' equal", flush=True)
+        r["codec"] = _data_codec(rd, tokens)
+        print(f"data (d): the native codec loaded in the driver and a "
+              f"worker; {r['codec']['rows']} token rows of (a)'s first "
+              f"epoch through write_tfrecords ({r['codec']['bytes']} bytes)"
+              f" and read_tfrecords equal", flush=True)
+    finally:
+        rt.shutdown()
+    return r
+
+
 def preflight_line() -> dict:
     """What the port's ``reap_all()`` swept before the run, and whether
     pyarrow, pandas and gymnasium import here (and their versions)."""
@@ -5275,6 +5829,8 @@ def main() -> int:
     dag = timed("dag", dag_phase, torch, tune_r)
     _free(torch)
     autoscale = timed("autoscale", autoscale_phase, torch, card)
+    _free(torch)
+    data = timed("data", data_phase, torch, train, dp_train)
     print("phase seconds: " + json.dumps(
         {k: round(v, 1) for k, v in phase_s.items()}), flush=True)
     main_case = kern["decode_bfloat16"]
@@ -5382,6 +5938,17 @@ def main() -> int:
         kernels["kernels"].append(dict(
             base, name=f"flash_attention_fwd_{suffix}",
             launches=counts["flash_forward"]))
+    # in this process fed by the streaming and exchange executors (phase
+    # 18 (a)), and in TorchTrainer's worker fed by its dataset shard (b)
+    for suffix, counts in (("data_feed", data["feed"]["launches"]),
+                           ("data_ingest", data["ingest"]["launches"])):
+        for name in ("fwd", "dq", "dkv"):
+            base = next(k for k in kernels["kernels"]
+                        if k["name"] == f"flash_attention_{name}")
+            kernels["kernels"].append(dict(
+                base, name=f"flash_attention_{name}_{suffix}",
+                launches=counts[{"fwd": "flash_forward", "dq": "flash_dq",
+                                 "dkv": "flash_dkv"}[name]]))
     detail = {"card": card, "preflight": preflight, "build": build,
               "kernel": kern, "flash": flash, "serve": serve,
               "serve_cut": serve_cut, "spec_serve": spec_serve,
@@ -5390,7 +5957,7 @@ def main() -> int:
               "train": train,
               "train_parity": train_parity, "dp_train": dp_train,
               "pipeline": pipeline, "tune": tune_r, "dag": dag,
-              "autoscale": autoscale,
+              "autoscale": autoscale, "data": data,
               "phase_seconds": phase_s,
               "seconds": time.perf_counter() - t_start}
     out_dir = ROOT / "chiprun_out"

@@ -31,7 +31,13 @@ It runs, serves and trains:
     ``ray_tpu_torch.autoscaler`` launches and retires nodes on demand
     (v1's ``StandardAutoscaler`` and v2's ``Reconciler``, over a
     ``NodeProvider``; a node type may count cards), and
-    ``python -m ray_tpu_torch.scripts.jobs`` submits and follows jobs.
+    ``python -m ray_tpu_torch.scripts.jobs`` submits and follows jobs;
+  * ``ray_tpu_torch.data`` reads, transforms, shuffles and streams
+    datasets of Arrow blocks (the task executor, and the channel-backed
+    ``StreamingExecutor`` and ``ExchangeExecutor`` whose ``feed`` hands a
+    train step read-only batches), splits them across ``TorchTrainer``'s
+    workers, and ``iter_device_batches`` copies batches to the card from
+    pinned host memory, ahead of the step.
 
 Importing the package imports the runtime only: its daemons start as
 ``python -m ray_tpu_torch._private...`` and never import torch. The model

@@ -111,6 +111,29 @@ class Config:
     # column/row-sharded over this many ranks, partial sums allreduced
     # over per-(stage, dp-rank) collective groups. An explicit 0 RAISES
     pipeline_tp: int = 1
+    # ---- streaming data plane (data/_internal/streaming.py) ----
+    # slot-ring depth of every streaming-ingest channel (reader ->
+    # transform -> batcher -> consumer): how many blocks/batches each
+    # stage may run ahead of its consumer. Writer backpressure IS the
+    # prefetch bound of Dataset.stream_batches. Explicit zeros are
+    # REJECTED at build (the falsy-zero lesson)
+    data_stream_depth: int = 4
+    # default windowed-shuffle buffer ROWS inside the batcher stage when
+    # a stream doesn't pass shuffle_buffer= itself; 0 (the default) means
+    # no shuffle, but an EXPLICIT RAY_TPU_TORCH_DATA_SHUFFLE_BUFFER=0
+    # raises at build instead of silently meaning "off"
+    data_shuffle_buffer: int = 0
+    # slot-ring depth of every exchange-mesh channel in the streaming
+    # all-to-all (data/_internal/exchange.py): how many bucket frames a
+    # producer may run ahead of each consumer — the shuffle's
+    # backpressure bound. Explicit RAY_TPU_TORCH_DATA_EXCHANGE_DEPTH=0
+    # raises at build (the falsy-zero lesson)
+    data_exchange_depth: int = 4
+    # max ROWS per bucket frame on an exchange edge: a (block, consumer)
+    # bucket larger than this streams as several frames, bounding the
+    # per-slot channel buffer independently of block size. Explicit
+    # RAY_TPU_TORCH_DATA_EXCHANGE_BUCKET_ROWS=0 raises at build
+    data_exchange_bucket_rows: int = 4096
     # ---- elastic membership (util/collective/resizable.py,
     # _private/elastic.py) ----
     # max respawns PER SLOT over a workload's lifetime before a departure

@@ -2601,6 +2601,20 @@ class CoreWorker:
             self._task_events.clear()
             asyncio.get_running_loop().create_task(self._flush_events(events))
 
+    def flush_task_events(self) -> None:
+        """Send the task events this owner holds back (it ships them in
+        batches of 100) now, and wait for the controller to take them."""
+        async def flush():
+            # on the core's loop, where the events are recorded
+            events = list(self._task_events)
+            self._task_events.clear()
+            if events:
+                await self.clients.get(self.controller_addr).call(
+                    "task_events", {"events": events})
+
+        if self._task_events:
+            self._run(flush())
+
     async def _flush_events(self, events) -> None:
         try:
             await self.clients.get(self.controller_addr).notify(

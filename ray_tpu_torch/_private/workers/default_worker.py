@@ -746,6 +746,13 @@ def main() -> None:
 
     _collective_ring.ensure_registered(core)
 
+    # a worker leased a card runs torch work: it imports torch before it
+    # registers, off the path of its first task (on the task thread,
+    # against the IO loop, the same import takes longer); a worker with
+    # no card never imports it unless a task does
+    if os.environ.get("CUDA_VISIBLE_DEVICES"):
+        import torch  # noqa: F401
+
     # make the worker-side public API work inside tasks
     from ray_tpu_torch._private import api
 

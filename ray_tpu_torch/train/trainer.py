@@ -172,9 +172,10 @@ class DataParallelTrainer(BaseTrainer):
     def _shard_datasets(self) -> Optional[List[Dict[str, Any]]]:
         """Split each dataset into per-worker shards.
 
-        Objects with `.streaming_split(n)` are split once across workers;
-        anything else is passed through whole (the data library is not
-        ported: a loop takes its rank's part of a whole dataset itself).
+        A `ray_tpu_torch.data.Dataset` (anything with `.streaming_split`)
+        is split once by `streaming_split(n, equal=True)`, and each worker
+        reads its shard through `train.get_dataset_shard`; anything else
+        is passed through whole.
         """
         if not self.datasets:
             return None

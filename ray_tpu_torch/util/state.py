@@ -59,20 +59,7 @@ def _flush_own_events() -> None:
     """An owner sends its task events to the controller's sink in batches
     of 100; send what this process holds back first, so a listing sees
     every task it submitted."""
-    core = api._require_core()
-    buffered = getattr(core, "_task_events", None)
-    if not buffered:
-        return
-
-    async def flush():
-        # on the core's loop, where the events are recorded
-        events = list(buffered)
-        buffered.clear()
-        if events:
-            await core.clients.get(core.controller_addr).call(
-                "task_events", {"events": events})
-
-    core._run(flush())
+    api._require_core().flush_task_events()
 
 
 def list_tasks(limit: int = 1000,

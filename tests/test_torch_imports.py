@@ -214,3 +214,48 @@ def test_job_manager_names_a_cli_that_exists():
     assert _module_file("ray_tpu_torch.scripts.jobs").exists()
     util = (ROOT / "ray_tpu_torch/util/__init__.py").read_text()
     assert "not ported" not in util
+
+
+# Data: the package, blocks, the iterator, the dataset, the datasources,
+# the execution layer and the native codec
+DATA_MODULES = (
+    "ray_tpu_torch.data", "ray_tpu_torch.data.block",
+    "ray_tpu_torch.data.iterator", "ray_tpu_torch.data.dataset",
+    "ray_tpu_torch.data.datasource", "ray_tpu_torch.data._internal",
+    "ray_tpu_torch.data._internal.logical",
+    "ray_tpu_torch.data._internal.executor",
+    "ray_tpu_torch.data._internal.streaming",
+    "ray_tpu_torch.data._internal.exchange",
+    "ray_tpu_torch._native.codec")
+
+
+@pytest.mark.parametrize("mod", DATA_MODULES)
+def test_data_modules_are_checked(mod):
+    assert _module_file(mod) in FILES
+
+
+def _loaded_heavy(imports, banned=("jax", "jaxlib", "ray_tpu", "torch")):
+    code = ("import sys\n" + "".join(f"import {m}\n" for m in imports)
+            + "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+              f"{banned!r}))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    return out.stdout.strip()
+
+
+def test_importing_data_loads_no_jax_or_torch():
+    """The reader, transform, batcher, producer and consumer actors are
+    CPU processes: the data modules import torch only inside the
+    functions that make tensors."""
+    assert _loaded_heavy(DATA_MODULES) == "[]"
+
+
+def test_a_worker_starts_without_torch():
+    """What every worker process imports at start-up (the worker's main
+    module and the collective ring it registers) loads no torch: a CPU
+    worker never pays for it."""
+    assert _loaded_heavy((
+        "ray_tpu_torch._private.workers.default_worker",
+        "ray_tpu_torch.util.collective.ring",
+        "ray_tpu_torch.util.collective")) == "[]"
