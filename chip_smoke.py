@@ -29,9 +29,9 @@ of its checks fails:
      decode calls bitwise equal; one call under
      ``torch.cuda.set_sync_debug_mode("error")``, so a host read of the
      lengths fails the run; the launch counter; the split plan; times of
-     the kernel, of its plain version, of scaled_dot_product_attention over
-     a pre-gathered contiguous view (a yardstick only: the port never calls
-     it) and the bound (live-page bytes over the memory rate, or the
+     the kernel, of its plain version (over 5 calls), of
+     scaled_dot_product_attention over a pre-gathered contiguous view (a
+     yardstick only: the port never calls it) and the bound (live-page bytes over the memory rate, or the
      operations over the peak rate, whichever is larger).
   4. flash: the flash-attention forward (K1), dQ (K2) and dK/dV (K3)
      kernels against their plain versions on the card, bf16 and float32, at
@@ -63,17 +63,18 @@ of its checks fails:
      ``VERIFY_GATE`` of their RMS per element, and a float32 output 2%
      off refused.
   7. serve-lanes: the JAX replica's serve baselines and knobs at
-     llama3_8b, full width and 32 layers, on one tree of the serve phase's
-     seed-0 weights: (a) ``attn="gather"``, (b) ``kv_layout="contiguous"``,
-     (c) a 97-page pool with the prefix cache and an ``eos_id`` from the
-     serve phase's first greedy text (at least one request retires on
+     llama3_8b, full width and 8 of its 32 layers (``CUT_LAYERS``, cut for
+     time), on one tree of serve-8's seed-0 weights: (a)
+     ``attn="gather"``, (b) ``kv_layout="contiguous"``, (c) a 97-page pool
+     with the prefix cache and an ``eos_id`` from serve-8's first greedy
+     text (at least one request retires on
      "eos", at most 96 pages in use), (d) ``scheduler="batch"``, (e) a
      float32 KV cache under the bf16 model (K4's bf16 q / float32 pool
      pair), (f) the same weights in float32 over a bf16 KV cache (K4's
      float32 q / bf16 pool pair); the 12 requests each: tokens/s, TTFT,
      decode-step ms, K4 launches exact per dtype pair (0 off the
-     in-place lane), temperature-0 texts equal to the serve phase's
-     (counted, not gated). The kernels line's launches of the two mixed
+     in-place lane), temperature-0 texts equal to serve-8's (counted, not
+     gated). The kernels line's launches of the two mixed
      pairs come from (e) and (f).
   8. parity: in float32, the port on the card against the port on the
      CPU with the same weights, temperature-0 texts identical: llama_debug;
@@ -218,7 +219,7 @@ of its checks fails:
      ``stage_options=[{"num_gpus": 0}, {"num_gpus": 1}]`` (the embedding
      and 1 block on the CPU, then 1 block, the head and the loss on the
      card), M=4 microbatches of 2 x
-     1024, SGD, 1 warm and 2 timed steps, ``buffer_bytes`` holding a
+     1024, SGD, 1 warm and 1 timed step, ``buffer_bytes`` holding a
      3 MiB bf16 activation. Gates: the losses within
      ``TRAIN_PARITY_RTOL`` of the same chunk math run in this process on
      the same devices (bit-equal steps counted), finite; the card stage's
@@ -329,11 +330,11 @@ of its checks fails:
      8192, params from seed 0, AdamW with no warmup), B8 x S1024. (a)
      bench.py's ``data_regime_main`` on the card: ``range(192,
      parallelism=24).map_batches(_feed_tokens_batch)`` through
-     ``StreamingExecutor(num_readers=1, epochs=3, seed=0).feed``, then the
+     ``StreamingExecutor(num_readers=1, epochs=2, seed=0).feed``, then the
      same loader with ``.random_shuffle(seed=1)`` through
      ``ExchangeExecutor(num_producers=1, num_consumers=2,
      drop_last=True).feed`` (``is_channel_backed`` asserted), each
-     compute-bound (all 3 epochs) and input-bound (a block delay of 2x the
+     compute-bound (both epochs) and input-bound (a block delay of 2x the
      bare step, 24 steps); each read-only arena view copied out and to the
      card inside the step, which ends in ``float(loss)``. Gates: every
      batch equal bit for bit to ``task_epoch_batches`` /
@@ -360,6 +361,36 @@ of its checks fails:
      consumer's wait per batch. (d) the native codec loaded in this
      process and in a worker; (a)'s first epoch of token rows through
      ``write_tfrecords`` and ``read_tfrecords`` equal.
+
+ 19. rl (run after phase 18, in this process, no new card process): RLlib
+     on the card. (a) ``AnakinTrainer`` at ``bench_rllib.run_anakin``'s
+     shape (32 envs, rollout 16, 84x84x4 uint8 frames, the Nature-CNN,
+     6 actions, seed 0): 2 warm iterations, one update under
+     ``torch.cuda.set_sync_debug_mode("error")`` (the rollout, the env
+     step, V-trace, the grads and Adam read nothing back), 20 timed
+     iterations (env steps/s, ms an iteration), 3 under torch.profiler
+     (device kernels an iteration, device-busy share); one iteration's
+     recorded actions replayed through the env's CPU mirror from its
+     start give its obs, rewards and truncations bit for bit; that
+     trajectory's loss, metrics and grads on the card and on the CPU from
+     the same float32 params within ``RL_LOSS_RTOL`` (relative) and
+     ``RL_GRAD_RTOL`` (relative L2: each leaf under the CPU's ReLU masks,
+     and all leaves together as computed), at most ``RL_FLIP_SHARE`` of
+     the ReLU inputs of another sign on the card; every loss finite. (b) The
+     PPO-Atari learner (``bench_rllib.run``'s batch: 512 rows of 84x84x4,
+     minibatch 256, 2 epochs, so 4 updates) on the card and on the CPU
+     from the same seed on the same minibatches: the metrics of each
+     update within ``RL_LOSS_RTOL``, the params after the 4 updates within
+     ``RL_PARAM_RTOL``; ms an update on the card. IMPALA's V-trace loss and
+     grads on a [8, 32] conv batch, card against CPU, within the same
+     tolerances. (c) multi-agent PPO through ``PPOConfig(...).build()
+     .train()`` with JAX's test config (``TargetMatchEnv``, 2 policies),
+     its learners and runner on ``cuda:0``: the return reaches 28 within
+     25 iterations.
+
+The script and every process it starts write and read Python's bytecode
+under ``build/pycache`` (``cache_bytecode``), so the first process to
+import torch compiles it for all the others.
 
 Before phase 2 a preflight line gives what the port's ``reap_all()``
 swept and whether pyarrow, pandas and gymnasium import (with their
@@ -397,9 +428,9 @@ TENSOR_CORE_KERNELS = (
 ARENA_LEN = 2048          # serve arena per slot: 128 pages of 16 tokens
 SERVE_NEW_TOKENS = 32
 SPEC_K = 4                # draft tokens per speculative round
-# the runtime and serve-app phases' llama3_8b: full width, 8 of its 32
-# layers (cut for time; the serve, spec-serve and serve-lanes phases keep
-# all 32 in process, and serve-8 gives the cut model's plain texts)
+# the runtime, serve-app and serve-lanes phases' llama3_8b: full width, 8
+# of its 32 layers (cut for time; the serve and spec-serve phases keep all
+# 32 in process, and serve-8 gives the cut model's plain texts)
 CUT_LAYERS = 8
 CUT_OVERRIDES = {"num_layers": CUT_LAYERS}
 # the verify window's slot cursors: 0 to the last that fits the arena
@@ -716,7 +747,8 @@ def kernel_phase(torch) -> dict:
                               - ref.float()).abs().max())
             ms = time_ms(torch, lambda: paged_attention(**case))
             plain_ms = time_ms(torch,
-                               lambda: paged_attention_reference(**case))
+                               lambda: paged_attention_reference(**case),
+                               iters=5, warmup=1)
             library_ms = time_ms(torch, sdpa)
             bound_ms, bound_by = bound(case, compute)
             r = dict(max_abs_err=max_err, atol=atol, rtol=rtol, ms=ms,
@@ -1728,18 +1760,18 @@ EOS_AT = 8  # (c)'s eos_id: this token of the first greedy serve text
 
 def serve_lanes_phase(torch, plain) -> dict:
     """The JAX replica's serve baselines and knobs at llama3_8b, full width
-    and all 32 layers, on one tree of seed-0 bf16 weights (the serve
-    phase's) shared by every configuration through ``params_loader``:
+    and ``CUT_LAYERS`` of its 32 layers, on one tree of seed-0 bf16 weights
+    (serve-8's) shared by every configuration through ``params_loader``:
     (a) ``attn="gather"``, (b) ``kv_layout="contiguous"``, (c) a pool of
     ``LANES_KV_PAGES`` pages with the prefix cache and an ``eos_id`` the
-    serve phase's first greedy text emits, (d) ``scheduler="batch"``. Each
+    serve-8's first greedy text emits, (d) ``scheduler="batch"``. Each
     (e) ``cache_dtype=torch.float32`` (K4 on its bf16 q / float32 pool
     pair), (f) the same tree in float32 (``preset_overrides``) over
     ``cache_dtype=torch.bfloat16`` (K4's float32 q / bf16 pool pair).
-    Each runs the serve phase's 12 requests and is freed before the next.
+    Each runs serve-8's 12 requests and is freed before the next.
     K4 launches are exact for each dtype pair: 0 off the in-place lane,
     layers x (chunks + steps) on it. The count of temperature-0 texts
-    equal to the serve phase's ``plain`` texts (up to the EOS in (c)) is
+    equal to serve-8's ``plain`` texts (up to the EOS in (c)) is
     printed, not gated: in bf16 the lanes' attention and the batch path's
     GEMMs round otherwise, and (e) and (f) keep or widen other
     roundings."""
@@ -1747,7 +1779,7 @@ def serve_lanes_phase(torch, plain) -> dict:
     from ray_tpu_torch.models.transformer import init_params
     from ray_tpu_torch.ops.paged_attention import paged_attention
 
-    cfg = presets.llama3_8b()
+    cfg = presets.llama3_8b(**CUT_OVERRIDES)
     t0 = time.perf_counter()
     params = init_params(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
@@ -1761,8 +1793,8 @@ def serve_lanes_phase(torch, plain) -> dict:
         "c_kv_pages": dict(kv_pages=LANES_KV_PAGES, eos_id=eos),
         "d_batch": dict(scheduler="batch"),
         "e_cache_f32": dict(cache_dtype=torch.float32),
-        "f_f32_cache_bf16": dict(preset_overrides={"dtype": torch.float32},
-                                 cache_dtype=torch.bfloat16),
+        "f_f32_cache_bf16": dict(preset_overrides=dict(
+            CUT_OVERRIDES, dtype=torch.float32), cache_dtype=torch.bfloat16),
     }
     # the K4 dtype pair (q/pool) of each in-place configuration
     pairs = {"c_kv_pages": "bfloat16/bfloat16",
@@ -1771,6 +1803,7 @@ def serve_lanes_phase(torch, plain) -> dict:
     out = {"eos_id": eos}
     for name, kw in configs.items():
         batch = kw.get("scheduler") == "batch"
+        kw.setdefault("preset_overrides", CUT_OVERRIDES)
         srv = _llama3_8b_server(torch, f"serve-lanes {name}",
                                 params_loader=lambda c: params, **kw)
         try:
@@ -1826,7 +1859,7 @@ def serve_lanes_phase(torch, plain) -> dict:
               f"{r['ttft_max_s']:.3f} s{line}; K4 launches by q/pool "
               f"dtype {pair_launches} (expected {want}); "
               f"{r['greedy_texts_equal']} of 11 "
-              "temperature-0 texts equal the serve phase's", flush=True)
+              "temperature-0 texts equal serve-8's", flush=True)
         out[name] = r
     del params
     return out
@@ -3562,7 +3595,7 @@ def dp_train_phase(torch, train_ref, push) -> dict:
 PIPE_M = 4                 # (b) microbatches per step
 PIPE_ROWS, PIPE_SEQ = 2, 1024
 PIPE_LAYERS = 2            # (b) depth cut from 12: stage 0 runs on the CPU
-PIPE_STEPS = 2             # (b) timed steps, after one warm-up step
+PIPE_STEPS = 1             # (b) timed steps, after one warm-up step
 PIPE_LR = 0.01
 PIPE_BUFFER = 4 * 2 ** 20  # channel slots: a 3 MiB bf16 activation + header
 PIPE_OPTIONS = [{"num_gpus": 0}, {"num_gpus": 1}]
@@ -5242,7 +5275,7 @@ def autoscale_phase(torch, card) -> dict:
 
 DATA_B, DATA_S = 8, 1024
 DATA_STEPS = 24            # (a) steps of each arm in its stall window
-DATA_EPOCHS = 3            # (a) epochs each executor is built with
+DATA_EPOCHS = 2            # (a) epochs each executor is built with
 INGEST_BATCHES = 6         # (b) batches through TorchTrainer's shard
 DEVICE_ROWS, DEVICE_SHAPE, DEVICE_BATCH = 64, (1024, 1024), 8  # (c)
 DATA_STORE = 4 * 2 ** 30   # the phase's object store
@@ -5754,6 +5787,325 @@ def data_phase(torch, train_ref, dp_ref) -> dict:
     return r
 
 
+# ------------------------------------------------------------------ rl
+
+RL_ENVS, RL_ROLLOUT = 32, 16   # bench_rllib.run_anakin's shape
+RL_WARM, RL_TIMED = 2, 20      # (a) warm-up and timed Anakin iterations
+RL_PROFILED = 3                # (a) iterations under torch.profiler
+RL_ROWS, RL_MB, RL_EPOCHS = 512, 256, 2  # (b) bench_rllib.run's PPO batch
+RL_IMPALA_B, RL_IMPALA_T = 8, 32         # (b) IMPALA's [B, T] batch
+RL_MA_BAR, RL_MA_ITERS = 28.0, 25        # (c) JAX's multi-agent PPO test
+# card against CPU from the same float32 params (TF32 off): losses and
+# metrics relative, grads and params relative L2 per leaf (cuDNN's conv
+# and cuBLAS sum in another order than the CPU's)
+RL_LOSS_RTOL = 1e-4
+RL_GRAD_RTOL = 1e-3
+# the share of the Nature-CNN's ReLU inputs whose sign may differ between
+# the card and the CPU (inputs within rounding of 0; the repeats of
+# ray_tpu_torch/scripts/anakin_grad_parity.py count them)
+RL_FLIP_SHARE = 1e-5
+RL_PARAM_RTOL = 1e-4
+
+
+def _leaf_rel_l2(torch, a, b) -> float:
+    """The largest relative L2 distance between matching leaves."""
+    from ray_tpu_torch.models.transformer import _leaves
+
+    worst = 0.0
+    for x, y in zip(_leaves(a), _leaves(b)):
+        x = torch.as_tensor(x).detach().double().cpu()
+        y = torch.as_tensor(y).detach().double().cpu()
+        worst = max(worst, float((x - y).norm() / y.norm().clamp_min(1e-30)))
+    return worst
+
+
+def _rel(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def _whole_rel_l2(torch, a, b) -> float:
+    """The relative L2 distance of all leaves together."""
+    x = torch.cat([t.detach().double().cpu().reshape(-1) for t in a])
+    y = torch.cat([t.detach().double().cpu().reshape(-1) for t in b])
+    return float((x - y).norm() / y.norm().clamp_min(1e-30))
+
+
+def _anakin_part(torch) -> dict:
+    """(a): Anakin at run_anakin's shape on the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ray_tpu_torch.models.transformer import _leaves, map_params
+    from ray_tpu_torch.rllib import AnakinTrainer
+    from ray_tpu_torch.rllib.env import synthetic_atari as sa
+    from ray_tpu_torch.scripts.anakin_grad_parity import with_relu
+
+    tr = AnakinTrainer(num_envs=RL_ENVS, rollout=RL_ROLLOUT, seed=0)
+    assert str(tr._obs.device) == "cuda:0", tr._obs.device
+    warm = tr.train(RL_WARM)
+    # one update with every host read an error: the rollout, the env step,
+    # V-trace, the grads and Adam issue none
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tr.update()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    timed = tr.train(RL_TIMED)
+    ms = 1e3 * RL_ROLLOUT * RL_ENVS / timed["env_steps_per_sec"]
+    # launches and busy share of an iteration, under the profiler
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(RL_PROFILED):
+            tr.update()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kern = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.time_range.elapsed_us() for e in kern) / 1e3
+    launches = len(kern) / RL_PROFILED
+    # one iteration's actions replayed through the CPU mirror
+    t0_cpu, obs0_cpu = tr._t.cpu(), tr._obs.cpu()
+    traj = tr.collect()
+    frames = torch.from_numpy(sa.frame_bank(0))
+    t, obs = t0_cpu, obs0_cpu
+    cpu = {k: v.cpu() for k, v in traj.items()}
+    for i in range(RL_ROLLOUT):
+        assert torch.equal(obs, cpu["obs"][i]), f"obs {i}"
+        t, o1, r, tc = sa.torch_step(frames, tr.episode_len, t,
+                                     cpu["actions"][i])
+        assert torch.equal(r, cpu["rewards"][i]), f"rewards {i}"
+        assert torch.equal(tc, cpu["truncs"][i]), f"truncs {i}"
+        t, obs = sa.torch_reset(frames, t, o1, tc)
+    assert torch.equal(obs, cpu["last_obs"])
+    # that trajectory's loss and grads on the card and on the CPU, from
+    # the same float32 params. A ReLU input within rounding of 0 may take
+    # another sign on each device, and its unit's grad then flows on one
+    # only: each leaf's grads are held to the CPU's under the CPU's ReLU
+    # masks, the signs that differ are counted, and the grads as computed
+    # are held to the CPU's all leaves together
+    ref = AnakinTrainer(num_envs=RL_ENVS, rollout=RL_ROLLOUT, seed=0,
+                        device="cpu")
+    ref.params = map_params(
+        lambda _p, x: x.detach().cpu().clone().requires_grad_(True),
+        tr.params)
+    cmasks, gmasks = [], []
+    closs, cmet = with_relu(lambda: ref.loss(ref.params, cpu), cmasks)
+    cgrads = torch.autograd.grad(closs, _leaves(ref.params))
+    loss, met = with_relu(lambda: tr.loss(tr.params, traj), gmasks)
+    grads = torch.autograd.grad(loss, _leaves(tr.params))
+    mloss, _ = with_relu(lambda: tr.loss(tr.params, traj), masks=cmasks)
+    mgrads = torch.autograd.grad(mloss, _leaves(tr.params))
+    flips = sum(int((g.cpu() != c).sum()) for g, c in zip(gmasks, cmasks))
+    units = sum(c.numel() for c in cmasks)
+    loss_rel = _rel(float(loss.detach()), float(closs.detach()))
+    met_rel = max(_rel(float(met[k]), float(cmet[k])) for k in met)
+    grad_rel = _leaf_rel_l2(torch, list(mgrads), list(cgrads))
+    unmasked_rel = _leaf_rel_l2(torch, list(grads), list(cgrads))
+    whole_rel = _whole_rel_l2(torch, grads, cgrads)
+    assert loss_rel <= RL_LOSS_RTOL and met_rel <= RL_LOSS_RTOL, (
+        loss_rel, met_rel)
+    assert len(gmasks) == len(cmasks) and flips <= RL_FLIP_SHARE * units, (
+        flips, units)
+    assert grad_rel <= RL_GRAD_RTOL, grad_rel
+    assert whole_rel <= RL_GRAD_RTOL, whole_rel
+    for o in (warm, timed):
+        assert all(math.isfinite(o[k]) for k in
+                   ("total_loss", "policy_loss", "vf_loss", "entropy")), o
+    params = sum(p.numel() for p in _leaves(tr.params))
+    return {"env_steps_per_sec": timed["env_steps_per_sec"],
+            "ms_per_iteration": ms, "launches_per_iteration": launches,
+            "profiled_wall_ms": 1e3 * wall / RL_PROFILED,
+            "busy_ms_per_iteration": busy_ms / RL_PROFILED,
+            "busy_share": busy_ms / (1e3 * wall),
+            "losses": [warm["total_loss"], timed["total_loss"]],
+            "loss_rel": loss_rel, "metric_rel": met_rel,
+            "grad_rel_l2": grad_rel, "params": params,
+            "relu_flips": flips, "relu_units": units,
+            "grad_rel_l2_unmasked": unmasked_rel,
+            "grad_whole_rel_l2": whole_rel,
+            "truncations": int(cpu["truncs"].sum()),
+            "reward_mean": timed["reward_mean"]}
+
+
+def _atari_batch(rng, rows):
+    """PPO train rows over the synthetic Atari frames (numpy)."""
+    import numpy as np
+
+    from ray_tpu_torch.rllib.env import synthetic_atari as sa
+
+    bank = sa.frame_bank(0)
+    return {
+        "obs": bank[rng.integers(0, len(bank), rows)],
+        "actions": rng.integers(0, 6, rows).astype(np.int64),
+        "logp": (rng.normal(size=rows) * 0.1 - 1.79).astype(np.float32),
+        "values": rng.normal(size=rows).astype(np.float32),
+        "advantages": rng.normal(size=rows).astype(np.float32),
+        "value_targets": rng.normal(size=rows).astype(np.float32),
+    }
+
+
+def _learner_part(torch) -> dict:
+    """(b): the PPO-Atari learner and IMPALA's loss, card against CPU."""
+    import numpy as np
+
+    from ray_tpu_torch.models.transformer import _leaves
+    from ray_tpu_torch.rllib import IMPALA, PPO, Learner, RLModuleSpec
+    from ray_tpu_torch.rllib.env import synthetic_atari as sa
+
+    spec = RLModuleSpec(obs_dim=84 * 84 * 4, num_actions=6,
+                        obs_shape=(84, 84, 4))
+    cfg = {"clip_param": 0.2, "vf_clip_param": 10.0, "vf_loss_coeff": 0.5,
+           "entropy_coeff": 0.0}
+    card = Learner(spec, PPO.loss_fn, {"lr": 3e-4}, seed=0)
+    cpu = Learner(spec, PPO.loss_fn, {"lr": 3e-4}, seed=0, device="cpu")
+    assert card.device_name() == "cuda:0"
+    assert _leaf_rel_l2(torch, card.params, cpu.params) == 0.0
+    rng = np.random.default_rng(0)
+    flat = _atari_batch(rng, RL_ROWS)
+    perm_rng = np.random.default_rng(0)
+    ms, worst = [], 0.0
+    for _ in range(RL_EPOCHS):
+        perm = perm_rng.permutation(RL_ROWS)
+        for lo in range(0, RL_ROWS - RL_MB + 1, RL_MB):
+            idx = perm[lo:lo + RL_MB]
+            mb = {k: v[idx] for k, v in flat.items()}
+            mb["kl_coeff"] = np.full(RL_MB, 0.2, np.float32)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = card.update_from_batch(mb, cfg)  # ends in its metric read
+            ms.append(1e3 * (time.perf_counter() - t0))
+            want = cpu.update_from_batch(mb, cfg)
+            worst = max(worst, max(_rel(got[k], want[k]) for k in want))
+            assert all(math.isfinite(v) for v in got.values()), got
+    assert worst <= RL_LOSS_RTOL, worst
+    param_rel = _leaf_rel_l2(torch, card.params, cpu.params)
+    assert param_rel <= RL_PARAM_RTOL, param_rel
+    # IMPALA's V-trace loss and grads on a conv [B, T] batch
+    B, T = RL_IMPALA_B, RL_IMPALA_T
+    bank = sa.frame_bank(0)
+    batch = {
+        "obs": bank[rng.integers(0, 32, (B, T))],
+        "actions": rng.integers(0, 6, (B, T)).astype(np.int64),
+        "logp": (rng.normal(size=(B, T)) * 0.1 - 1.79).astype(np.float32),
+        "rewards": (rng.random((B, T)) < 0.2).astype(np.float32),
+        "terminateds": np.zeros((B, T), bool),
+        "truncateds": rng.random((B, T)) < 0.05,
+        "bootstrap_obs": bank[rng.integers(0, 32, B)],
+    }
+    icfg = {"gamma": 0.99, "clip_rho": 1.0, "clip_c": 1.0,
+            "vf_loss_coeff": 0.5, "entropy_coeff": 0.01}
+    out = {}
+    for name, lr in (("card", card), ("cpu", cpu)):
+        lr.loss_fn = IMPALA.loss_fn
+        loss, met, grads = lr.compute_grads(batch, icfg)
+        out[name] = (float(loss), {k: float(v) for k, v in met.items()},
+                     grads)
+    impala_loss_rel = max([_rel(out["card"][0], out["cpu"][0])] + [
+        _rel(out["card"][1][k], out["cpu"][1][k]) for k in out["cpu"][1]])
+    impala_grad_rel = _leaf_rel_l2(torch, out["card"][2], out["cpu"][2])
+    assert impala_loss_rel <= RL_LOSS_RTOL, impala_loss_rel
+    assert impala_grad_rel <= RL_GRAD_RTOL, impala_grad_rel
+    return {"update_ms": ms, "update_ms_median": sorted(ms)[len(ms) // 2],
+            "updates": len(ms), "metric_rel": worst,
+            "param_rel_l2": param_rel, "impala_loss_rel": impala_loss_rel,
+            "impala_grad_rel_l2": impala_grad_rel,
+            "params": sum(p.numel() for p in _leaves(card.params))}
+
+
+def _multi_agent_part(torch) -> dict:
+    """(c): multi-agent PPO through PPOConfig(...).build().train() on the
+    card, JAX's test config."""
+    from ray_tpu_torch.rllib.algorithms.ppo import PPOConfig
+    from ray_tpu_torch.rllib.env.multi_agent_env import TargetMatchEnv
+
+    spec_kw = {"obs_dim": 4, "num_actions": 4, "hiddens": (32, 32)}
+    config = (
+        PPOConfig()
+        .environment(env=lambda: TargetMatchEnv(
+            num_agents=2, num_targets=4, episode_len=16))
+        .multi_agent(
+            policies={"p0": dict(spec_kw), "p1": dict(spec_kw)},
+            policy_mapping_fn=lambda aid: ("p0" if aid == "agent_0"
+                                           else "p1"))
+        .env_runners(num_envs_per_env_runner=8, rollout_fragment_length=64)
+        .training(lr=3e-3, num_epochs=4, minibatch_size=256,
+                  entropy_coeff=0.01)
+        .debugging(seed=0))
+    algo = config.build()
+    try:
+        devices = {pid: lg._local.device_name()
+                   for pid, lg in algo.learner_groups.items()}
+        runner = algo.env_runner_group._local
+        runner_dev = {pid: str(p["pi"]["w"].device)
+                      for pid, p in runner.params.items()}
+        assert set(devices.values()) == {"cuda:0"}, devices
+        assert set(runner_dev.values()) == {"cuda:0"}, runner_dev
+        best, returns, t0 = -math.inf, [], time.perf_counter()
+        for i in range(RL_MA_ITERS):
+            r = algo.train()
+            ret = r.get("episode_return_mean")
+            returns.append(ret)
+            if ret is not None:
+                best = max(best, ret)
+            if best >= RL_MA_BAR:
+                break
+        secs = time.perf_counter() - t0
+    finally:
+        algo.stop()
+    assert best >= RL_MA_BAR, (best, returns)
+    return {"iterations": i + 1, "best": best, "returns": returns,
+            "seconds": secs, "learner_devices": devices}
+
+
+def rl_phase(torch) -> dict:
+    """Phase 19: RLlib on the card (run after phase 18, in this process).
+    (a) Anakin, (b) the PPO-Atari learner and IMPALA's loss, (c)
+    multi-agent PPO."""
+    r = {}
+    t0 = time.perf_counter()
+    r["anakin"] = a = dict(_anakin_part(torch),
+                           seconds=time.perf_counter() - t0)
+    print(f"rl (a): AnakinTrainer {RL_ENVS} envs x rollout {RL_ROLLOUT}, "
+          f"84x84x4 uint8, Nature-CNN ({a['params']} params), 6 actions: "
+          f"{a['env_steps_per_sec']:.0f} env steps/s over {RL_TIMED} "
+          f"iterations, {a['ms_per_iteration']:.2f} ms an iteration; "
+          f"{a['launches_per_iteration']:.0f} device kernels an iteration, "
+          f"busy {a['busy_ms_per_iteration']:.2f} of "
+          f"{a['profiled_wall_ms']:.2f} ms ({100 * a['busy_share']:.1f}%, "
+          f"profiled); an update under sync debug 'error'; one "
+          f"iteration's actions replayed through the CPU mirror bit-equal "
+          f"({a['truncations']} truncations); card vs CPU loss "
+          f"{a['loss_rel']:.2e}, metrics {a['metric_rel']:.2e}, grads "
+          f"{a['grad_rel_l2']:.2e} (relative L2, largest leaf, under the "
+          f"CPU's ReLU masks; {a['relu_flips']} of {a['relu_units']} ReLU "
+          f"signs differ; as computed: largest leaf "
+          f"{a['grad_rel_l2_unmasked']:.2e}, all leaves "
+          f"{a['grad_whole_rel_l2']:.2e})", flush=True)
+    t0 = time.perf_counter()
+    r["learner"] = b = dict(_learner_part(torch),
+                            seconds=time.perf_counter() - t0)
+    print(f"rl (b): PPO-Atari learner ({b['params']} params), "
+          f"{RL_ROWS} rows of 84x84x4, minibatch {RL_MB}, {RL_EPOCHS} "
+          f"epochs: {b['updates']} updates, "
+          f"{b['update_ms_median']:.2f} ms median an update "
+          f"({', '.join(f'{x:.2f}' for x in b['update_ms'])}); card vs "
+          f"CPU metrics {b['metric_rel']:.2e}, params "
+          f"{b['param_rel_l2']:.2e} after {b['updates']}; IMPALA loss "
+          f"[{RL_IMPALA_B}, {RL_IMPALA_T}] {b['impala_loss_rel']:.2e}, "
+          f"grads {b['impala_grad_rel_l2']:.2e}", flush=True)
+    t0 = time.perf_counter()
+    r["multi_agent"] = c = dict(_multi_agent_part(torch),
+                                seconds_total=time.perf_counter() - t0)
+    print(f"rl (c): multi-agent PPO (TargetMatchEnv, 2 policies, learners "
+          f"and runner on cuda:0) reached {c['best']:.2f} >= "
+          f"{RL_MA_BAR} in {c['iterations']} iterations, "
+          f"{c['seconds']:.1f} s", flush=True)
+    return r
+
+
 def preflight_line() -> dict:
     """What the port's ``reap_all()`` swept before the run, and whether
     pyarrow, pandas and gymnasium import here (and their versions)."""
@@ -5777,6 +6129,21 @@ def preflight_line() -> dict:
     return r
 
 
+def cache_bytecode() -> None:
+    """Write and read Python's bytecode under ``build/pycache``, here and
+    in every process this script starts (they inherit the environment).
+    Where ``PYTHONDONTWRITEBYTECODE`` is set and the installed packages
+    carry no bytecode, each of the script's dozens of processes would
+    otherwise compile torch's sources anew."""
+    import os
+
+    prefix = str(ROOT / "build" / "pycache")
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    os.environ["PYTHONPYCACHEPREFIX"] = prefix
+    sys.dont_write_bytecode = False
+    sys.pycache_prefix = prefix
+
+
 def main() -> int:
     import torch
 
@@ -5787,6 +6154,7 @@ def main() -> int:
         print("chip_smoke: run it from a checkout of the repository "
               "(ray_tpu_torch/ is missing)", file=sys.stderr)
         return 2
+    cache_bytecode()
     sys.path.insert(0, str(ROOT))
     from ray_tpu_torch._private.device import resolve_device
 
@@ -5813,7 +6181,8 @@ def main() -> int:
     spec_serve = timed("spec_serve", spec_serve_phase, torch, card,
                        serve["texts"])
     _free(torch)
-    lanes = timed("serve_lanes", serve_lanes_phase, torch, serve["texts"])
+    lanes = timed("serve_lanes", serve_lanes_phase, torch,
+                  serve_cut["texts"])
     _free(torch)
     runtime = timed("runtime", runtime_phase, torch, serve_cut)
     _free(torch)
@@ -5831,6 +6200,8 @@ def main() -> int:
     autoscale = timed("autoscale", autoscale_phase, torch, card)
     _free(torch)
     data = timed("data", data_phase, torch, train, dp_train)
+    _free(torch)
+    rl = timed("rl", rl_phase, torch)
     print("phase seconds: " + json.dumps(
         {k: round(v, 1) for k, v in phase_s.items()}), flush=True)
     main_case = kern["decode_bfloat16"]
@@ -5957,7 +6328,7 @@ def main() -> int:
               "train": train,
               "train_parity": train_parity, "dp_train": dp_train,
               "pipeline": pipeline, "tune": tune_r, "dag": dag,
-              "autoscale": autoscale, "data": data,
+              "autoscale": autoscale, "data": data, "rl": rl,
               "phase_seconds": phase_s,
               "seconds": time.perf_counter() - t_start}
     out_dir = ROOT / "chiprun_out"

@@ -134,6 +134,15 @@ class Config:
     # per-slot channel buffer independently of block size. Explicit
     # RAY_TPU_TORCH_DATA_EXCHANGE_BUCKET_ROWS=0 raises at build
     data_exchange_bucket_rows: int = 4096
+    # ---- Podracer RL topologies (rllib/podracer.py) ----
+    # slot-ring depth of each runner->learner trajectory channel: how many
+    # rollout batches a runner may stream ahead of its learner consuming
+    # them, the off-policy lag bound of the Sebulba topology (writer
+    # backpressure). Explicit zeros are REJECTED at build
+    podracer_channel_depth: int = 4
+    # budget for one parameter broadcast round over the learner+runners
+    # host collective group
+    podracer_bcast_timeout_s: float = 120.0
     # ---- elastic membership (util/collective/resizable.py,
     # _private/elastic.py) ----
     # max respawns PER SLOT over a workload's lifetime before a departure

@@ -16,6 +16,16 @@ resumes from JAX state takes the same next step; ``train_state_to_jax`` is
 its inverse, filling a JAX state of numpy leaves given as the template.
 The optax states are found by their field names, never by their types.
 
+``rl_params_from_jax``/``rl_params_to_jax`` carry an RLModule's params
+(``ray_tpu.rllib``'s ``init_params``, as numpy arrays) across: the same
+names, dense weights as they are, conv weights HWIO <-> OIHW; both sides
+are host numpy trees, as ``Learner.get_weights``/``set_weights`` take
+them. ``rl_learner_state_from_jax`` turns a JAX ``Learner.get_state()``
+(params and the optax chain's state of numpy leaves) into the port
+learner's state (``{"params", "opt_state": {"count", "mu", "nu"}}``), the
+Adam state found by field name; ``rl_learner_state_to_jax`` is its inverse
+into a JAX state given as the template.
+
 This module never imports JAX or optax; numpy is the common ground.
 """
 
@@ -150,3 +160,74 @@ def train_state_to_jax(state: TrainState, like):
     return type(like)(params=to_jax(state.params, stacked),
                       opt_state=fill(like.opt_state),
                       step=np.asarray(state.step, np.int32))
+
+
+def _rl_map(fn, tree, path=""):
+    if isinstance(tree, dict):
+        return {k: _rl_map(fn, v, f"{path}.{k}" if path else k)
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_rl_map(fn, v, f"{path}.{i}") for i, v in enumerate(tree)]
+    return fn(path, tree)
+
+
+def _is_conv_w(path: str) -> bool:
+    parts = path.split(".")
+    return parts[0] == "conv" and parts[-1] == "w"
+
+
+def rl_params_from_jax(tree) -> Dict[str, Any]:
+    """An RLModule's JAX params (numpy leaves) -> the port's, as float32
+    numpy arrays: conv kernels HWIO -> OIHW, the rest as they are."""
+    def leaf(path, a):
+        a = np.asarray(a, np.float32)
+        return np.ascontiguousarray(a.transpose(3, 2, 0, 1)
+                                    if _is_conv_w(path) else a)
+
+    return _rl_map(leaf, tree)
+
+
+def rl_params_to_jax(params) -> Dict[str, Any]:
+    """Inverse of ``rl_params_from_jax``; takes numpy or tensor leaves."""
+    def leaf(path, a):
+        if isinstance(a, torch.Tensor):
+            a = a.detach().to("cpu", torch.float32).numpy()
+        a = np.asarray(a, np.float32)
+        return np.ascontiguousarray(a.transpose(2, 3, 1, 0)
+                                    if _is_conv_w(path) else a)
+
+    return _rl_map(leaf, params)
+
+
+def rl_learner_state_from_jax(state) -> Dict[str, Any]:
+    """A JAX ``Learner.get_state()`` -> the port ``Learner.set_state``'s
+    input: params and Adam's ``mu``/``nu`` converted, ``count`` kept."""
+    adam = _adam_state(state["opt_state"])
+    if adam is None:
+        raise ValueError("no Adam state (count, mu, nu) in opt_state")
+    return {"params": rl_params_from_jax(state["params"]),
+            "opt_state": {"count": int(np.asarray(adam.count)),
+                          "mu": rl_params_from_jax(adam.mu),
+                          "nu": rl_params_from_jax(adam.nu)}}
+
+
+def rl_learner_state_to_jax(state: Dict[str, Any], like) -> Dict[str, Any]:
+    """The port learner's state -> a JAX ``Learner.get_state()`` shaped as
+    ``like`` (one such state): params, ``mu``, ``nu`` and the count are
+    replaced."""
+    st = state["opt_state"]
+    count = np.asarray(st["count"], np.int32)
+    mu, nu = rl_params_to_jax(st["mu"]), rl_params_to_jax(st["nu"])
+
+    def fill(x):
+        fields = getattr(x, "_fields", None)
+        if fields is not None:
+            if "mu" in fields:
+                return x._replace(count=count, mu=mu, nu=nu)
+            return x._replace(count=count) if "count" in fields else x
+        if isinstance(x, tuple):
+            return tuple(fill(sub) for sub in x)
+        return x
+
+    return {"params": rl_params_to_jax(state["params"]),
+            "opt_state": fill(like["opt_state"])}

@@ -126,7 +126,8 @@ class AdamW:
         torch._foreach_add_(denom, self.eps)
         upd = torch._foreach_div(mus, bc1)
         torch._foreach_div_(upd, denom)
-        torch._foreach_add_(upd, ps, alpha=_f32(o.weight_decay))
+        if o.weight_decay:  # adam (no decay) skips a pass over the leaves
+            torch._foreach_add_(upd, ps, alpha=_f32(o.weight_decay))
         torch._foreach_add_(ps, upd, alpha=-self.schedule(state.count))
         state.count = t
         return g_norm

@@ -3,9 +3,9 @@
 Counterpart: ``ray_tpu/ops/losses.py``. ``fused_softmax_cross_entropy``
 folds the vocab projection into the loss: logits are computed one token
 chunk at a time from the final hidden states and never held whole, and the
-backward recomputes each chunk's logits (``torch.utils.checkpoint`` per
-chunk) instead of keeping them. Its products are plain ``torch.mm``, as the
-JAX package leaves them to XLA.
+backward recomputes each chunk's logits (``_RecomputedChunkLoss``) instead
+of keeping them. Its products are plain ``torch.mm``, as the JAX package
+leaves them to XLA.
 
 Each chunk's logits keep the product's float32 accumulator, as JAX's
 ``preferred_element_type=float32`` does: with bf16 operands the product runs
@@ -19,7 +19,6 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 NEG_INF = -1e30
 VOCAB_PAD = 128
@@ -86,6 +85,34 @@ def _chunk_loss(x, w, col_bias, labels, mask, z_loss: float):
     return (per_tok * mask).sum()
 
 
+class _RecomputedChunkLoss(torch.autograd.Function):
+    """``_chunk_loss`` whose backward runs the chunk again and takes its
+    grads there, so no chunk's logits are kept between the passes: what
+    ``torch.utils.checkpoint`` does, with the same ops in the same order,
+    but without its import of ``torch._dynamo`` on first use. The cotangent
+    enters as a factor of the recomputed loss (the seed of its grad is then
+    exactly ``g``), since a ``grad_outputs`` tensor makes autograd import
+    sympy. Either import costs seconds in every fresh process."""
+
+    @staticmethod
+    def forward(ctx, x, w, col_bias, labels, mask, z_loss):
+        ctx.save_for_backward(x, w, col_bias, labels, mask)
+        ctx.z_loss = z_loss
+        return _chunk_loss(x, w, col_bias, labels, mask, z_loss)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, col_bias, labels, mask = ctx.saved_tensors
+        need = ctx.needs_input_grad[:2]
+        with torch.enable_grad():
+            xw = [t.detach().requires_grad_(n) for t, n in zip((x, w), need)]
+            loss = _chunk_loss(*xw, col_bias, labels, mask, ctx.z_loss)
+            grads = iter(torch.autograd.grad(
+                loss * g, [t for t in xw if t.requires_grad]))
+        dx, dw = (next(grads) if n else None for n in need)
+        return dx, dw, None, None, None, None
+
+
 def fused_softmax_cross_entropy(hidden: torch.Tensor, table: torch.Tensor,
                                 labels: torch.Tensor,
                                 mask: Optional[torch.Tensor] = None, *,
@@ -124,9 +151,9 @@ def fused_softmax_cross_entropy(hidden: torch.Tensor, table: torch.Tensor,
                            0.0, NEG_INF).float()
     total = torch.zeros((), device=x.device)
     for i in range(0, x.shape[0], chunk):
-        total = total + checkpoint(
-            _chunk_loss, x[i:i + chunk], w, col_bias, labels[i:i + chunk],
-            m[i:i + chunk], z_loss, use_reentrant=False)
+        total = total + _RecomputedChunkLoss.apply(
+            x[i:i + chunk], w, col_bias, labels[i:i + chunk],
+            m[i:i + chunk], z_loss)
     n = (torch.tensor(float(n_tok), device=x.device) if mask is None
          else m.sum().clamp(min=1.0))
     return total / n, n

@@ -259,3 +259,49 @@ def test_a_worker_starts_without_torch():
         "ray_tpu_torch._private.workers.default_worker",
         "ray_tpu_torch.util.collective.ring",
         "ray_tpu_torch.util.collective")) == "[]"
+
+
+# RLlib: the module, the learner, the estimators, replay, connectors, the
+# envs and their runners, the algorithms and the Podracer topologies
+RLLIB_MODULES = (
+    "ray_tpu_torch.rllib", "ray_tpu_torch.rllib.core.rl_module",
+    "ray_tpu_torch.rllib.core.learner", "ray_tpu_torch.rllib.utils",
+    "ray_tpu_torch.rllib.utils.advantages",
+    "ray_tpu_torch.rllib.utils.replay_buffers",
+    "ray_tpu_torch.rllib.connectors", "ray_tpu_torch.rllib.env",
+    "ray_tpu_torch.rllib.env.synthetic_atari",
+    "ray_tpu_torch.rllib.env.single_agent_env_runner",
+    "ray_tpu_torch.rllib.env.multi_agent_env",
+    "ray_tpu_torch.rllib.algorithms",
+    "ray_tpu_torch.rllib.algorithms.algorithm",
+    "ray_tpu_torch.rllib.algorithms.algorithm_config",
+    "ray_tpu_torch.rllib.algorithms.ppo",
+    "ray_tpu_torch.rllib.algorithms.impala",
+    "ray_tpu_torch.rllib.algorithms.appo",
+    "ray_tpu_torch.rllib.algorithms.dqn",
+    "ray_tpu_torch.rllib.podracer")
+
+
+@pytest.mark.parametrize("mod", RLLIB_MODULES)
+def test_rllib_modules_are_checked(mod):
+    assert _module_file(mod) in FILES
+
+
+def test_importing_rllib_loads_no_jax():
+    """The whole RLlib port imports in a fresh interpreter without JAX or
+    the JAX package (gymnasium, where present, is imported only by the
+    synthetic env's registration, as in the JAX package)."""
+    assert _loaded_heavy(RLLIB_MODULES,
+                         banned=("jax", "jaxlib", "ray_tpu")) == "[]"
+
+
+def test_rllib_exports_only_the_ported_algorithms():
+    """SAC, CQL, MARWIL/BC and DreamerV3 are the next RLlib slice: the
+    port's packages export only what this one ports."""
+    import ray_tpu_torch.rllib as rl
+    import ray_tpu_torch.rllib.algorithms as alg
+
+    for name in ("SAC", "SACConfig", "CQL", "BC", "MARWIL", "DreamerV3"):
+        assert not hasattr(rl, name) and not hasattr(alg, name)
+    assert {"PPO", "IMPALA", "APPO", "DQN", "AnakinTrainer",
+            "SebulbaTopology"} <= set(rl.__all__)

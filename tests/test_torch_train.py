@@ -21,6 +21,7 @@ tiny GPT-2 here), but for the fused CE's bf16 cases:
 """
 
 from functools import partial
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -119,6 +120,58 @@ def test_fused_cross_entropy_matches_jax(tied, dtype):
         tol = (CE_TOL if dtype == "float32" else
                dict(rtol=0, atol=2.0 ** -7 * np.abs(wg).max()))
         np.testing.assert_allclose(g.numpy(), wg, **tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_cross_entropy_recompute_equals_torch_checkpoint(dtype,
+                                                               monkeypatch):
+    """Each chunk's recompute gives the value and grads that
+    ``torch.utils.checkpoint`` of the same chunk gives, bit for bit."""
+    from torch.utils.checkpoint import checkpoint
+
+    rng = np.random.default_rng(2)
+    h = _t(rng.standard_normal((2, 13, 16)).astype(np.float32))
+    w = _t((rng.standard_normal((200, 16)) * 0.3).astype(np.float32))
+    labels = _t(rng.integers(0, 200, (2, 13)).astype(np.int32))
+    mask = _t((rng.random((2, 13)) > 0.2).astype(np.float32))
+    out = []
+    for _ in range(2):
+        hh, ww = h.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        loss, _n = losses.fused_softmax_cross_entropy(
+            hh, ww, labels, mask, z_loss=1e-4, chunk=8,
+            compute_dtype=getattr(torch, dtype))
+        out.append((loss, *torch.autograd.grad(loss, (hh, ww))))
+        monkeypatch.setattr(
+            losses._RecomputedChunkLoss, "apply",
+            lambda *a: checkpoint(losses._chunk_loss, *a, use_reentrant=False))
+    for got, want in zip(*out):
+        assert torch.equal(got, want)
+
+
+def test_train_step_does_not_import_dynamo():
+    """A gpt2 step with ``remat=False`` in a fresh process leaves
+    ``torch._dynamo`` and sympy unimported: either import is seconds of
+    every fresh trial's and worker's first step."""
+    import subprocess
+    import sys
+
+    code = (
+        "import sys, torch\n"
+        "from ray_tpu_torch.models import presets\n"
+        "from ray_tpu_torch.models.training import (OptimizerConfig,\n"
+        "    init_train_state, make_train_step)\n"
+        "cfg = presets.gpt2_small(vocab_size=96, num_layers=1, embed_dim=32,\n"
+        "    num_heads=4, max_seq_len=16, remat=False, ce_chunk=8)\n"
+        "state, tx = init_train_state(cfg, OptimizerConfig(), device='cpu')\n"
+        "state, m = make_train_step(cfg, tx)(\n"
+        "    state, {'tokens': torch.randint(0, 96, (2, 16))})\n"
+        "assert torch.isfinite(m['loss'])\n"
+        "print('torch._dynamo' in sys.modules, 'sympy' in sys.modules)\n")
+    root = str(Path(__file__).resolve().parents[1])
+    out = subprocess.run([sys.executable, "-c", code], cwd=root,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "False False"
 
 
 # ------------------------------------------------------------------ models
