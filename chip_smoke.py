@@ -388,6 +388,39 @@ of its checks fails:
      its learners and runner on ``cuda:0``: the return reaches 28 within
      25 iterations.
 
+ 20. rl-more (run after phase 19, in this process, no new card process):
+     the rest of RLlib on the card, K1-K4 counted over the phase (0 each,
+     gated). (a) ``MARWILConfig(beta=2)`` and ``BCConfig`` ``.build()
+     .train()`` on JAX's ``test_beats_bc_on_mixed_data`` rows (3000 rows,
+     obs 6, 4 actions, hiddens (64,), 15 iterations of 24 updates), the
+     learner on ``cuda:0``, BC's rows through a port ``Dataset`` (its
+     rows equal, ``num_rows`` 3000): MARWIL's optimal-action accuracy above
+     0.85 and BC's + 0.15 (JAX's bars); the first 4 updates' metrics within
+     ``RL_LOSS_RTOL`` and the params after them within ``RL_PARAM_RTOL``
+     (relative L2) of the same run with ``.learners(device="cpu")``; ms an
+     update (host clock, ending in its metric read). (b) CQL at JAX's
+     ``test_cql_learns_offline`` config (2000 bandit rows, hiddens (32,
+     32), 12 iterations of 16 updates, ``bc_iters=1``) on ``cuda:0``: the
+     greedy mean action within 0.25 of 0.5, every metric finite; the first
+     2 iterations' metrics, params and polyak targets against the CPU's
+     within the same tolerances; ms an update. (c) SAC with no env at
+     Pendulum's shapes (obs 3, 1 action, hiddens (256, 256), batch 256), 8
+     updates of one ``training_step`` from a fixed replay of 4096
+     synthetic transitions, card against CPU from the same seed: each
+     update's targets (relative L2) and metrics, the params and the polyak
+     targets after the 8; ms an update. (d) DreamerV3 with no env at the
+     config's defaults (B16 T16 H15, deter 128, 8x8, hidden 128) and
+     CartPole's shapes (obs 4, 2 actions), on a fixed batch with Gumbel
+     noise drawn on the CPU and copied to both devices: the world-model
+     and actor-critic losses within ``RL_LOSS_RTOL`` and grads within
+     ``RL_GRAD_RTOL`` (relative L2, largest leaf) of the CPU's; the
+     categorical draws that differ counted, at most ``RLM_DRAW_SHARE`` of
+     them, and where any differ the card is held under the CPU's draws;
+     one update pair under ``torch.cuda.set_sync_debug_mode("error")``,
+     then 8 pairs timed (ms a world-model update, ms an actor-critic
+     update). SAC's and DreamerV3's env loops need gymnasium, which the
+     card's machine lacks: they run in the CPU tests only.
+
 The script and every process it starts write and read Python's bytecode
 under ``build/pycache`` (``cache_bytecode``), so the first process to
 import torch compiles it for all the others.
@@ -6106,6 +6139,508 @@ def rl_phase(torch) -> dict:
     return r
 
 
+# ------------------------------------------------------------- rl-more
+
+RLM_ROWS = 3000                # (a) JAX's test_beats_bc_on_mixed_data rows
+RLM_ITERS = 15                 # (a) iterations of 24 updates
+RLM_PARITY = 4                 # (a) first updates held against the CPU
+RLM_CQL_ITERS = 12             # (b) JAX's test_cql_learns_offline
+RLM_CQL_PARITY = 2             # (b) first iterations held against the CPU
+RLM_SAC_UPDATES = 8            # (c) updates from a fixed replay
+RLM_SAC_ROWS = 4096            # (c) synthetic transitions in the replay
+RLM_DREAMER_UPDATES = 8        # (d) timed update pairs
+# (d) the share of categorical draws that may differ between the card and
+# the CPU: a near-tie flips an argmax as a ReLU input near 0 flips its
+# sign, and the flipped row's later draws follow another state
+RLM_DRAW_SHARE = 0.02
+RLM_FORCE = 1e4                # Gumbel noise that forces a draw
+
+
+def _offline_rows(n, obs_dim=6, n_act=4, seed=0):
+    """JAX's ``_make_offline_rows(with_return=True, noise_frac=0.5,
+    biased_noise=True)`` (``tests/test_rllib_sac_offline.py``), copied:
+    half the rows log the wrong action ``(best + 1) % n_act`` with return
+    -1, the rest the best action with return 1."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    rows = []
+    for _ in range(n):
+        obs = rng.normal(size=obs_dim).astype(np.float32)
+        best = int(np.argmax(obs[:n_act]))
+        a = (best + 1) % n_act if rng.random() < 0.5 else best
+        rows.append({"obs": obs, "action": a,
+                     "return": 1.0 if a == best else -1.0})
+    return rows
+
+
+def _bandit_rows(n=2000, seed=0):
+    """JAX's ``_quadratic_bandit_rows`` (``tests/test_rllib_eval_cql.py``),
+    copied: obs in R^2, reward -(a - 0.5)^2, done at once."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    obs = rng.uniform(-1, 1, (n, 2)).astype(np.float32)
+    act = rng.uniform(-1, 1, (n, 1)).astype(np.float32)
+    rew = -((act[:, 0] - 0.5) ** 2)
+    nxt = rng.uniform(-1, 1, (n, 2)).astype(np.float32)
+    return [{"obs": obs[i], "action": act[i], "reward": float(rew[i]),
+             "next_obs": nxt[i], "done": True} for i in range(n)]
+
+
+def _record_updates(torch, algo, upto, on_card):
+    """Wrap ``algo.learner_group.update_from_batch``: every update's
+    metrics and host ms (ending in its metric read), and the weights after
+    update ``upto``."""
+    rec = {"metrics": [], "ms": [], "weights": None}
+    real = algo.learner_group.update_from_batch
+
+    def update(batch, cfg):
+        if on_card:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(batch, cfg)
+        rec["ms"].append(1e3 * (time.perf_counter() - t0))
+        rec["metrics"].append(dict(out))
+        if len(rec["metrics"]) == upto:
+            rec["weights"] = algo.learner_group.get_weights()
+        return out
+
+    algo.learner_group.update_from_batch = update
+    return rec
+
+
+def _metrics_rel(got: dict, want: dict) -> float:
+    """The largest relative difference of two metric dicts' float values
+    (the host clock's ``time_total_s`` aside)."""
+    return max(_rel(got[k], want[k]) for k in want
+               if isinstance(want[k], float) and k != "time_total_s")
+
+
+def _greedy_accuracy(torch, algo, n=512, seed=99) -> float:
+    """Greedy accuracy against the true optimal action on held-out states,
+    as JAX's ``_optimal_accuracy`` measures it."""
+    import numpy as np
+
+    from ray_tpu_torch.rllib import RLModule
+    from ray_tpu_torch.rllib.core.learner import params_from_numpy
+
+    rng = np.random.default_rng(seed)
+    obs = rng.normal(size=(n, 6)).astype(np.float32)
+    best = np.argmax(obs[:, :4], axis=1)
+    dev = torch.device("cuda", 0)
+    with torch.no_grad():
+        logits = RLModule(algo.spec).forward_inference(
+            params_from_numpy(algo.get_weights(), dev),
+            torch.from_numpy(obs).to(dev))
+    return float(np.mean(logits.argmax(-1).cpu().numpy() == best))
+
+
+def _imitation_part(torch, rd) -> dict:
+    """(a): MARWIL and BC on JAX's mixed rows, on the card."""
+    import numpy as np
+
+    from ray_tpu_torch.rllib import BCConfig, MARWILConfig
+
+    rows = _offline_rows(RLM_ROWS)
+
+    def config(cls, data, beta):
+        cfg = (cls().environment(observation_dim=6, num_actions=4)
+               .offline_data(input_=data)
+               .training(lr=3e-3, updates_per_iteration=24,
+                         model={"hiddens": (64,)})
+               .debugging(seed=1))
+        return cfg if beta is None else cfg.training(beta=beta)
+
+    out = {}
+    for name, cls, beta in (("marwil", MARWILConfig, 2.0),
+                            ("bc", BCConfig, None)):
+        # BC reads its rows through a port Dataset
+        data = rd.from_items(rows) if name == "bc" else rows
+        card = config(cls, data, beta).build()
+        cpu = config(cls, rows, beta).learners(device="cpu").build()
+        try:
+            for k, v in cpu._data.items():  # the Dataset kept the rows
+                assert np.array_equal(card._data[k], v), k
+            dev = card.learner_group._local.device_name()
+            assert dev == "cuda:0", dev
+            rec = _record_updates(torch, card, RLM_PARITY, True)
+            ref = _record_updates(torch, cpu, RLM_PARITY, False)
+            # the CPU twin stops after the parity updates
+            cpu.config.updates_per_iteration = RLM_PARITY
+            cpu.train()
+            results = [card.train() for _ in range(RLM_ITERS)]
+            assert results[-1]["num_rows"] == RLM_ROWS, results[-1]
+            met_rel = max(_metrics_rel(g, w) for g, w in zip(
+                rec["metrics"][:RLM_PARITY], ref["metrics"]))
+            param_rel = _leaf_rel_l2(torch, rec["weights"], ref["weights"])
+            assert met_rel <= RL_LOSS_RTOL, (name, met_rel)
+            assert param_rel <= RL_PARAM_RTOL, (name, param_rel)
+            assert all(math.isfinite(v) for r in results for v in r.values()
+                       if isinstance(v, float)), results[-1]
+            acc = _greedy_accuracy(torch, card)
+            ms = rec["ms"]
+            out[name] = {"accuracy": acc, "metric_rel": met_rel,
+                         "param_rel_l2": param_rel, "updates": len(ms),
+                         "update_ms_median": sorted(ms)[len(ms) // 2],
+                         "first_update_ms": ms[0],
+                         "policy_loss": results[-1]["policy_loss"]}
+        finally:
+            card.stop()
+            cpu.stop()
+    assert out["marwil"]["accuracy"] > 0.85, out
+    assert out["marwil"]["accuracy"] > out["bc"]["accuracy"] + 0.15, out
+    return out
+
+
+def _cql_part(torch) -> dict:
+    """(b): CQL on JAX's bandit rows, on the card."""
+    from ray_tpu_torch.rllib.algorithms import CQLConfig
+    from ray_tpu_torch.rllib.algorithms.sac import SACModule
+    from ray_tpu_torch.rllib.core.learner import params_from_numpy
+
+    rows = _bandit_rows()
+
+    def config():
+        return (CQLConfig()
+                .environment(observation_dim=2, num_actions=1)
+                .offline_data(input_=rows)
+                .training(lr=3e-3, train_batch_size=256,
+                          updates_per_iteration=16, cql_alpha=1.0,
+                          num_cql_actions=4, bc_iters=1, gamma=0.0,
+                          model={"hiddens": (32, 32)})
+                .debugging(seed=0))
+
+    card, cpu = config().build(), config().learners(device="cpu").build()
+    try:
+        dev = card.learner_group._local.device_name()
+        assert dev == "cuda:0", dev
+        met_rel, ms, results = 0.0, [], []
+        for i in range(RLM_CQL_ITERS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = card.train()
+            ms.append(1e3 * (time.perf_counter() - t0)
+                      / card.config.updates_per_iteration)
+            results.append(got)
+            if i < RLM_CQL_PARITY:
+                met_rel = max(met_rel, _metrics_rel(got, cpu.train()))
+                if i == RLM_CQL_PARITY - 1:
+                    param_rel = _leaf_rel_l2(
+                        torch, card.learner_group.get_weights(),
+                        cpu.learner_group.get_weights())
+                    target_rel = _leaf_rel_l2(torch, card._target_q,
+                                              cpu._target_q)
+        for r in results:
+            assert all(math.isfinite(r[k]) for k in (
+                "critic_loss", "actor_loss", "cql_penalty", "mean_q_data",
+                "entropy", "total_loss")), r
+        assert results[-1]["num_offline_transitions"] == len(rows)
+        assert met_rel <= RL_LOSS_RTOL, met_rel
+        assert param_rel <= RL_PARAM_RTOL, param_rel
+        assert target_rel <= RL_PARAM_RTOL, target_rel
+        dev = torch.device("cuda", 0)
+        with torch.no_grad():
+            greedy, _ = SACModule(card.spec).sample_action(
+                params_from_numpy(card.learner_group.get_weights(), dev),
+                torch.zeros((8, 2), device=dev),
+                torch.zeros((8, 1), device=dev))
+        mean_act = float(greedy.mean())
+        assert abs(mean_act - 0.5) < 0.25, mean_act
+    finally:
+        card.stop()
+        cpu.stop()
+    return {"mean_action": mean_act, "metric_rel": met_rel,
+            "param_rel_l2": param_rel, "target_rel_l2": target_rel,
+            "update_ms": ms, "update_ms_median": sorted(ms)[len(ms) // 2],
+            "cql_penalty": results[-1]["cql_penalty"]}
+
+
+def _sac_part(torch) -> dict:
+    """(c): SAC's updates at Pendulum's shapes from a fixed replay, card
+    against CPU."""
+    import numpy as np
+
+    from ray_tpu_torch.rllib import SAC, SACConfig
+
+    def config():
+        return (SACConfig().environment(observation_dim=3, num_actions=1)
+                .training(num_steps_sampled_before_learning_starts=0,
+                          updates_per_iteration=RLM_SAC_UPDATES,
+                          train_batch_size=256,
+                          model={"hiddens": (256, 256)})
+                .debugging(seed=0))
+
+    rng = np.random.default_rng(0)
+    n = RLM_SAC_ROWS
+    replay = {"obs": rng.normal(size=(n, 3)).astype(np.float32),
+              "actions": rng.uniform(-1, 1, (n, 1)).astype(np.float32),
+              "rewards": rng.normal(size=n).astype(np.float32),
+              "next_obs": rng.normal(size=(n, 3)).astype(np.float32),
+              "terminateds": rng.random(n) < 0.05,
+              "truncateds": np.zeros(n, bool)}
+    card, cpu = SAC(config()), SAC(config().learners(device="cpu"))
+    targets = {"card": [], "cpu": []}
+    recs = {}
+    for key, algo in (("card", card), ("cpu", cpu)):
+        algo.replay.add(replay)
+        real = algo._compute_targets
+
+        def compute(batch, weights, real=real, out=targets[key]):
+            t = real(batch, weights)
+            out.append(t)
+            return t
+
+        algo._compute_targets = compute
+        recs[key] = _record_updates(torch, algo, RLM_SAC_UPDATES,
+                                    key == "card")
+    assert card.learner_group._local.device_name() == "cuda:0"
+    assert _leaf_rel_l2(torch, card.learner_group.get_weights(),
+                        cpu.learner_group.get_weights()) == 0.0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = card.training_step()
+    step_ms = 1e3 * (time.perf_counter() - t0) / RLM_SAC_UPDATES
+    want = cpu.training_step()
+    target_rel = max(_leaf_rel_l2(torch, [torch.from_numpy(g)],
+                                  [torch.from_numpy(w)])
+                     for g, w in zip(targets["card"], targets["cpu"]))
+    met_rel = max(_metrics_rel(g, w) for g, w in zip(
+        recs["card"]["metrics"], recs["cpu"]["metrics"]))
+    param_rel = _leaf_rel_l2(torch, card.learner_group.get_weights(),
+                             cpu.learner_group.get_weights())
+    polyak_rel = _leaf_rel_l2(torch, card._target_q, cpu._target_q)
+    assert len(targets["card"]) == RLM_SAC_UPDATES
+    assert target_rel <= RL_LOSS_RTOL, target_rel
+    assert met_rel <= RL_LOSS_RTOL, met_rel
+    assert param_rel <= RL_PARAM_RTOL, param_rel
+    assert polyak_rel <= RL_PARAM_RTOL, polyak_rel
+    assert all(math.isfinite(v) for v in got.values()), got
+    card.stop()
+    cpu.stop()
+    ms = recs["card"]["ms"]
+    return {"target_rel_l2": target_rel, "metric_rel": met_rel,
+            "param_rel_l2": param_rel, "polyak_rel_l2": polyak_rel,
+            "update_ms": ms, "update_ms_median": sorted(ms)[len(ms) // 2],
+            "step_ms_per_update": step_ms, "critic_loss": got["critic_loss"],
+            "cpu_critic_loss": want["critic_loss"]}
+
+
+def _forced(idx, n):
+    """Gumbel noise that makes every draw ``idx`` (the CPU's)."""
+    from ray_tpu_torch.rllib.algorithms.dreamerv3 import one_hot
+
+    return one_hot(idx, n) * RLM_FORCE
+
+
+def _dreamer_part(torch) -> dict:
+    """(d): DreamerV3's two updates at the config's defaults, card
+    against CPU, then timed on the card."""
+    import numpy as np
+
+    from ray_tpu_torch.models.transformer import _leaves
+    from ray_tpu_torch.rllib.algorithms import DreamerV3, DreamerV3Config
+    from ray_tpu_torch.rllib.algorithms.dreamerv3 import gumbel
+
+    def config(device=None):
+        cfg = DreamerV3Config()
+        cfg.observation_dim, cfg.num_actions = 4, 2   # CartPole's shapes
+        cfg.learner_device = device
+        return cfg
+
+    card, cpu = DreamerV3(config()), DreamerV3(config("cpu"))
+    cfg = card.config
+    B, T, H = cfg.batch_size_B, cfg.batch_length_T, cfg.horizon_H
+    G, C, A = cfg.stoch_groups, cfg.stoch_classes, 2
+    assert str(card.params["wm"]["gru"]["wi"].device) == "cuda:0"
+    assert _leaf_rel_l2(torch, card.params, cpu.params) == 0.0
+    rng = np.random.default_rng(0)
+    batch = {"obs": rng.normal(size=(B, T, 4)).astype(np.float32),
+             "action": rng.integers(0, A, (B, T)).astype(np.int32),
+             "reward": np.ones((B, T), np.float32),
+             "cont": (rng.random((B, T)) > 0.05).astype(np.float32)}
+    gen = torch.Generator().manual_seed(0)
+    noise = [gumbel(s, gen, "cpu") for s in (
+        (T, B, G, C), (H, T * B, A), (H, T * B, G, C))]
+    dev = torch.device("cuda", 0)
+    on = {"card": (card, dev), "cpu": (cpu, torch.device("cpu"))}
+
+    def put(x, d):
+        return {k: torch.from_numpy(v).to(d) for k, v in x.items()} \
+            if isinstance(x, dict) else x.to(d)
+
+    def wm_grads(key, wm_noise):
+        algo, d = on[key]
+        loss, aux = algo.wm_loss(algo.params["wm"], put(batch, d),
+                                 put(wm_noise, d))
+        return loss, aux, torch.autograd.grad(loss, _leaves(
+            algo.params["wm"]))
+
+    def ac_grads(key, starts, act_noise, prior_noise):
+        algo, d = on[key]
+        ac = {"actor": algo.params["actor"], "critic": algo.params["critic"]}
+        loss, aux = algo.ac_loss(ac, algo.params["wm"],
+                                 tuple(put(s, d) for s in starts),
+                                 put(act_noise, d), put(prior_noise, d))
+        with torch.no_grad():
+            *_, stochs, actions = algo.imagine(
+                {"actor": ac["actor"], "wm": algo.params["wm"]},
+                tuple(put(s, d) for s in starts), put(act_noise, d),
+                put(prior_noise, d))
+        return (loss, aux, torch.autograd.grad(loss, _leaves(ac)),
+                stochs.reshape(H, T * B, G, C).argmax(-1), actions)
+
+    def draws(stoch):
+        return stoch.reshape(stoch.shape[:-1] + (G, C)).argmax(-1)
+
+    # the world model: losses, grads and posterior draws
+    closs, caux, cgrads = wm_grads("cpu", noise[0])
+    gloss, gaux, ggrads = wm_grads("card", noise[0])
+    cdraw, gdraw = draws(caux["starts"][1]), draws(gaux["starts"][1]).cpu()
+    wm_flips = int((cdraw != gdraw).sum())
+    wm_rel = max(_rel(float(gaux[k].detach()), float(caux[k].detach()))
+                 for k in ("wm_loss", "recon_loss", "kl_loss"))
+    wm_grad_rel = _leaf_rel_l2(torch, list(ggrads), list(cgrads))
+    if wm_flips:
+        # hold the card under the CPU's draws
+        forced = _forced(cdraw, C)
+        gloss, gaux, ggrads = wm_grads("card", forced)
+        wm_rel = max(_rel(float(gaux[k].detach()), float(caux[k].detach()))
+                     for k in ("wm_loss", "recon_loss", "kl_loss"))
+        wm_grad_rel = _leaf_rel_l2(torch, list(ggrads), list(cgrads))
+    # the actor and critic from the CPU's posterior starts on both devices
+    starts = caux["starts"]
+    c2 = ac_grads("cpu", starts, noise[1], noise[2])
+    g2 = ac_grads("card", starts, noise[1], noise[2])
+    ac_flips = int((g2[3].cpu() != c2[3]).sum()
+                   + (g2[4].cpu() != c2[4]).sum())
+    ac_draws_n = c2[3].numel() + c2[4].numel()
+    if ac_flips:
+        g2 = ac_grads("card", starts, _forced(c2[4], A),
+                      _forced(c2[3], C))
+    ac_rel = max([_rel(float(g2[0].detach()), float(c2[0].detach()))]
+                 + [_rel(float(g2[1][k].detach()), float(c2[1][k].detach()))
+                    for k in c2[1]])
+    ac_grad_rel = _leaf_rel_l2(torch, list(g2[2]), list(c2[2]))
+    flips, total = wm_flips + ac_flips, cdraw.numel() + ac_draws_n
+    assert flips <= RLM_DRAW_SHARE * total, (wm_flips, ac_flips, total)
+    assert wm_rel <= RL_LOSS_RTOL and ac_rel <= RL_LOSS_RTOL, (wm_rel,
+                                                               ac_rel)
+    assert wm_grad_rel <= RL_GRAD_RTOL, wm_grad_rel
+    assert ac_grad_rel <= RL_GRAD_RTOL, ac_grad_rel
+
+    # one update pair with every host read an error, then 8 timed pairs
+    bc = put(batch, dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        wm_noise, act_noise, prior_noise = card._update_noise()
+        aux = card._wm_update(bc, wm_noise)
+        out = card._ac_update(aux.pop("starts"), act_noise, prior_noise)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert all(math.isfinite(float(v)) for v in {**aux, **out}.values())
+    wm_ms, ac_ms = [], []
+    for _ in range(RLM_DREAMER_UPDATES):
+        wm_noise, act_noise, prior_noise = card._update_noise()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        aux = card._wm_update(bc, wm_noise)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = card._ac_update(aux.pop("starts"), act_noise, prior_noise)
+        torch.cuda.synchronize()
+        wm_ms.append(1e3 * (t1 - t0))
+        ac_ms.append(1e3 * (time.perf_counter() - t1))
+    losses = {k: float(v) for k, v in {**aux, **out}.items()}
+    assert all(math.isfinite(v) for v in losses.values()), losses
+    assert all(st.count == 1 + RLM_DREAMER_UPDATES
+               for st in card._opt_state.values())
+    card.stop()
+    cpu.stop()
+    return {"wm_flips": wm_flips, "ac_flips": ac_flips, "draws": total,
+            "wm_loss_rel": wm_rel, "wm_grad_rel_l2": wm_grad_rel,
+            "ac_loss_rel": ac_rel, "ac_grad_rel_l2": ac_grad_rel,
+            "wm_ms": wm_ms, "ac_ms": ac_ms,
+            "wm_ms_median": sorted(wm_ms)[len(wm_ms) // 2],
+            "ac_ms_median": sorted(ac_ms)[len(ac_ms) // 2],
+            "losses": losses,
+            "params": sum(p.numel() for p in _leaves(card.params))}
+
+
+def rl_more_phase(torch) -> dict:
+    """Phase 20: the rest of RLlib on the card (run after phase 19, in
+    this process). (a) MARWIL and BC, (b) CQL, (c) SAC's updates, (d)
+    DreamerV3's updates; K1-K4 counted over the phase (none run)."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import data as rd
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.ops.paged_attention import paged_attention
+
+    _reset_counters(fa)
+    paged_attention.launches = 0
+    r = {}
+    rt.init(num_gpus=0)
+    try:
+        t0 = time.perf_counter()
+        r["imitation"] = a = dict(_imitation_part(torch, rd),
+                                  seconds=time.perf_counter() - t0)
+    finally:
+        rt.shutdown()
+    m, b = a["marwil"], a["bc"]
+    print(f"rl-more (a): MARWIL and BC on {RLM_ROWS} mixed rows (obs 6, 4 "
+          f"actions, hiddens (64,), {RLM_ITERS} x 24 updates, learners on "
+          f"cuda:0, BC through a port Dataset): optimal-action accuracy "
+          f"MARWIL {m['accuracy']:.3f} > 0.85, BC {b['accuracy']:.3f}; "
+          f"first {RLM_PARITY} updates card vs CPU metrics "
+          f"{max(m['metric_rel'], b['metric_rel']):.2e}, params "
+          f"{max(m['param_rel_l2'], b['param_rel_l2']):.2e}; "
+          f"{m['update_ms_median']:.2f} / {b['update_ms_median']:.2f} ms "
+          f"median an update (first {m['first_update_ms']:.2f} / "
+          f"{b['first_update_ms']:.2f})", flush=True)
+    t0 = time.perf_counter()
+    r["cql"] = c = dict(_cql_part(torch), seconds=time.perf_counter() - t0)
+    print(f"rl-more (b): CQL on 2000 bandit rows (hiddens (32, 32), "
+          f"{RLM_CQL_ITERS} x 16 updates, bc_iters 1, on cuda:0): greedy "
+          f"mean action {c['mean_action']:.3f} (0.5 +- 0.25); first "
+          f"{RLM_CQL_PARITY} iterations card vs CPU metrics "
+          f"{c['metric_rel']:.2e}, params {c['param_rel_l2']:.2e}, targets "
+          f"{c['target_rel_l2']:.2e}; {c['update_ms_median']:.2f} ms median "
+          f"an update", flush=True)
+    t0 = time.perf_counter()
+    r["sac"] = s = dict(_sac_part(torch), seconds=time.perf_counter() - t0)
+    print(f"rl-more (c): SAC at Pendulum's shapes (obs 3, 1 action, hiddens "
+          f"(256, 256), batch 256), {RLM_SAC_UPDATES} updates from a fixed "
+          f"replay: card vs CPU targets {s['target_rel_l2']:.2e}, metrics "
+          f"{s['metric_rel']:.2e}, params {s['param_rel_l2']:.2e}, polyak "
+          f"targets {s['polyak_rel_l2']:.2e}; {s['update_ms_median']:.2f} ms "
+          f"median an update, {s['step_ms_per_update']:.2f} ms an update "
+          f"with its targets and polyak average", flush=True)
+    t0 = time.perf_counter()
+    r["dreamer"] = d = dict(_dreamer_part(torch),
+                            seconds=time.perf_counter() - t0)
+    print(f"rl-more (d): DreamerV3 at the config's defaults (B16 T16 H15, "
+          f"deter 128, 8x8, hidden 128, {d['params']} params; obs 4, 2 "
+          f"actions): card vs CPU world-model loss {d['wm_loss_rel']:.2e}, "
+          f"grads {d['wm_grad_rel_l2']:.2e}; actor-critic loss "
+          f"{d['ac_loss_rel']:.2e}, grads {d['ac_grad_rel_l2']:.2e}; "
+          f"{d['wm_flips'] + d['ac_flips']} of {d['draws']} categorical "
+          f"draws differ ({d['wm_flips']} world model, {d['ac_flips']} "
+          f"imagination); an update pair under sync debug 'error'; "
+          f"{d['wm_ms_median']:.2f} ms a world-model update, "
+          f"{d['ac_ms_median']:.2f} ms an actor-critic update (median of "
+          f"{RLM_DREAMER_UPDATES})", flush=True)
+    r["launches"] = launches = {
+        "flash_forward": fa.KERNELS[0].launches,
+        "flash_dq": fa.KERNELS[1].launches,
+        "flash_dkv": fa.KERNELS[2].launches,
+        "paged_attention": paged_attention.launches}
+    assert not any(launches.values()), launches
+    print("rl-more: K1-K4 launches in the phase " + json.dumps(launches),
+          flush=True)
+    return r
+
+
 def preflight_line() -> dict:
     """What the port's ``reap_all()`` swept before the run, and whether
     pyarrow, pandas and gymnasium import here (and their versions)."""
@@ -6202,6 +6737,7 @@ def main() -> int:
     data = timed("data", data_phase, torch, train, dp_train)
     _free(torch)
     rl = timed("rl", rl_phase, torch)
+    rl_more = timed("rl_more", rl_more_phase, torch)
     print("phase seconds: " + json.dumps(
         {k: round(v, 1) for k, v in phase_s.items()}), flush=True)
     main_case = kern["decode_bfloat16"]
@@ -6329,7 +6865,7 @@ def main() -> int:
               "train_parity": train_parity, "dp_train": dp_train,
               "pipeline": pipeline, "tune": tune_r, "dag": dag,
               "autoscale": autoscale, "data": data, "rl": rl,
-              "phase_seconds": phase_s,
+              "rl_more": rl_more, "phase_seconds": phase_s,
               "seconds": time.perf_counter() - t_start}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

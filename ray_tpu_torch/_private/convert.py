@@ -24,14 +24,17 @@ them. ``rl_learner_state_from_jax`` turns a JAX ``Learner.get_state()``
 (params and the optax chain's state of numpy leaves) into the port
 learner's state (``{"params", "opt_state": {"count", "mu", "nu"}}``), the
 Adam state found by field name; ``rl_learner_state_to_jax`` is its inverse
-into a JAX state given as the template.
+into a JAX state given as the template. SAC's and CQL's tree (``actor``,
+``q1``, ``q2`` and the 0-d ``log_alpha``) goes through the same functions.
+``dreamer_state_from_jax``/``dreamer_state_to_jax`` carry a DreamerV3's
+params and its three Adam states (``wm``, ``actor``, ``critic``).
 
 This module never imports JAX or optax; numpy is the common ground.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -176,13 +179,20 @@ def _is_conv_w(path: str) -> bool:
     return parts[0] == "conv" and parts[-1] == "w"
 
 
+def _contiguous(a: np.ndarray) -> np.ndarray:
+    # np.ascontiguousarray gives a 0-d leaf (SAC's log_alpha) a length-1
+    # axis; the reshape takes it back
+    return np.ascontiguousarray(a).reshape(a.shape)
+
+
 def rl_params_from_jax(tree) -> Dict[str, Any]:
     """An RLModule's JAX params (numpy leaves) -> the port's, as float32
-    numpy arrays: conv kernels HWIO -> OIHW, the rest as they are."""
+    numpy arrays: conv kernels HWIO -> OIHW, the rest (0-d leaves too) as
+    they are."""
     def leaf(path, a):
         a = np.asarray(a, np.float32)
-        return np.ascontiguousarray(a.transpose(3, 2, 0, 1)
-                                    if _is_conv_w(path) else a)
+        return _contiguous(a.transpose(3, 2, 0, 1) if _is_conv_w(path)
+                           else a)
 
     return _rl_map(leaf, tree)
 
@@ -193,29 +203,24 @@ def rl_params_to_jax(params) -> Dict[str, Any]:
         if isinstance(a, torch.Tensor):
             a = a.detach().to("cpu", torch.float32).numpy()
         a = np.asarray(a, np.float32)
-        return np.ascontiguousarray(a.transpose(2, 3, 1, 0)
-                                    if _is_conv_w(path) else a)
+        return _contiguous(a.transpose(2, 3, 1, 0) if _is_conv_w(path)
+                           else a)
 
     return _rl_map(leaf, params)
 
 
-def rl_learner_state_from_jax(state) -> Dict[str, Any]:
-    """A JAX ``Learner.get_state()`` -> the port ``Learner.set_state``'s
-    input: params and Adam's ``mu``/``nu`` converted, ``count`` kept."""
-    adam = _adam_state(state["opt_state"])
+def _adam_from_jax(opt_state) -> Dict[str, Any]:
+    adam = _adam_state(opt_state)
     if adam is None:
         raise ValueError("no Adam state (count, mu, nu) in opt_state")
-    return {"params": rl_params_from_jax(state["params"]),
-            "opt_state": {"count": int(np.asarray(adam.count)),
-                          "mu": rl_params_from_jax(adam.mu),
-                          "nu": rl_params_from_jax(adam.nu)}}
+    return {"count": int(np.asarray(adam.count)),
+            "mu": rl_params_from_jax(adam.mu),
+            "nu": rl_params_from_jax(adam.nu)}
 
 
-def rl_learner_state_to_jax(state: Dict[str, Any], like) -> Dict[str, Any]:
-    """The port learner's state -> a JAX ``Learner.get_state()`` shaped as
-    ``like`` (one such state): params, ``mu``, ``nu`` and the count are
-    replaced."""
-    st = state["opt_state"]
+def _adam_to_jax(st: Dict[str, Any], like):
+    """An optax chain state shaped as ``like``, its Adam count, ``mu`` and
+    ``nu`` (and every other count) replaced by the port's ``st``."""
     count = np.asarray(st["count"], np.int32)
     mu, nu = rl_params_to_jax(st["mu"]), rl_params_to_jax(st["nu"])
 
@@ -229,5 +234,39 @@ def rl_learner_state_to_jax(state: Dict[str, Any], like) -> Dict[str, Any]:
             return tuple(fill(sub) for sub in x)
         return x
 
+    return fill(like)
+
+
+def rl_learner_state_from_jax(state) -> Dict[str, Any]:
+    """A JAX ``Learner.get_state()`` -> the port ``Learner.set_state``'s
+    input: params and Adam's ``mu``/``nu`` converted, ``count`` kept."""
+    return {"params": rl_params_from_jax(state["params"]),
+            "opt_state": _adam_from_jax(state["opt_state"])}
+
+
+def rl_learner_state_to_jax(state: Dict[str, Any], like) -> Dict[str, Any]:
+    """The port learner's state -> a JAX ``Learner.get_state()`` shaped as
+    ``like`` (one such state): params, ``mu``, ``nu`` and the count are
+    replaced."""
     return {"params": rl_params_to_jax(state["params"]),
-            "opt_state": fill(like["opt_state"])}
+            "opt_state": _adam_to_jax(state["opt_state"],
+                                      like["opt_state"])}
+
+
+def dreamer_state_from_jax(params, opt_state) -> Dict[str, Any]:
+    """A JAX ``DreamerV3``'s ``params`` (``wm`` with its nested ``gru``
+    dict, ``actor``, ``critic``) and its three ``optax.adam`` states (a
+    dict by those names), numpy leaves -> the port ``DreamerV3.set_state``'s
+    input: ``{"params", "opt_state": {name: {"count", "mu", "nu"}}}``."""
+    return {"params": rl_params_from_jax(params),
+            "opt_state": {k: _adam_from_jax(v)
+                          for k, v in opt_state.items()}}
+
+
+def dreamer_state_to_jax(state: Dict[str, Any], like_opt_state
+                         ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """Inverse of ``dreamer_state_from_jax``: (params, opt_state) as JAX
+    holds them, the optax states shaped as ``like_opt_state``."""
+    return (rl_params_to_jax(state["params"]),
+            {k: _adam_to_jax(st, like_opt_state[k])
+             for k, st in state["opt_state"].items()})

@@ -3,15 +3,19 @@
 Counterpart: ``ray_tpu/rllib``. RLModule (plain functions over a params
 dict of tensors) + Learner/LearnerGroup (SGD actors) +
 EnvRunner/EnvRunnerGroup (sampling actors) + Algorithm drivers (PPO,
-IMPALA, APPO, DQN), and the Podracer topologies (``AnakinTrainer``, whose
-env, rollout and update run on the card, and ``SebulbaTopology``). Every
-role runs on the card unless its caller names the CPU.
+IMPALA, APPO, DQN, SAC, CQL, MARWIL and BC, DreamerV3), and the Podracer
+topologies (``AnakinTrainer``, whose env, rollout and update run on the
+card, and ``SebulbaTopology``). Every role runs on the card unless its
+caller names the CPU.
 """
 
-from ray_tpu_torch.rllib.algorithms import (APPO, DQN, IMPALA, PPO,
-                                            APPOConfig, Algorithm,
-                                            AlgorithmConfig, DQNConfig,
-                                            IMPALAConfig, PPOConfig)
+from ray_tpu_torch.rllib.algorithms import (APPO, BC, DQN, IMPALA, MARWIL,
+                                            PPO, SAC, APPOConfig, Algorithm,
+                                            AlgorithmConfig, BCConfig,
+                                            DQNConfig, DreamerV3,
+                                            DreamerV3Config, IMPALAConfig,
+                                            MARWILConfig, PPOConfig,
+                                            SACConfig)
 from ray_tpu_torch.rllib.connectors import (CastObs, ClipRewards, Connector,
                                             ConnectorPipeline, FlattenObs,
                                             NormalizeObs)
@@ -35,6 +39,12 @@ __all__ = [
     "APPOConfig",
     "DQN",
     "DQNConfig",
+    "SAC",
+    "SACConfig",
+    "BC",
+    "BCConfig",
+    "MARWIL",
+    "MARWILConfig",
     "Connector",
     "ConnectorPipeline",
     "NormalizeObs",

@@ -254,6 +254,12 @@ def _ws_frame(opcode: int, payload: bytes) -> bytes:
     return head + payload
 
 
+async def _discard(reader: asyncio.StreamReader) -> None:
+    """Read and drop until EOF."""
+    while await reader.read(1 << 16):
+        pass
+
+
 def _unmask(key: bytes, data: bytes) -> bytes:
     n = len(data)
     whole = (key * (n // 4 + 1))[:n]
@@ -327,7 +333,7 @@ class WebSocketResponse:
             return await self._receive()
         except _WSProtocolError as e:
             self._closed = True
-            await self.close(e.code, str(e))
+            await self._fail(e.code, str(e))
             return WSMessage(WSMsgType.ERROR, e.code)
         except (asyncio.IncompleteReadError, ConnectionError, OSError):
             self._closed = True
@@ -369,6 +375,27 @@ class WebSocketResponse:
                     return WSMessage(WSMsgType.TEXT, data.decode())
                 except UnicodeDecodeError:
                     raise _WSProtocolError(1007, "text is not UTF-8")
+
+    async def _fail(self, code: int, reason: str) -> None:
+        """Fail the connection on a protocol error (RFC 6455 section
+        7.1.7): the close frame, a half-close, then what the peer still
+        sends (the rest of the offending frame, its close reply) read and
+        dropped until its EOF or ``WS_CLOSE_TIMEOUT_S``, and only then the
+        socket closed. A socket closed over unread bytes sends RST, which
+        can cost the peer the close frame still in flight."""
+        conn = self._conn
+        try:
+            if not self._close_sent:
+                self._close_sent = True
+                await conn.write(_ws_frame(
+                    _CLOSE, struct.pack("!H", code) + reason.encode()))
+            if conn.writer.can_write_eof():
+                conn.writer.write_eof()
+            await asyncio.wait_for(_discard(conn.reader), WS_CLOSE_TIMEOUT_S)
+        except (asyncio.TimeoutError, ConnectionError, OSError):
+            pass
+        finally:
+            conn.writer.close()
 
     async def _on_close(self, payload: bytes) -> WSMessage:
         if len(payload) == 1:

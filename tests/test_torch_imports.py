@@ -279,6 +279,10 @@ RLLIB_MODULES = (
     "ray_tpu_torch.rllib.algorithms.impala",
     "ray_tpu_torch.rllib.algorithms.appo",
     "ray_tpu_torch.rllib.algorithms.dqn",
+    "ray_tpu_torch.rllib.algorithms.sac",
+    "ray_tpu_torch.rllib.algorithms.marwil",
+    "ray_tpu_torch.rllib.algorithms.cql",
+    "ray_tpu_torch.rllib.algorithms.dreamerv3",
     "ray_tpu_torch.rllib.podracer")
 
 
@@ -295,13 +299,31 @@ def test_importing_rllib_loads_no_jax():
                          banned=("jax", "jaxlib", "ray_tpu")) == "[]"
 
 
+def _jax_all(rel: str) -> list:
+    """The ``__all__`` list of a JAX package module, read with ``ast`` (this
+    file imports nothing of the JAX package)."""
+    tree = ast.parse((ROOT / rel).read_text())
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and any(
+                getattr(t, "id", None) == "__all__" for t in node.targets):
+            return ast.literal_eval(node.value)
+    raise AssertionError(f"no __all__ in {rel}")
+
+
 def test_rllib_exports_only_the_ported_algorithms():
-    """SAC, CQL, MARWIL/BC and DreamerV3 are the next RLlib slice: the
-    port's packages export only what this one ports."""
+    """With SAC, CQL, MARWIL/BC and DreamerV3 ported, the port's two RLlib
+    packages export exactly what the JAX package's do, in its order, and
+    every name imports."""
     import ray_tpu_torch.rllib as rl
     import ray_tpu_torch.rllib.algorithms as alg
 
-    for name in ("SAC", "SACConfig", "CQL", "BC", "MARWIL", "DreamerV3"):
-        assert not hasattr(rl, name) and not hasattr(alg, name)
-    assert {"PPO", "IMPALA", "APPO", "DQN", "AnakinTrainer",
-            "SebulbaTopology"} <= set(rl.__all__)
+    for mod, rel in ((rl, "ray_tpu/rllib/__init__.py"),
+                     (alg, "ray_tpu/rllib/algorithms/__init__.py")):
+        assert mod.__all__ == _jax_all(rel), rel
+        for name in mod.__all__:
+            assert getattr(mod, name) is not None, name
+    for name in ("SAC", "SACConfig", "BC", "BCConfig", "MARWIL",
+                 "MARWILConfig"):
+        assert getattr(rl, name) is getattr(alg, name)
+    assert {"CQL", "CQLConfig", "DreamerV3", "DreamerV3Config"} <= set(
+        alg.__all__)

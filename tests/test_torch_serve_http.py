@@ -580,3 +580,43 @@ def test_server_client_gone_mid_stream():
     assert ended == ["ConnectionResetError"] or ended == [
         "BrokenPipeError"]
     assert (old, new) == ("/after-on-the-old-connection", "/after")
+
+
+@pytest.mark.parametrize("extra", [0, 1 << 20])
+def test_server_websocket_protocol_error_drains_before_close(extra):
+    """An unmasked frame, then ``extra`` more bytes, most of them still in
+    the server's socket when it refuses the frame: the client reads the
+    1002 close frame and then a clean end of stream, never a reset (a
+    socket closed over unread bytes sends RST, and the peer may lose the
+    close frame); the app sees an ERROR, not the frame."""
+    seen = []
+
+    async def handler(request):
+        ws = http_server.WebSocketResponse()
+        await ws.prepare(request)
+        msg = await ws.receive()
+        seen.append(msg.type)
+        return ws
+
+    def client(port):
+        ws = _RawWS(f"http://127.0.0.1:{port}", "/ws")
+        try:
+            assert ws.status == 101
+            try:
+                ws.send(TEXT, b"unmasked", mask=False)
+                ws.sock.sendall(b"x" * extra)
+            except (BrokenPipeError, ConnectionResetError) as e:
+                return ("send", type(e).__name__)
+            first = ws.recv()  # (None, b"") if a reset lost the frame
+            assert not ws.buf
+            try:  # the raw socket tells a clean end from a reset
+                end = ws.sock.recv(1)
+            except ConnectionResetError as e:
+                end = type(e).__name__
+            return first[0], first[1][:2], end
+        finally:
+            ws.close()
+
+    out = _serve(handler, client)
+    assert out == (CLOSE, struct.pack("!H", 1002), b""), out
+    assert seen == [http_server.WSMsgType.ERROR]
