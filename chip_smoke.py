@@ -420,6 +420,31 @@ of its checks fails:
      then 8 pairs timed (ms a world-model update, ms an actor-critic
      update). SAC's and DreamerV3's env loops need gymnasium, which the
      card's machine lacks: they run in the CPU tests only.
+ 21. mesh (run after phase 20, in this process): the SPMD layer on a
+     world-1 NCCL group opened from a ``FileStore`` in a temp dir, closed
+     with ``destroy_process_group`` at the end. (a) gpt2_small at full
+     size, B16 x S1024, remat off, chunk 8192: 5 steps through
+     ``init_train_state(..., mesh=)`` and ``make_train_step(..., mesh=)``
+     on ``build_mesh(MeshSpec.auto(1))``, and the same 5 steps meshless
+     from the same seed and batch; each loss and grad norm within
+     ``MESH_WORLD1_RTOL`` (1e-6) of the meshless one (bit-equality
+     printed), K1, K2 and K3 launched exactly 12 x 5 times each around
+     the 5 mesh steps, step ms of both; then ``MESH_REMAT_STEPS`` steps of
+     each with remat on (the default: each block and its params' gather
+     run again in backward on autograd's device thread), held the same
+     way, K1 24, K2 and K3 12 launches a mesh step. (b) the
+     ``attn_impl="ring"`` loss and grads at gpt2_small width (12 layers, B2 x S1024, float32, remat
+     on: the blocks run again in backward on autograd's device thread)
+     over an ``sp`` axis of size 1 against the meshless ones, the loss
+     within ``TRAIN_PARITY_RTOL``, the grads within
+     ``MESH_RING_GRAD_RTOL`` (relative L2, largest leaf). (c)
+     ``pipeline_1f1b`` over a ``pp`` axis of size 1, two gpt2_small
+     blocks (bf16) as the stage, 4 microbatches of B2 x S1024: the loss
+     within ``MESH_1F1B_LOSS_RTOL`` and the grads within
+     ``MESH_1F1B_GRAD_RTOL`` (relative L2, largest leaf) of sequential
+     autodiff, K1 4 x 4, K2 and K3 2 x 4
+     launches around the call. NCCL refuses two ranks on one card, so the
+     collectives of worlds of 2 or more are held on the CPU (gloo) only.
 
 The script and every process it starts write and read Python's bytecode
 under ``build/pycache`` (``cache_bytecode``), so the first process to
@@ -6641,6 +6666,288 @@ def rl_more_phase(torch) -> dict:
     return r
 
 
+MESH_STEPS = 5
+# (a) at world 1 runs the meshless step's kernels on the same bits: its
+# losses and grad norms read bit-equal to the meshless ones on an H100
+# (PERF.md), so each is held within 1e-6 relative
+MESH_WORLD1_RTOL = 1e-6
+MESH_REMAT_STEPS = 2          # (a) again with remat on, both ways
+# (b) float32, the ring's einsum against the flash kernels: relative L2 of
+# the largest grad leaf, read 5.66e-06 on an H100 (PERF.md)
+MESH_RING_GRAD_RTOL = 5e-5
+# (c) 1F1B against sequential autodiff: the loss read equal and the grads
+# 5.74e-08 relative L2 on an H100 (PERF.md)
+MESH_1F1B_LOSS_RTOL = 1e-6
+MESH_1F1B_GRAD_RTOL = 1e-5
+MESH_MICRO = 4                # (c) microbatches
+
+
+def _mesh_steps(torch, cfg, B, S, mesh, steps=MESH_STEPS) -> dict:
+    """``steps`` steps of gpt2_small from seed 0 on one batch, with or
+    without a mesh; per-step ms (host clock, synchronized) and the K1-K3
+    launches around the steps."""
+    from ray_tpu_torch import OptimizerConfig
+    from ray_tpu_torch.models import training
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    state, tx = training.init_train_state(
+        cfg, OptimizerConfig(warmup_steps=10, decay_steps=1000), seed=0,
+        mesh=mesh)
+    step = training.make_train_step(cfg, tx, mesh=mesh)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S), generator=g,
+                                     device="cuda")}
+    _reset_counters(fa)
+    losses, norms, ms = [], [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        loss = float(m["loss"])
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+        norms.append(float(m["grad_norm"]))
+    launches = {f.__name__: f.launches for f in fa.KERNELS}
+    placements = None
+    table = state.params["embed"]["table"]
+    if hasattr(table, "placements"):
+        placements = [str(p) for p in table.placements]
+    del state, tx, step
+    torch.cuda.empty_cache()
+    return dict(losses=losses, grad_norms=norms, step_ms=ms,
+                step_ms_median=sorted(ms[1:])[len(ms[1:]) // 2],
+                launches=launches, placements=placements)
+
+
+def _mesh_ring(torch, mesh_spec_cls, build_mesh) -> dict:
+    """(b): the ring branch's loss and grads over an sp axis of size 1
+    against the meshless (flash) ones, float32, gpt2_small width, B2 x
+    S1024, remat on: each block runs again in backward, on autograd's
+    device thread, with the mesh it was given."""
+    from ray_tpu_torch import presets
+    from ray_tpu_torch.models import transformer
+
+    cfg = presets.gpt2_small(remat=True, dtype=torch.float32,
+                             ce_chunk=2048)
+    ring_cfg = presets.gpt2_small(remat=True, dtype=torch.float32,
+                                  ce_chunk=2048, attn_impl="ring")
+    params = transformer.init_params(cfg, 3, "cuda",
+                                     param_dtype=torch.float32)
+    params = transformer.map_params(
+        lambda _p, t: t.requires_grad_(True), params)
+    leaves = transformer._leaves(params)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    B, S = 2, 1024
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S), generator=g,
+                                     device="cuda")}
+    sp = build_mesh(mesh_spec_cls((("sp", 1),)))
+    loss = transformer.loss_fn(cfg, params, batch)[0]
+    plain_grads = torch.autograd.grad(loss, leaves)
+    plain = float(loss.detach())
+    loss = transformer.loss_fn(ring_cfg, params, batch, sp_axis="sp",
+                               mesh=sp,
+                               positions=torch.arange(S, device="cuda"))[0]
+    ring_grads = torch.autograd.grad(loss, leaves)
+    ring = float(loss.detach())
+    rel = abs(ring - plain) / abs(plain)
+    grad_rel = max(float((a - b).norm() / b.norm())
+                   for a, b in zip(ring_grads, plain_grads) if b.norm() > 0)
+    del params, leaves, plain_grads, ring_grads, loss
+    torch.cuda.empty_cache()
+    if not (rel <= TRAIN_PARITY_RTOL and grad_rel <= MESH_RING_GRAD_RTOL):
+        raise AssertionError(f"mesh (b): ring loss {ring} against meshless "
+                             f"{plain} (rel {rel:.2e}), grads rel L2 "
+                             f"{grad_rel:.2e}")
+    return dict(batch=B, seq=S, ring_loss=ring, meshless_loss=plain,
+                rel=rel, rtol=TRAIN_PARITY_RTOL, grad_rel_l2=grad_rel,
+                grad_rtol=MESH_RING_GRAD_RTOL)
+
+
+def _mesh_1f1b(torch, mesh_spec_cls, build_mesh) -> dict:
+    """(c): ``pipeline_1f1b`` over a pp axis of size 1, two gpt2_small
+    blocks as the stage, against sequential autodiff."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from ray_tpu_torch import presets
+    from ray_tpu_torch.models import transformer
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.parallel import pipeline
+
+    cfg = presets.gpt2_small(remat=False)
+    params = transformer.init_params(cfg, 5, "cuda",
+                                     param_dtype=torch.float32)
+    blocks = params["blocks"][:2]
+    del params
+    pp = build_mesh(mesh_spec_cls((("pp", 1),)))
+    stacked = pipeline.stack_stage_params([blocks])
+    shard = pipeline.stage_param_sharding(stacked, pp)
+    placed = pipeline.tree_map(
+        lambda x, s: distribute_tensor(x, pp, s.placements,
+                                       src_data_rank=None), stacked, shard)
+    g = torch.Generator(device="cuda").manual_seed(6)
+    x = torch.randn((MESH_MICRO, 2, 1024, cfg.embed_dim), generator=g,
+                    device="cuda").to(cfg.dtype)
+
+    def stage_fn(stage, h):
+        for p in stage:
+            h, _ = transformer._block(cfg, p, h, None, None)
+        return h
+
+    def loss_fn(a):
+        return (a.float() ** 2).mean()
+
+    _reset_counters(fa)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, grads = pipeline.pipeline_1f1b(stage_fn, loss_fn, placed, x,
+                                         mesh=pp)
+    loss = float(loss)
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = {f.__name__: f.launches for f in fa.KERNELS}
+    want = {"flash_forward": 4 * MESH_MICRO, "flash_dq": 2 * MESH_MICRO,
+            "flash_dkv": 2 * MESH_MICRO}
+    if launches != want:
+        raise AssertionError(f"mesh (c): flash launches {launches}, "
+                             f"expected {want}")
+    ref_params = transformer.map_params(
+        lambda _p, t: t.detach().requires_grad_(True), blocks)
+    total = 0.0
+    for m in range(MESH_MICRO):
+        total = total + loss_fn(stage_fn(ref_params, x[m]))
+    total = total / MESH_MICRO
+    ref_grads = torch.autograd.grad(total, transformer._leaves(ref_params))
+    total = float(total.detach())
+    got = [g.to_local()[0] for g in transformer._leaves(grads)]
+    grad_rel = max(float((a.float() - b.float()).norm() / b.float().norm())
+                   for a, b in zip(got, ref_grads) if b.norm() > 0)
+    loss_rel = abs(loss - total) / abs(total)
+    if not (loss_rel <= MESH_1F1B_LOSS_RTOL
+            and grad_rel <= MESH_1F1B_GRAD_RTOL):
+        raise AssertionError(f"mesh (c): 1F1B loss {loss} against "
+                             f"sequential {total} (rel "
+                             f"{loss_rel:.2e}), grads rel L2 {grad_rel:.2e}")
+    del blocks, placed, ref_params, grads, ref_grads
+    torch.cuda.empty_cache()
+    return dict(microbatches=MESH_MICRO, loss=loss,
+                sequential_loss=total, loss_rel=loss_rel,
+                grad_rel_l2=grad_rel, launches=launches, call_ms=ms)
+
+
+def mesh_phase(torch, card) -> dict:
+    """Phase 21: the SPMD layer on a world-1 NCCL group (run after phase
+    20, in this process)."""
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+
+    from ray_tpu_torch import presets
+    from ray_tpu_torch.parallel.mesh import MeshSpec, build_mesh
+
+    r = {}
+    cfg = presets.gpt2_small(remat=False, ce_chunk=8192)
+    B, S = 16, 1024
+    t0 = time.perf_counter()
+    r["meshless"] = plain = _mesh_steps(torch, cfg, B, S, None)
+    with tempfile.TemporaryDirectory() as d:
+        store = dist.FileStore(os.path.join(d, "store"), 1)
+        dist.init_process_group("nccl", store=store, rank=0, world_size=1,
+                                device_id=torch.device("cuda", 0))
+        try:
+            mesh = build_mesh(MeshSpec.auto(1))
+            r["mesh"] = got = _mesh_steps(torch, cfg, B, S, mesh)
+            r["a_seconds"] = time.perf_counter() - t0
+            want = {"flash_forward": 12 * MESH_STEPS,
+                    "flash_dq": 12 * MESH_STEPS,
+                    "flash_dkv": 12 * MESH_STEPS}
+            if got["launches"] != want:
+                raise AssertionError(f"mesh (a): flash launches "
+                                     f"{got['launches']}, expected {want}")
+            rels = [abs(a - b) / abs(b) for a, b in zip(got["losses"],
+                                                         plain["losses"])]
+            norm_rels = [abs(a - b) / abs(b) for a, b in zip(
+                got["grad_norms"], plain["grad_norms"])]
+            r["loss_rel"], r["grad_norm_rel"] = max(rels), max(norm_rels)
+            r["bit_equal"] = (got["losses"] == plain["losses"]
+                              and got["grad_norms"] == plain["grad_norms"])
+            bad = [x for x in got["losses"] + got["grad_norms"]
+                   if not math.isfinite(x)]
+            if bad or max(rels + norm_rels) > MESH_WORLD1_RTOL:
+                raise AssertionError(
+                    f"mesh (a): losses {got['losses']} and grad norms "
+                    f"{got['grad_norms']} against meshless "
+                    f"{plain['losses']} and {plain['grad_norms']} (rel "
+                    f"{max(rels):.2e}, {max(norm_rels):.2e})")
+            print(f"mesh (a): gpt2_small B{B} x S{S}, remat off, "
+                  f"{MESH_STEPS} steps on {MeshSpec.auto(1).axes} "
+                  f"(DTensor params, embed table {got['placements']}): "
+                  f"losses {[round(x, 4) for x in got['losses']]}, meshless "
+                  f"{[round(x, 4) for x in plain['losses']]}, max rel "
+                  f"{max(rels):.2e} (grad norms {max(norm_rels):.2e}, rtol "
+                  f"{MESH_WORLD1_RTOL:g}), bit-equal {r['bit_equal']}; "
+                  f"step ms "
+                  f"mesh {[round(x, 1) for x in got['step_ms']]} (median of "
+                  f"2-{MESH_STEPS} {got['step_ms_median']:.1f}), meshless "
+                  f"{[round(x, 1) for x in plain['step_ms']]} (median "
+                  f"{plain['step_ms_median']:.1f}); flash launches "
+                  f"{got['launches']}; {card}", flush=True)
+            # remat on (the config's default): each block, its params'
+            # gather with it, runs again in backward on autograd's device
+            # thread, through K1 once more
+            remat_cfg = presets.gpt2_small(ce_chunk=8192)
+            r["remat"] = rm = {
+                "meshless": _mesh_steps(torch, remat_cfg, B, S, None,
+                                        MESH_REMAT_STEPS),
+                "mesh": _mesh_steps(torch, remat_cfg, B, S, mesh,
+                                    MESH_REMAT_STEPS)}
+            pairs = list(zip(rm["mesh"]["losses"] + rm["mesh"]["grad_norms"],
+                             rm["meshless"]["losses"]
+                             + rm["meshless"]["grad_norms"]))
+            rm["rel"] = max(abs(a - b) / abs(b) for a, b in pairs)
+            want = {"flash_forward": 24 * MESH_REMAT_STEPS,
+                    "flash_dq": 12 * MESH_REMAT_STEPS,
+                    "flash_dkv": 12 * MESH_REMAT_STEPS}
+            if (rm["mesh"]["launches"] != want
+                    or not all(math.isfinite(a) for a, _ in pairs)
+                    or rm["rel"] > MESH_WORLD1_RTOL):
+                raise AssertionError(
+                    f"mesh (a, remat on): {rm['mesh']} against meshless "
+                    f"{rm['meshless']} (rel {rm['rel']:.2e}); flash "
+                    f"launches expected {want}")
+            print(f"mesh (a, remat on): {MESH_REMAT_STEPS} steps, losses "
+                  f"{rm['mesh']['losses']} and grad norms "
+                  f"{rm['mesh']['grad_norms']} against meshless (max rel "
+                  f"{rm['rel']:.2e}, rtol {MESH_WORLD1_RTOL:g}); step ms "
+                  f"mesh {[round(x, 1) for x in rm['mesh']['step_ms']]}, "
+                  f"meshless "
+                  f"{[round(x, 1) for x in rm['meshless']['step_ms']]}; "
+                  f"flash launches {rm['mesh']['launches']}", flush=True)
+            t1 = time.perf_counter()
+            r["ring"] = b = _mesh_ring(torch, MeshSpec, build_mesh)
+            b["seconds"] = time.perf_counter() - t1
+            print(f"mesh (b): attn_impl='ring' over sp 1, gpt2_small width "
+                  f"(12 layers), B{b['batch']} x S{b['seq']}, float32, "
+                  f"remat on: loss {b['ring_loss']:.6f} against meshless "
+                  f"{b['meshless_loss']:.6f} (rel {b['rel']:.2e}, rtol "
+                  f"{b['rtol']:g}), grads rel L2 {b['grad_rel_l2']:.2e} "
+                  f"(rtol {b['grad_rtol']:g})", flush=True)
+            t1 = time.perf_counter()
+            r["pipeline_1f1b"] = c = _mesh_1f1b(torch, MeshSpec, build_mesh)
+            c["seconds"] = time.perf_counter() - t1
+            print(f"mesh (c): pipeline_1f1b over pp 1, two gpt2_small "
+                  f"blocks (bf16), {c['microbatches']} microbatches of B2 x "
+                  f"S1024: loss {c['loss']:.6f} against sequential "
+                  f"{c['sequential_loss']:.6f} (rel {c['loss_rel']:.2e}, "
+                  f"rtol {MESH_1F1B_LOSS_RTOL:g}), grads rel L2 "
+                  f"{c['grad_rel_l2']:.2e} (rtol {MESH_1F1B_GRAD_RTOL:g}); "
+                  f"flash launches "
+                  f"{c['launches']}; {c['call_ms']:.1f} ms the call",
+                  flush=True)
+        finally:
+            dist.destroy_process_group()
+    return r
+
+
 def preflight_line() -> dict:
     """What the port's ``reap_all()`` swept before the run, and whether
     pyarrow, pandas and gymnasium import here (and their versions)."""
@@ -6738,6 +7045,8 @@ def main() -> int:
     _free(torch)
     rl = timed("rl", rl_phase, torch)
     rl_more = timed("rl_more", rl_more_phase, torch)
+    _free(torch)
+    mesh = timed("mesh", mesh_phase, torch, card)
     print("phase seconds: " + json.dumps(
         {k: round(v, 1) for k, v in phase_s.items()}), flush=True)
     main_case = kern["decode_bfloat16"]
@@ -6856,6 +7165,16 @@ def main() -> int:
                 base, name=f"flash_attention_{name}_{suffix}",
                 launches=counts[{"fwd": "flash_forward", "dq": "flash_dq",
                                  "dkv": "flash_dkv"}[name]]))
+    # the mesh train step's (phase 21 (a)): gpt2_small through DTensor
+    # params on a world-1 mesh
+    for name in ("fwd", "dq", "dkv"):
+        base = next(k for k in kernels["kernels"]
+                    if k["name"] == f"flash_attention_{name}")
+        kernels["kernels"].append(dict(
+            base, name=f"flash_attention_{name}_mesh",
+            launches=mesh["mesh"]["launches"][{
+                "fwd": "flash_forward", "dq": "flash_dq",
+                "dkv": "flash_dkv"}[name]]))
     detail = {"card": card, "preflight": preflight, "build": build,
               "kernel": kern, "flash": flash, "serve": serve,
               "serve_cut": serve_cut, "spec_serve": spec_serve,
@@ -6865,7 +7184,7 @@ def main() -> int:
               "train_parity": train_parity, "dp_train": dp_train,
               "pipeline": pipeline, "tune": tune_r, "dag": dag,
               "autoscale": autoscale, "data": data, "rl": rl,
-              "rl_more": rl_more, "phase_seconds": phase_s,
+              "rl_more": rl_more, "mesh": mesh, "phase_seconds": phase_s,
               "seconds": time.perf_counter() - t_start}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

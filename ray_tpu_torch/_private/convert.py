@@ -15,6 +15,10 @@ optax AdamW moments ``mu``/``nu``, its count, and the step), so a run that
 resumes from JAX state takes the same next step; ``train_state_to_jax`` is
 its inverse, filling a JAX state of numpy leaves given as the template.
 The optax states are found by their field names, never by their types.
+Both take a meshed state too: ``train_state_from_jax(..., mesh=, specs=)``
+places each leaf as a DTensor (every rank keeps its own shard of the whole
+numpy leaf it was given), and ``train_state_to_jax`` gathers a DTensor
+leaf with ``full_tensor()``, a collective every rank of the mesh calls.
 
 ``rl_params_from_jax``/``rl_params_to_jax`` carry an RLModule's params
 (``ray_tpu.rllib``'s ``init_params``, as numpy arrays) across: the same
@@ -83,8 +87,11 @@ def shards_to_jax(shards, stacked: bool = True) -> list:
 
 def to_jax(params: Dict[str, Any], stacked: bool = True) -> Dict[str, Any]:
     """The port's params -> a JAX-layout tree of float32 numpy arrays;
-    ``stacked`` picks scan-stacked blocks or per-layer ``"0".."L-1"``."""
+    ``stacked`` picks scan-stacked blocks or per-layer ``"0".."L-1"``. A
+    DTensor leaf is gathered whole (``full_tensor``, a collective)."""
     def arr(_p, t):
+        if hasattr(t, "full_tensor"):
+            t = t.full_tensor()
         return t.detach().to("cpu", torch.float32).numpy()
 
     blocks = [map_params(arr, b) for b in params["blocks"]]
@@ -120,19 +127,26 @@ def _adam_state(opt_state):
     return None
 
 
-def train_state_from_jax(state, device: Optional[torch.device | str] = None
-                         ) -> TrainState:
+def train_state_from_jax(state, device: Optional[torch.device | str] = None,
+                         mesh=None, specs=None) -> TrainState:
     """A JAX ``TrainState`` with numpy leaves (``jax.tree.map(np.asarray,
     state)``) -> the port's ``TrainState`` on ``device`` (the card unless
-    ``"cpu"`` is asked for), params ready for autograd."""
+    ``"cpu"`` is asked for), params ready for autograd. With ``mesh`` and
+    ``specs`` (the params' partition specs, e.g. ``param_specs(params,
+    mesh, rules, logical_axes(cfg))``) every leaf is a DTensor; the moments
+    follow their params."""
     device = resolve_device(device)
     adam = _adam_state(state.opt_state)
     if adam is None:
         raise ValueError("no AdamW state (count, mu, nu) in opt_state")
 
     def place(tree, grad=False):
-        return map_params(lambda _p, t: t.to(device).requires_grad_(grad),
-                          from_jax(tree))
+        tree = map_params(lambda _p, t: t.to(device), from_jax(tree))
+        if mesh is not None:
+            from ray_tpu_torch.parallel.sharding import shard_params
+
+            tree = shard_params(tree, mesh, specs=specs)
+        return map_params(lambda _p, t: t.requires_grad_(grad), tree)
 
     return TrainState(
         params=place(state.params, grad=True),
@@ -144,7 +158,9 @@ def train_state_from_jax(state, device: Optional[torch.device | str] = None
 def train_state_to_jax(state: TrainState, like):
     """The port's ``TrainState`` -> a JAX ``TrainState`` of numpy leaves,
     shaped as ``like`` (one such state, e.g. of ``init_train_state``):
-    its params, moments, both optax counts and the step are replaced."""
+    its params, moments, both optax counts and the step are replaced. A
+    meshed state's leaves are gathered whole: every rank of the mesh
+    calls this."""
     stacked = not all(k.isdigit() for k in like.params["blocks"])
     count = np.asarray(state.opt_state.count, np.int32)
     mu = to_jax(state.opt_state.mu, stacked)

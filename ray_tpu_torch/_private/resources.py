@@ -8,7 +8,11 @@ formatted names.
 
 GPUs are a first-class resource ("GPU"), counted without touching a card
 (reference `python/ray/_private/accelerators/nvidia_gpu.py`). The TPU pod's
-slice-head gang resource has no counterpart here.
+slice-head gang resource has no counterpart here, and neither has the JAX
+package's `_private/accelerators.py`: it reads GCE TPU metadata and pod
+gang resources, which GPU hosts do not have. A slice gang's head resource
+is given to a node as a custom resource, and `parallel/slices.py` builds
+the gang's placement group.
 """
 
 from __future__ import annotations

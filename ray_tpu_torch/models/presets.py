@@ -5,6 +5,8 @@ presets, which run in float32."""
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -424,15 +426,16 @@ def _tp_apply_blocks(cfg, blocks, h, n_local: int, tp_ops,
     ``split_tail``: the LAST block returns its (residual carry, mlp
     partial) pair instead of the reduced output, so the trainer can
     issue the final partial-sum reduce asynchronously."""
-    from ray_tpu_torch.models.transformer import (_block_fn, _tp_block,
+    from ray_tpu_torch.models.transformer import (_block_fn, _spmd_block,
                                                   _tp_block_tail)
 
     g, f = tp_ops
     rope = _rope(cfg, h.device)
-    one_block = _block_fn(cfg, _tp_block)
+    one_block = _block_fn(cfg, functools.partial(
+        _spmd_block, g=g, f=f, attn_tp=True, mlp_tp=True))
     n_chain = n_local - 1 if split_tail else n_local
     for i in range(n_chain):
-        h = one_block(cfg, blocks[i], h, rope, g, f)
+        h = one_block(cfg, blocks[i], h, rope, None)[0]
     if split_tail:
         return _block_fn(cfg, _tp_block_tail)(
             cfg, blocks[n_local - 1], h, rope, g, f)

@@ -18,6 +18,14 @@ contiguous per-layer KV caches (the contiguous serving programs); the paged
 serving programs are in ``models/decode.py``. ``mlp="moe"`` runs the
 mixture-of-experts layer of ``ops/moe.py``; its routing loss comes back as
 ``aux`` and ``loss_fn`` adds it.
+
+``logical_axes`` names each param's axes for the sharding rules of
+``parallel/sharding.py``; the mesh train step (``models/training.py``)
+runs ``forward`` on each rank's local shards with ``_spmd_block``, the
+tensor-parallel block over the mesh's ``tp`` axis. With ``attn_impl="ring"``
+and an ``sp_axis``, attention is ring attention over that mesh axis and
+``positions`` are the shard's global positions; without ``sp_axis``,
+``"ring"`` means ``"auto"``.
 """
 
 from __future__ import annotations
@@ -25,7 +33,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -36,8 +44,9 @@ from ray_tpu_torch._private.device import resolve_device
 from ray_tpu_torch.ops.attention import attention
 from ray_tpu_torch.ops.losses import (fused_softmax_cross_entropy,
                                       softmax_cross_entropy)
-from ray_tpu_torch.ops.moe import init_moe_params, moe_layer
+from ray_tpu_torch.ops.moe import init_moe_params, moe_layer, moe_logical_axes
 from ray_tpu_torch.ops.norms import layer_norm, rms_norm
+from ray_tpu_torch.ops.ring_attention import ring_attention_local
 from ray_tpu_torch.ops.rotary import apply_rotary, rope_frequencies
 
 
@@ -67,7 +76,7 @@ class TransformerConfig:
     # 'full': recompute the whole block in backward; 'dots': keep the
     # matmul outputs, recompute the rest
     remat_policy: str = "full"
-    attn_impl: str = "auto"                   # 'auto'|'flash'|'reference'
+    attn_impl: str = "auto"                   # 'auto'|'flash'|'reference'|'ring'
     # fold the vocab projection into the CE loss, chunked (ops/losses.py)
     fused_ce: bool = True
     ce_chunk: int = 2048
@@ -136,17 +145,20 @@ def _norm_params(cfg: TransformerConfig, dim: int, device, dtype):
 
 def init_params(cfg: TransformerConfig, seed: int = 0,
                 device: Optional[torch.device | str] = None,
-                param_dtype: Optional[torch.dtype] = None
-                ) -> Dict[str, Any]:
+                param_dtype: Optional[torch.dtype] = None,
+                place: Optional[Callable] = None) -> Dict[str, Any]:
     """Random params with the JAX package's distributions (normal 0.02;
     0.02/sqrt(2L) for the output projections), drawn from a
     ``torch.Generator`` on ``device`` (the card unless ``"cpu"`` is asked
     for) seeded with ``seed``. Each tensor is drawn in float32 and cast at
     once. With ``param_dtype`` every leaf is in that dtype (training keeps
     ``cfg.param_dtype``); without it they are placed as ``place_params``
-    does, so a full-size served model never holds a float32 copy."""
+    does, so a full-size served model never holds a float32 copy.
+    ``place(path, tensor)``, if given, places each leaf as it is drawn,
+    before the next one is (``training.init_train_state`` keeps each
+    rank's shard of it), so the whole tree is never held."""
     groups = _draw_params(cfg, seed, device, param_dtype,
-                          range(cfg.num_layers), True, True)
+                          range(cfg.num_layers), True, True, place)
     params: Dict[str, Any] = {"embed": groups["embed"],
                               "final_norm": groups["final_norm"]}
     for key in ("pos_embed", "lm_head"):
@@ -157,7 +169,8 @@ def init_params(cfg: TransformerConfig, seed: int = 0,
 
 
 def _draw_params(cfg: TransformerConfig, seed: int, device, param_dtype,
-                 layers: range, first: bool, last: bool) -> Dict[str, Any]:
+                 layers: range, first: bool, last: bool,
+                 place: Optional[Callable] = None) -> Dict[str, Any]:
     """``init_params``'s draws in its order (embed, pos_embed, lm_head,
     then block by block), keeping only the blocks in ``layers`` and, with
     ``first``, the embeddings, with ``last`` the final norm and the
@@ -174,54 +187,112 @@ def _draw_params(cfg: TransformerConfig, seed: int, device, param_dtype,
     d, h, kvh, hd, f = (cfg.embed_dim, cfg.num_heads, cfg.kv_heads,
                         cfg.head_dim, cfg.hidden_dim)
     out_std = 0.02 / math.sqrt(2 * cfg.num_layers)
+    place = place or (lambda _path, t: t)
 
-    def normal(shape, std=0.02, keep=True):
+    def normal(path, shape, std=0.02, keep=True):
         t = torch.randn(shape, generator=gen, device=device,
                         dtype=torch.float32)
-        return t.mul_(std).to(weight_dtype) if keep else None
+        return place(path, t.mul_(std).to(weight_dtype)) if keep else None
 
-    def zeros(shape):
-        return torch.zeros(shape, device=device, dtype=weight_dtype)
+    def zeros(path, shape):
+        return place(path, torch.zeros(shape, device=device,
+                                       dtype=weight_dtype))
+
+    def norm(path):
+        return {k: place(f"{path}.{k}", t) for k, t in
+                _norm_params(cfg, d, device, norm_dtype).items()}
 
     out: Dict[str, Any] = {}
-    table = normal((cfg.vocab_size, d), keep=first)
+    table = normal("embed.table", (cfg.vocab_size, d), keep=first)
     if first:
         out["embed"] = {"table": table}
     if cfg.pos == "learned":
-        table = normal((cfg.max_seq_len, d), keep=first)
+        table = normal("pos_embed.table", (cfg.max_seq_len, d), keep=first)
         if first:
             out["pos_embed"] = {"table": table}
     if not cfg.tie_embeddings:
-        kernel = normal((d, cfg.vocab_size), keep=last)
+        kernel = normal("lm_head.kernel", (d, cfg.vocab_size), keep=last)
         if last:
             out["lm_head"] = {"kernel": kernel}
     if last:
-        out["final_norm"] = _norm_params(cfg, d, device, norm_dtype)
+        out["final_norm"] = norm("final_norm")
     blocks = []
     for i in range(min(cfg.num_layers, layers.stop)):
         keep = i in layers
-        attn = {"wq": normal((d, h, hd), keep=keep),
-                "wk": normal((d, kvh, hd), keep=keep),
-                "wv": normal((d, kvh, hd), keep=keep),
-                "wo": normal((h, hd, d), out_std, keep=keep)}
+        at = f"blocks.{len(blocks)}"
+        attn = {"wq": normal(f"{at}.attn.wq", (d, h, hd), keep=keep),
+                "wk": normal(f"{at}.attn.wk", (d, kvh, hd), keep=keep),
+                "wv": normal(f"{at}.attn.wv", (d, kvh, hd), keep=keep),
+                "wo": normal(f"{at}.attn.wo", (h, hd, d), out_std,
+                             keep=keep)}
         if cfg.mlp == "moe":
-            mlp = init_moe_params(gen, d, f, cfg.moe_num_experts,
-                                  dtype=weight_dtype)
+            mlp = init_moe_params(
+                gen, d, f, cfg.moe_num_experts, dtype=weight_dtype,
+                place=lambda name, t: place(f"{at}.mlp.{name}", t)
+                if keep else t)
         elif cfg.mlp == "swiglu":
-            mlp = {"w_gate": normal((d, f), keep=keep),
-                   "w_up": normal((d, f), keep=keep),
-                   "w_down": normal((f, d), out_std, keep=keep)}
-        else:
-            mlp = {"w_in": normal((d, f), keep=keep), "b_in": zeros((f,)),
-                   "w_out": normal((f, d), out_std, keep=keep),
-                   "b_out": zeros((d,))}
+            mlp = {"w_gate": normal(f"{at}.mlp.w_gate", (d, f), keep=keep),
+                   "w_up": normal(f"{at}.mlp.w_up", (d, f), keep=keep),
+                   "w_down": normal(f"{at}.mlp.w_down", (f, d), out_std,
+                                    keep=keep)}
+        elif keep:
+            mlp = {"w_in": normal(f"{at}.mlp.w_in", (d, f)),
+                   "b_in": zeros(f"{at}.mlp.b_in", (f,)),
+                   "w_out": normal(f"{at}.mlp.w_out", (f, d), out_std),
+                   "b_out": zeros(f"{at}.mlp.b_out", (d,))}
+        else:  # the dropped layer's draws, in order
+            normal(None, (d, f), keep=False)
+            normal(None, (f, d), out_std, keep=False)
         if keep:
-            blocks.append({"attn": attn,
-                           "ln1": _norm_params(cfg, d, device, norm_dtype),
-                           "ln2": _norm_params(cfg, d, device, norm_dtype),
-                           "mlp": mlp})
+            blocks.append({"attn": attn, "ln1": norm(f"{at}.ln1"),
+                           "ln2": norm(f"{at}.ln2"), "mlp": mlp})
     out["blocks"] = blocks
     return out
+
+
+def logical_axes(cfg: TransformerConfig) -> Dict[str, Any]:
+    """Tree (the params' structure) of logical-axis tuples. The JAX
+    package's entries less their leading ``"layers"``: the port's blocks
+    are a list of per-layer dicts, not stacked leaves."""
+    def norm_axes():
+        if cfg.norm == "rmsnorm":
+            return {"scale": ("embed_notp",)}
+        return {"scale": ("embed_notp",), "bias": ("embed_notp",)}
+
+    def block():
+        b = {
+            "attn": {
+                "wq": ("embed", "heads", "head_dim"),
+                "wk": ("embed", "kv", "head_dim"),
+                "wv": ("embed", "kv", "head_dim"),
+                "wo": ("heads", "head_dim", "embed"),
+            },
+            "ln1": norm_axes(),
+            "ln2": norm_axes(),
+        }
+        if cfg.mlp == "moe":
+            b["mlp"] = moe_logical_axes()
+        elif cfg.mlp == "swiglu":
+            b["mlp"] = {"w_gate": ("embed", "mlp"),
+                        "w_up": ("embed", "mlp"),
+                        "w_down": ("mlp", "embed")}
+        else:
+            b["mlp"] = {"w_in": ("embed", "mlp"),
+                        "b_in": ("mlp",),
+                        "w_out": ("mlp", "embed"),
+                        "b_out": ("embed_notp",)}
+        return b
+
+    axes: Dict[str, Any] = {
+        "embed": {"table": ("vocab", "embed")},
+        "final_norm": norm_axes(),
+        "blocks": [block() for _ in range(cfg.num_layers)],
+    }
+    if cfg.pos == "learned":
+        axes["pos_embed"] = {"table": (None, "embed")}
+    if not cfg.tie_embeddings:
+        axes["lm_head"] = {"kernel": ("embed", "vocab")}
+    return axes
 
 
 def count_params(params) -> int:
@@ -249,14 +320,16 @@ def _w(cfg: TransformerConfig, t: torch.Tensor) -> torch.Tensor:
     return t.to(cfg.dtype)
 
 
-def _mlp(cfg: TransformerConfig, p, x):
+def _mlp(cfg: TransformerConfig, p, x, mesh=None):
     """[B, S, d] -> (y [B, S, d] in ``cfg.dtype``, aux): aux is the MoE
-    routing loss, 0.0 for the dense MLPs."""
+    routing loss, 0.0 for the dense MLPs. ``mesh``: the mesh whose axes
+    split the MoE layer's tokens and experts (``moe_layer``'s
+    ``ep_mesh``)."""
     if cfg.mlp == "moe":
         return moe_layer(p, x, num_experts=cfg.moe_num_experts,
                          top_k=cfg.moe_top_k,
                          capacity_factor=cfg.moe_capacity_factor,
-                         dtype=cfg.dtype)
+                         dtype=cfg.dtype, ep_mesh=mesh)
     if cfg.mlp == "swiglu":
         gate = x @ _w(cfg, p["w_gate"])
         up = x @ _w(cfg, p["w_up"])
@@ -292,9 +365,11 @@ def _rope_tables(head_dim: int, max_len: int, theta: float,
 
 
 def _attn(cfg: TransformerConfig, p, x, rope: Rope, positions,
-          kv_cache=None):
+          kv_cache=None, sp_axis=None, mesh=None):
     """The head counts are the weights' own: a tensor-parallel rank's
-    shard holds its local heads (``_tp_attn_partial``)."""
+    shard holds its local heads (``_tp_attn_partial``). With
+    ``attn_impl="ring"`` and ``sp_axis``, x is this rank's sequence shard
+    and attention runs over the ring of that axis of ``mesh``."""
     B, S, d = x.shape
     H, Hkv, hd = p["wq"].shape[1], p["wk"].shape[1], cfg.head_dim
     q = (x @ _w(cfg, p["wq"]).reshape(d, H * hd)).view(B, S, H, hd)
@@ -311,17 +386,20 @@ def _attn(cfg: TransformerConfig, p, x, rope: Rope, positions,
         k_all, v_all = kv_cache.update(k, v)
         o = attention(q, k_all, v_all, causal=False, impl="reference",
                       bias=bias)
+    elif cfg.attn_impl == "ring" and sp_axis is not None:
+        o = ring_attention_local(q, k, v, sp_axis, mesh=mesh, causal=True)
     else:
-        o = attention(q, k, v, causal=True, impl=cfg.attn_impl)
+        o = attention(q, k, v, causal=True, impl=cfg.attn_impl
+                      if cfg.attn_impl != "ring" else "auto")
     return o.reshape(B, S, H * hd) @ _w(cfg, p["wo"]).reshape(H * hd, d)
 
 
 def _block(cfg: TransformerConfig, p, x, rope: Rope, positions,
-           kv_cache=None):
+           kv_cache=None, sp_axis=None, mesh=None):
     """One block: (x, aux), aux the MoE routing loss (0.0 otherwise)."""
     x = x + _attn(cfg, p["attn"], _norm(cfg, p["ln1"], x), rope, positions,
-                  kv_cache)
-    m, aux = _mlp(cfg, p["mlp"], _norm(cfg, p["ln2"], x))
+                  kv_cache, sp_axis, mesh)
+    m, aux = _mlp(cfg, p["mlp"], _norm(cfg, p["ln2"], x), mesh)
     return x + m, aux
 
 
@@ -356,7 +434,8 @@ def _block_fn(cfg: TransformerConfig, block=None):
 
 def forward(cfg: TransformerConfig, params, tokens: torch.Tensor, *,
             positions: Optional[torch.Tensor] = None, kv_caches=None,
-            return_hidden: bool = False, return_aux: bool = False):
+            return_hidden: bool = False, return_aux: bool = False,
+            sp_axis: Optional[str] = None, mesh=None, block=None):
     """tokens [B, S] int -> logits [B, S, vocab] in ``cfg.dtype``.
 
     kv_caches: per-layer contiguous caches (``models/decode.py``
@@ -366,7 +445,16 @@ def forward(cfg: TransformerConfig, params, tokens: torch.Tensor, *,
     return_hidden: skip the vocab projection and return (the hidden states
     after the final norm [B, S, d], aux) for the fused-CE loss. return_aux:
     return (logits, aux). aux is the MoE routing loss summed over the
-    layers (0.0 without MoE)."""
+    layers (0.0 without MoE).
+
+    sp_axis: the axis of ``mesh`` the sequence is split over (ring
+    attention; ``positions`` then the shard's global positions). mesh: the
+    ``DeviceMesh`` of the SPMD ops (ring attention, the MoE layer's token
+    and expert split), passed to each block as an argument: a block that
+    remat runs again in backward, on autograd's thread, sees the same
+    mesh. block: the per-layer block (``_block`` unless given; the mesh
+    train step gives its own over ``_spmd_block``), run under the
+    config's remat policy."""
     tokens = tokens.long()
     x = _w(cfg, params["embed"]["table"])[tokens]
     rope = None
@@ -383,9 +471,9 @@ def forward(cfg: TransformerConfig, params, tokens: torch.Tensor, *,
             x, aux = _block(cfg, p, x, rope, positions, c)
             aux_total = aux_total + aux
     else:
-        block = _block_fn(cfg)
+        block = _block_fn(cfg, block)
         for p in params["blocks"]:
-            x, aux = block(cfg, p, x, rope, positions)
+            x, aux = block(cfg, p, x, rope, positions, None, sp_axis, mesh)
             aux_total = aux_total + aux
     x = _norm(cfg, params["final_norm"], x)
     if return_hidden:
@@ -499,19 +587,6 @@ def _tp_mlp_finish(cfg, p, reduced):
     return reduced
 
 
-def _tp_block(cfg, p, x, rope: Rope, g, f):
-    """Sharded block forward, the fused ``_block``'s math: f on the norm
-    outputs (the column-parallel inputs) makes the replicated params' and
-    the residual's cotangents exact; g on the row-parallel partial sums
-    completes each sublayer's activation."""
-    a = g(_tp_attn_partial(cfg, p["attn"], f(_norm(cfg, p["ln1"], x)),
-                           rope))
-    x = x + a
-    m = _tp_mlp_finish(cfg, p["mlp"], g(_tp_mlp_partial(
-        cfg, p["mlp"], f(_norm(cfg, p["ln2"], x)))))
-    return x + m
-
-
 def _tp_block_tail(cfg, p, x, rope: Rope, g, f):
     """Last block of a forward chunk, tail-split: returns (u,
     mlp_partial), the full output being u + allreduce(mlp_partial). The
@@ -525,6 +600,33 @@ def _tp_block_tail(cfg, p, x, rope: Rope, g, f):
     return u, mp
 
 
+def _spmd_block(cfg: TransformerConfig, p, x, rope: Rope, positions,
+                kv_cache=None, sp_axis=None, mesh=None, *, g=None, f=None,
+                attn_tp: bool = False, mlp_tp: bool = False):
+    """``_block`` on one rank's local shards: with ``attn_tp`` the
+    attention runs over this rank's heads, with ``mlp_tp`` the dense MLP
+    over its ffn columns (Megatron). f on the norm output (the
+    column-parallel input) makes the replicated params' and the residual's
+    cotangents exact; g on the row-parallel partial sum completes the
+    sublayer's activation. A sublayer without its flag runs whole (its
+    weights gathered over ``tp``). The mesh train step runs it over the
+    ``tp`` dim's all-reduce, the pipeline trainer over a host reducer."""
+    h = _norm(cfg, p["ln1"], x)
+    if attn_tp:
+        a = g(_attn(cfg, p["attn"], f(h), rope, positions, None, sp_axis,
+                    mesh))
+    else:
+        a = _attn(cfg, p["attn"], h, rope, positions, None, sp_axis, mesh)
+    x = x + a
+    h = _norm(cfg, p["ln2"], x)
+    if mlp_tp:
+        m = _tp_mlp_finish(cfg, p["mlp"],
+                           g(_tp_mlp_partial(cfg, p["mlp"], f(h))))
+        return x + m, 0.0
+    m, aux = _mlp(cfg, p["mlp"], h, mesh)
+    return x + m, aux
+
+
 def tp_tail_supported(cfg: TransformerConfig) -> bool:
     """Whether forward chunks may tail-split their last block (the partial
     sum must BE the block's residual delta: no post-reduce bias)."""
@@ -532,7 +634,8 @@ def tp_tail_supported(cfg: TransformerConfig) -> bool:
 
 
 def loss_fn(cfg: TransformerConfig, params, batch, *,
-            positions: Optional[torch.Tensor] = None):
+            positions: Optional[torch.Tensor] = None,
+            sp_axis: Optional[str] = None, mesh=None, block=None):
     """Causal-LM loss. batch: {'tokens': [B, S], optional 'mask': [B, S]}.
     Targets are the tokens shifted left; the last position is dropped.
     With MoE the routing loss times ``moe_aux_weight`` is added. Returns
@@ -545,7 +648,8 @@ def loss_fn(cfg: TransformerConfig, params, batch, *,
         mask = mask[:, 1:]
     if cfg.fused_ce:
         hidden, aux = forward(cfg, params, tokens, positions=positions,
-                              return_hidden=True)
+                              return_hidden=True, sp_axis=sp_axis,
+                              mesh=mesh, block=block)
         if cfg.tie_embeddings:
             table, transpose = params["embed"]["table"], False
         else:
@@ -555,7 +659,8 @@ def loss_fn(cfg: TransformerConfig, params, batch, *,
             compute_dtype=cfg.dtype, transpose_table=transpose)
     else:
         logits, aux = forward(cfg, params, tokens, positions=positions,
-                              return_aux=True)
+                              return_aux=True, sp_axis=sp_axis, mesh=mesh,
+                              block=block)
         loss, n = softmax_cross_entropy(logits[:, :-1], targets, mask)
     metrics = {"loss": loss, "tokens": n}
     if cfg.mlp == "moe":

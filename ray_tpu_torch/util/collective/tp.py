@@ -14,12 +14,14 @@ each sharded block:
   feeding QKV / ffn-up) so the cotangent flowing back onto the
   replicated residual stream / norm params is the full cross-rank sum.
 
-``make_tp_reduce_ops(reduce_cb)`` builds the pair as two
-``torch.autograd.Function``s over a HOST reducer (the pipeline trainer
-passes ``collective.allreduce`` on a per-(stage, dp-rank) tp group). A
-tensor goes to the host for the reduce (a bfloat16 tensor widened to
-float32, the sum rounded once) and comes back on its own device, in its
-own dtype. Every rank of a tp group must apply ``g``/``f`` in the same
+``reduce_ops(reduce)`` builds the pair as two
+``torch.autograd.Function``s over any tensor reducer: the mesh's
+``parallel/_spmd.py`` passes a ``torch.distributed`` all-reduce over the
+``tp`` dim's group. ``make_tp_reduce_ops(reduce_cb)`` builds it over a
+HOST reducer (the pipeline trainer passes ``collective.allreduce`` on a
+per-(stage, dp-rank) tp group): a tensor goes to the host for the reduce
+(a bfloat16 tensor widened to float32, the sum rounded once) and comes
+back on its own device, in its own dtype. Every rank of a tp group must apply ``g``/``f`` in the same
 order (the reduces carry no tags: order IS the match), which is why the
 trainer runs a static schedule when tp > 1.
 
@@ -35,6 +37,7 @@ device thread.
 
 from __future__ import annotations
 
+import functools
 import threading
 from typing import Any, Callable, List, NamedTuple, Optional
 
@@ -58,8 +61,8 @@ def _host_reduce(reduce_cb, x: torch.Tensor) -> torch.Tensor:
 
 class _G(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, reduce_cb):
-        return _host_reduce(reduce_cb, x)
+    def forward(ctx, x, reduce):
+        return reduce(x)
 
     @staticmethod
     def backward(ctx, ct):
@@ -68,22 +71,28 @@ class _G(torch.autograd.Function):
 
 class _F(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, reduce_cb):
-        ctx.reduce_cb = reduce_cb
+    def forward(ctx, x, reduce):
+        ctx.reduce = reduce
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, ct):
-        return _host_reduce(ctx.reduce_cb, ct), None
+        return ctx.reduce(ct), None
+
+
+def reduce_ops(reduce: Callable[[torch.Tensor], torch.Tensor]) -> TpOps:
+    """(g, f) over a tensor reducer: ``reduce(x)`` returns a new tensor,
+    the tp group's SUM of ``x``, called once per ``g`` forward and per
+    ``f`` backward, in program order."""
+    return TpOps(g=lambda x: _G.apply(x, reduce),
+                 f=lambda x: _F.apply(x, reduce))
 
 
 def make_tp_reduce_ops(reduce_cb: Callable[[np.ndarray], np.ndarray]
                        ) -> TpOps:
     """(g, f) over a host partial-sum reducer. ``reduce_cb(arr) -> arr``
-    must be the tp group's allreduce (SUM) of a numpy array; it is called
-    once per ``g`` forward and per ``f`` backward, in program order."""
-    return TpOps(g=lambda x: _G.apply(x, reduce_cb),
-                 f=lambda x: _F.apply(x, reduce_cb))
+    must be the tp group's allreduce (SUM) of a numpy array."""
+    return reduce_ops(functools.partial(_host_reduce, reduce_cb))
 
 
 class ThreadReducer:

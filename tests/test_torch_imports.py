@@ -327,3 +327,34 @@ def test_rllib_exports_only_the_ported_algorithms():
         assert getattr(rl, name) is getattr(alg, name)
     assert {"CQL", "CQLConfig", "DreamerV3", "DreamerV3Config"} <= set(
         alg.__all__)
+
+
+SPMD = ("ray_tpu_torch/parallel/__init__.py",
+        "ray_tpu_torch/parallel/mesh.py",
+        "ray_tpu_torch/parallel/sharding.py",
+        "ray_tpu_torch/parallel/_spmd.py",
+        "ray_tpu_torch/parallel/pipeline.py",
+        "ray_tpu_torch/parallel/slices.py",
+        "ray_tpu_torch/ops/ring_attention.py",
+        "ray_tpu_torch/models/_mesh_step.py",
+        "ray_tpu_torch/scripts/mesh_memory.py")
+
+
+def test_spmd_modules_are_checked():
+    checked = {str(p.relative_to(ROOT)) for p in FILES}
+    assert set(SPMD) <= checked
+
+
+def test_importing_the_spmd_layer_and_its_test_worlds_loads_no_jax():
+    """The SPMD layer and the gloo worlds its tests spawn
+    (``tests/torch_spmd_worlds.py``): neither ``jax`` nor ``ray_tpu`` in
+    ``sys.modules`` after importing them."""
+    mods = [rel[:-3].replace("/", ".").removesuffix(".__init__")
+            for rel in SPMD] + ["tests.torch_spmd_worlds"]
+    code = ("import sys\n" + "".join(f"import {m}\n" for m in mods)
+            + "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+              "('jax', 'jaxlib', 'ray_tpu')))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip() == "[]"

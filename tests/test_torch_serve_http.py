@@ -92,13 +92,12 @@ def deploy(port_base):
         bases = [f"http://127.0.0.1:{jserve.start(http_port=0)}", port_base]
         prefixes = {a[3] for a in apps}
         deadline = time.monotonic() + TIMEOUT
-        for base in bases:
+        for who, base in zip(("JAX's proxy", "the port's proxy"), bases):
             # exactly these routes: the port's proxy may still list the
             # last test's for up to a second
-            while set(httpx.get(base + "/-/routes",
-                                timeout=TIMEOUT).json()) != prefixes:
+            while set(_routes(who, base)) != prefixes:
                 assert time.monotonic() < deadline, \
-                    f"{base} never routed just {prefixes}"
+                    f"{who} at {base} never routed just {prefixes}"
                 time.sleep(0.1)
         return bases
 
@@ -106,6 +105,16 @@ def deploy(port_base):
     jserve.shutdown()
     for name in names:
         serve.delete(name)
+
+
+def _routes(who: str, base: str):
+    """One proxy's route table; a proxy that does not answer within
+    ``TIMEOUT`` fails the test naming which proxy it was."""
+    try:
+        return httpx.get(base + "/-/routes", timeout=TIMEOUT).json()
+    except httpx.TimeoutException as e:
+        raise AssertionError(f"{who} at {base} did not answer /-/routes "
+                             f"within {TIMEOUT} s: {e!r}") from e
 
 
 def _both(bases, method, path, **kw):
