@@ -470,6 +470,33 @@ of its checks fails:
      asserts (burst outputs the temperature-0 reference or clean errors,
      recovery, paged state back to baseline, the cancelled stream's
      prefix clean), and K4 launched in a live replica.
+ 23. sharded objects (run after phase 22): DTensors through the object
+     layer's ``put``/``get``, on a cluster that lists the card twice.
+     gpt2_small at full size in float32, its weights drawn from a seed-0
+     generator on the CPU. (a) On a world-1 NCCL group in this process,
+     the tree as DTensors on ``build_mesh(MeshSpec.auto(1))``, put leaf by
+     leaf: every entry ``DEVICE``, nothing in the in-process store, the
+     owner's get DTensors with the same placements, their local tensors
+     bit-equal and on ``cuda:0``; a ``num_gpus=1`` consumer actor gets
+     every leaf whole on its card, each bit-equal to the seed's, and runs
+     the forward loss at B2 x S1024 through K1's float32 kernel: the loss
+     bit-equal to the same forward here on the unsharded tree, K1 exactly
+     12 in the consumer. (b) A gloo world of 4 CPU runtime actors holds
+     the tree on a 2x2 ``("fsdp", "tp")`` mesh sharded by the port's
+     rules (``shard_params``), every rank puts every leaf (one object a
+     leaf, owned by rank 0); the consumer assembles every leaf on its
+     card from the 4 holders: each bit-equal to the seed's, the loss
+     bit-equal to (a)'s, K1 exactly 12 again; after every ref is dropped
+     every holder's registry is empty within ``SHARDED_FREE_S``. The
+     fetch's seconds and GB/s of each; K1 in float32 at the consumer's
+     shape (B2 S1024 H12 D64, causal) against its plain version, with its
+     times, SDPA's and its bound.
+
+The serve-app phase splits the time ``serve.shutdown()`` takes to give
+the card back into its steps, from the host clock: the controller's
+``graceful_shutdown`` returns, each replica's process is gone, the
+serve actors are killed, the cluster shows ``GPU: 1`` free, and a
+``num_gpus=1`` probe actor is up.
 
 The script and every process it starts write and read Python's bytecode
 under ``build/pycache`` (``cache_bytecode``), so the first process to
@@ -3217,6 +3244,7 @@ def serve_app_phase(torch, serve_ref, runtime) -> dict:
     import ray_tpu_torch as rt
     from ray_tpu_torch import serve
     from ray_tpu_torch._private import api as rt_api
+    from ray_tpu_torch.scripts.card_back import card_back
     from ray_tpu_torch.serve.llm import LLMServer
 
     cls = _make_serve_app_llm()
@@ -3228,17 +3256,19 @@ def serve_app_phase(torch, serve_ref, runtime) -> dict:
         r["llama3_8b"] = _serve_app_llama3_8b(
             torch, rt, rt_api, serve, LLMServer, cls, serve_ref, runtime)
         r["parity"] = _serve_app_parity(torch, rt, serve, LLMServer, cls)
-        t1 = time.perf_counter()
-        serve.shutdown()
-        probe = rt.remote(CardProbe).options(num_gpus=1).remote()
-        seen = rt.get(probe.info.remote(), timeout=120)
-        rt.kill(probe)
-        if seen["visible"] != "0":
-            raise AssertionError(f"after serve.shutdown: {seen}")
-        r["card_back_s"] = time.perf_counter() - t1
+        r["card_back"] = back = card_back(rt, rt_api._core, serve)
+        if back["visible"] != "0":
+            raise AssertionError(f"after serve.shutdown: {back}")
+        r["card_back_s"] = back["probe_up_s"]
         print(f"serve-app: serve.shutdown() gave the card back: a "
-              f"num_gpus=1 actor up {r['card_back_s']:.2f} s after it",
-              flush=True)
+              f"num_gpus=1 actor up {r['card_back_s']:.2f} s after it "
+              f"began; from its start, graceful_shutdown returned "
+              f"{back['graceful_shutdown_s']:.2f} s, the replicas' "
+              f"processes ({back['replica_pids']}) gone "
+              f"{back['replicas_gone_s']:.2f} s, serve.shutdown() returned "
+              f"{back['serve_shutdown_s']:.2f} s, GPU 1 free "
+              f"{back['gpu_free_s']:.2f} s, the probe up "
+              f"{back['probe_up_s']:.2f} s", flush=True)
     finally:
         rt.shutdown()
     return r
@@ -5044,7 +5074,7 @@ def _wait(what: str, cond, timeout: float = AUTOSCALE_TIMEOUT,
         if out:
             return out
         time.sleep(every)
-    raise AssertionError(f"autoscale: {what} not within {timeout:.0f} s")
+    raise AssertionError(f"{what} not within {timeout:.0f} s")
 
 
 def _jobs_cli(address: str, *args, timeout: float = AUTOSCALE_TIMEOUT):
@@ -5084,7 +5114,8 @@ def _autoscale_pool(rt, core, session_dir, state, card, ref) -> dict:
         scorer = rt.remote(Scorer).options(num_gpus=1)
         t0 = time.perf_counter()
         actors = [scorer.remote(queue) for _ in range(2)]
-        (node,) = _wait("the gpu node", lambda: _gpu_nodes(state), every=0.05)
+        (node,) = _wait("autoscale: the gpu node",
+                        lambda: _gpu_nodes(state), every=0.05)
         node_s = time.perf_counter() - t0
 
         def both_alive():
@@ -5092,7 +5123,7 @@ def _autoscale_pool(rt, core, session_dir, state, card, ref) -> dict:
                     if a["class_name"] == "Scorer" and a["state"] == "ALIVE"]
             return recs if len(recs) == 2 else None
 
-        alive = _wait("both scorers ALIVE", both_alive)
+        alive = _wait("autoscale: both scorers ALIVE", both_alive)
         alive_s = time.perf_counter() - t0
         pool = ActorPool(actors)
         ordered, first_s = [], None
@@ -5120,7 +5151,7 @@ def _autoscale_pool(rt, core, session_dir, state, card, ref) -> dict:
         for a in actors:
             rt.kill(a)
         bound_s = AUTOSCALE_IDLE_S + 3 * AUTOSCALE_TICK_S + 10.0
-        _wait("the gpu node's retirement",
+        _wait("autoscale: the gpu node's retirement",
               lambda: not provider.non_terminated_nodes() and not any(
                   n["alive"] for n in _gpu_nodes(state)),
               timeout=bound_s)
@@ -5258,7 +5289,7 @@ def _autoscale_job(core, session_dir, address, card, ref, work) -> dict:
         logs = _jobs_cli(address, "logs", "score-gpt2").stdout
         t_done = time.perf_counter()
         # the pass that terminates the node marks its instance TERMINATED
-        _wait("the gpu instance's retirement",
+        _wait("autoscale: the gpu instance's retirement",
               lambda: failed or not provider.non_terminated_nodes(),
               timeout=AUTOSCALE_IDLE_S + 3 * AUTOSCALE_TICK_S + 30.0)
         down_s = time.perf_counter() - t_done
@@ -7099,6 +7130,314 @@ def harness_phase(torch, card) -> dict:
     return r
 
 
+# ------------------------------------------------------------ sharded objects
+
+SHARDED_B, SHARDED_S = 2, 1024   # the consumer's forward batch
+SHARDED_FREE_S = 5.0             # (b): every holder empty after the drop
+SHARDED_WORLD = 4                # (b): CPU ranks on a 2x2 mesh
+SHARDED_K1 = dict(B=SHARDED_B, S=SHARDED_S, H=12, Hkv=12, D=64, causal=True)
+
+
+def _sharded_seed():
+    """gpt2_small at full size in float32 (compute and params), its
+    weights drawn from a seed-0 generator on the CPU: the same bits in
+    every process, on any device."""
+    import torch
+
+    from ray_tpu_torch import presets
+    from ray_tpu_torch.models.transformer import init_params
+
+    cfg = presets.gpt2_small(remat=False, dtype=torch.float32,
+                             ce_chunk=2048)
+    return cfg, init_params(cfg, 0, "cpu", param_dtype=torch.float32)
+
+
+def _sharded_loss(torch, cfg, params) -> float:
+    """The forward loss of a seeded B2 x S1024 batch under no_grad."""
+    import numpy as np
+
+    from ray_tpu_torch.models.transformer import loss_fn
+
+    tokens = np.random.default_rng(23).integers(
+        0, cfg.vocab_size, (SHARDED_B, SHARDED_S), dtype=np.int64)
+    with torch.no_grad():
+        loss, _ = loss_fn(cfg, params,
+                          {"tokens": torch.from_numpy(tokens).to("cuda")})
+    return float(loss)
+
+
+def _ref_tree(refs, values):
+    """``values`` (in leaf order) in the shape of the tree ``refs``."""
+    from ray_tpu_torch.models.transformer import map_params
+
+    it = iter(values)
+    return map_params(lambda _p, _r: next(it), refs)
+
+
+class ShardConsumer:
+    """Phase 23's card consumer (``num_gpus=1``): gets every leaf of a tree
+    of refs whole on its card, holds each against the seed's, and runs the
+    forward loss through K1, counted in this process."""
+
+    def __init__(self):
+        self.cfg, self.seed = _sharded_seed()
+
+    def run(self, refs):
+        import torch
+        from torch.distributed.tensor import DTensor
+
+        import ray_tpu_torch as rt
+        from ray_tpu_torch.models.transformer import _leaves
+        from ray_tpu_torch.ops import flash_attention as fa
+
+        flat = _leaves(refs)
+        t0 = time.perf_counter()
+        got = rt.get(flat, timeout=RT_TIMEOUT)
+        torch.cuda.synchronize()
+        fetch_s = time.perf_counter() - t0
+        nbytes = sum(t.numel() * t.element_size() for t in got)
+        devices = sorted({str(t.device) for t in got})
+        whole = not any(isinstance(t, DTensor) for t in got)
+        equal = sum(_bytes_equal(torch, t.cpu(), s)
+                    for t, s in zip(got, _leaves(self.seed)))
+        _reset_counters(fa)
+        loss = _sharded_loss(torch, self.cfg, _ref_tree(refs, got))
+        return {"fetch_s": fetch_s, "bytes": nbytes,
+                "gb_s": nbytes / fetch_s / 1e9, "leaves": len(got),
+                "equal_leaves": equal, "devices": devices, "whole": whole,
+                "loss": loss,
+                "launches": {f.__name__: f.launches for f in fa.KERNELS}}
+
+
+class ShardRank:
+    """Phase 23 (b)'s CPU rank (``num_gpus=0``): joins a gloo world, holds
+    the seed's tree on the 2x2 ``("fsdp", "tp")`` mesh sharded by the
+    port's rules, and puts every leaf (every rank does: a collective)."""
+
+    def __init__(self):
+        self.refs = None
+
+    def join(self, rank: int, n: int, store: str) -> int:
+        import datetime
+        import os
+
+        import torch.distributed as dist
+
+        dist.init_process_group(
+            "gloo", store=dist.FileStore(store, n), rank=rank, world_size=n,
+            timeout=datetime.timedelta(seconds=RT_TIMEOUT))
+        return os.getpid()
+
+    def put_tree(self) -> dict:
+        import ray_tpu_torch as rt
+        from ray_tpu_torch.models.transformer import logical_axes, map_params
+        from ray_tpu_torch.parallel.mesh import MeshSpec, build_mesh
+        from ray_tpu_torch.parallel.sharding import param_specs, shard_params
+
+        cfg, params = _sharded_seed()
+        mesh = build_mesh(MeshSpec.of(fsdp=2, tp=2), device_type="cpu")
+        placed = shard_params(params, mesh, specs=param_specs(
+            params, mesh, logical=logical_axes(cfg)))
+        del params
+        t0 = time.perf_counter()
+        self.refs = map_params(lambda _p, t: rt.put(t), placed)
+        put_s = time.perf_counter() - t0
+        sharded = []
+        map_params(lambda _p, t: sharded.append(
+            any(p.is_shard() for p in t.placements)), placed)
+        return {"refs": self.refs, "put_s": put_s,
+                "sharded_leaves": sum(sharded)}
+
+    def held(self) -> int:
+        from ray_tpu_torch._private import api as rt_api
+
+        return len(rt_api._core.device_objects)
+
+    def drop(self) -> None:
+        import gc
+
+        self.refs = None
+        gc.collect()
+
+
+def _k1_at_consumer_shape(torch) -> dict:
+    """K1's float32 kernel at the consumer's shape against its plain
+    version (the float32 gate), with its times, SDPA's and its bound."""
+    import torch.nn.functional as F
+
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    case = SHARDED_K1
+    q, k, v, _ = flash_inputs(torch, case, torch.float32)
+    o, _ = fa.flash_forward(q, k, v, causal=True)
+    o_ref, _ = fa.flash_forward_reference(q, k, v, causal=True)
+    gate = _gate("o", "float32")
+    err, rel_l2, used = _gate_err(o, o_ref, "o", gate)
+    if not (torch.isfinite(o).all() and used <= 1.0):
+        raise AssertionError(f"sharded: K1 f32 at {case} uses {used:.3g} x "
+                             f"its tolerance (max |err| {err:.3e})")
+    qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    bound_ms, bound_by = flash_bounds(case, "float32", 4)["fwd"]
+    return {"max_abs_err": err, "rel_l2": rel_l2, "gate_used": used,
+            "ms": time_ms(torch, lambda: fa.flash_forward(q, k, v,
+                                                          causal=True)),
+            "plain_ms": time_ms(torch, lambda: fa.flash_forward_reference(
+                q, k, v, causal=True), iters=5, warmup=1),
+            "library_ms": time_ms(torch, lambda: (
+                F.scaled_dot_product_attention(qh, kh, vh, is_causal=True))),
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def _check_consumer(got: dict, want_loss: float, what: str) -> None:
+    want = {"flash_forward": 12, "flash_dq": 0, "flash_dkv": 0}
+    if (got["equal_leaves"] != got["leaves"] or got["devices"] != ["cuda:0"]
+            or not got["whole"] or got["launches"] != want
+            or got["loss"] != want_loss or not math.isfinite(got["loss"])):
+        raise AssertionError(
+            f"sharded {what}: {got['equal_leaves']} of {got['leaves']} "
+            f"leaves bit-equal to the seed's, on {got['devices']} (whole "
+            f"tensors: {got['whole']}), loss {got['loss']!r} against "
+            f"{want_loss!r}, launches {got['launches']} (want {want})")
+
+
+def sharded_phase(torch, card) -> dict:
+    """Phase 23: sharded device objects (run after phase 22)."""
+    import gc
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch._private import api as rt_api
+    from ray_tpu_torch._private import harness
+    from ray_tpu_torch.models.transformer import (_leaves, logical_axes,
+                                                  map_params)
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.parallel.mesh import MeshSpec, build_mesh
+    from ray_tpu_torch.parallel.sharding import param_specs, shard_params
+
+    r = {}
+    with harness.card_listed(2):
+        rt.init(num_cpus=8, num_gpus=2,
+                object_store_memory=512 * 1024 * 1024)
+    tmp = tempfile.TemporaryDirectory()
+    try:
+        # the actors start while this process draws its tree
+        consumer = rt.remote(ShardConsumer).options(num_gpus=1).remote()
+        ranks = [rt.remote(ShardRank).options(num_cpus=1, num_gpus=0)
+                 .remote() for _ in range(SHARDED_WORLD)]
+        joined = [a.join.remote(i, SHARDED_WORLD,
+                                os.path.join(tmp.name, "gloo"))
+                  for i, a in enumerate(ranks)]
+        cfg, host = _sharded_seed()
+        params = map_params(lambda _p, t: t.to("cuda"), host)
+        del host
+        # ---- (a): world 1 on the card, this process the owner
+        t0 = time.perf_counter()
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(tmp.name, "nccl"), 1),
+            rank=0, world_size=1, device_id=torch.device("cuda", 0))
+        try:
+            mesh = build_mesh(MeshSpec.auto(1))
+            placed = shard_params(params, mesh, specs=param_specs(
+                params, mesh, logical=logical_axes(cfg)))
+            core = rt_api._core
+            held0 = len(core.device_objects)
+            refs = map_params(lambda _p, t: rt.put(t), placed)
+            flat = _leaves(refs)
+            states = {core.objects[x._object_id].state for x in flat}
+            stored = sum(core.in_process.get(x._object_id) is not None
+                         for x in flat)
+            mine = rt.get(flat, timeout=RT_TIMEOUT)
+            same = sum(isinstance(m, DTensor)
+                       and m.placements == p.placements
+                       and str(m.to_local().device) == "cuda:0"
+                       and _bytes_equal(torch, m.to_local(), p.to_local())
+                       for m, p in zip(mine, _leaves(placed)))
+            del mine
+            if states != {"DEVICE"} or stored or same != len(flat):
+                raise AssertionError(
+                    f"sharded (a): entry states {states}, {stored} in the "
+                    f"in-process store, {same} of {len(flat)} owner gets "
+                    "DTensors bit-equal with the same placements on cuda:0")
+            _reset_counters(fa)
+            owner_loss = _sharded_loss(torch, cfg, params)
+            owner_k1 = fa.flash_forward.launches
+            a = rt.get(consumer.run.remote(refs), timeout=RT_TIMEOUT)
+            _check_consumer(a, owner_loss, "(a)")
+            a.update(owner_loss=owner_loss, owner_k1=owner_k1,
+                     mesh=MeshSpec.auto(1).axes,
+                     placements=str(placed["embed"]["table"].placements))
+            del refs, flat, placed
+            gc.collect()
+            _wait("sharded (a): the owner's registry emptied",
+                  lambda: len(core.device_objects) == held0,
+                  SHARDED_FREE_S, 0.01)
+        finally:
+            dist.destroy_process_group()
+        a["seconds"] = time.perf_counter() - t0
+        r["a"] = a
+        print(f"sharded (a): gpt2_small float32 as DTensors on "
+              f"{a['mesh']} (embed table {a['placements']}), put leaf by "
+              f"leaf: {a['leaves']} DEVICE entries, none in the in-process "
+              f"store, the owner's gets bit-equal DTensors on cuda:0; the "
+              f"card consumer fetched {a['bytes'] / 1e6:.1f} MB whole in "
+              f"{a['fetch_s']:.3f} s ({a['gb_s']:.3f} GB/s), every leaf "
+              f"bit-equal to the seed's; loss {a['loss']!r} bit-equal to "
+              f"the owner's on the unsharded tree (B{SHARDED_B} x "
+              f"S{SHARDED_S}, K1 f32), K1 {a['launches']['flash_forward']} "
+              f"in the consumer; {a['seconds']:.1f} s; {card}", flush=True)
+        # ---- (b): a gloo world of 4 CPU actors on a 2x2 mesh
+        t0 = time.perf_counter()
+        rt.get(joined, timeout=RT_TIMEOUT)
+        puts = rt.get([x.put_tree.remote() for x in ranks],
+                      timeout=RT_TIMEOUT)
+        ids = {tuple(x._object_id.hex() for x in _leaves(p["refs"]))
+               for p in puts}
+        if len(ids) != 1:
+            raise AssertionError("sharded (b): the ranks' puts returned "
+                                 "refs to different objects")
+        b = rt.get(consumer.run.remote(puts[0]["refs"]), timeout=RT_TIMEOUT)
+        _check_consumer(b, a["loss"], "(b)")
+        b.update(put_s=max(p["put_s"] for p in puts),
+                 sharded_leaves=puts[0]["sharded_leaves"])
+        del puts
+        gc.collect()
+        t1 = time.perf_counter()
+        rt.get([x.drop.remote() for x in ranks], timeout=RT_TIMEOUT)
+        _wait("sharded (b): every holder's registry empty",
+              lambda: rt.get([x.held.remote() for x in ranks],
+                             timeout=RT_TIMEOUT) == [0] * SHARDED_WORLD,
+              SHARDED_FREE_S, 0.05)
+        b["free_s"] = time.perf_counter() - t1
+        b["seconds"] = time.perf_counter() - t0
+        r["b"] = b
+        print(f"sharded (b): a gloo world of {SHARDED_WORLD} CPU actors "
+              f"on a 2x2 ('fsdp', 'tp') mesh, {b['sharded_leaves']} of "
+              f"{b['leaves']} leaves sharded by shard_params, every rank "
+              f"put every leaf ({b['put_s']:.2f} s); the card consumer "
+              f"assembled {b['bytes'] / 1e6:.1f} MB from the 4 holders in "
+              f"{b['fetch_s']:.3f} s ({b['gb_s']:.3f} GB/s), every leaf "
+              f"bit-equal to the seed's; loss {b['loss']!r} bit-equal to "
+              f"(a)'s, K1 {b['launches']['flash_forward']}; every holder "
+              f"empty {b['free_s']:.2f} s after the drop; "
+              f"{b['seconds']:.1f} s; {card}", flush=True)
+        del params
+    finally:
+        rt.shutdown()
+        tmp.cleanup()
+    _free(torch)
+    r["k1"] = k1 = _k1_at_consumer_shape(torch)
+    print(f"sharded K1: float32 at B{SHARDED_B} S{SHARDED_S} H12 D64 "
+          f"causal, max |err| {k1['max_abs_err']:.3e} ({k1['gate_used']:.3g}"
+          f" of the float32 gate), {k1['ms']:.4f} ms (plain "
+          f"{k1['plain_ms']:.4f}, sdpa {k1['library_ms']:.4f}, bound "
+          f"{k1['bound_ms']:.4f} {k1['bound_by']}); {card}", flush=True)
+    return r
+
+
 def preflight_line() -> dict:
     """What the port's ``reap_all()`` swept before the run, and whether
     pyarrow, pandas and gymnasium import here (and their versions)."""
@@ -7200,6 +7539,8 @@ def main() -> int:
     mesh = timed("mesh", mesh_phase, torch, card)
     _free(torch)
     harness = timed("harness", harness_phase, torch, card)
+    _free(torch)
+    sharded = timed("sharded", sharded_phase, torch, card)
     print("phase seconds: " + json.dumps(
         {k: round(v, 1) for k, v in phase_s.items()}), flush=True)
     main_case = kern["decode_bfloat16"]
@@ -7345,6 +7686,19 @@ def main() -> int:
             launches=n, **{k: case[k] for k in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")}))
+    # K1's float32 kernel in phase 23's card consumer, which ran
+    # gpt2_small's forward on the tree it fetched through the object layer:
+    # (a) from this process's world-1 mesh, (b) from the CPU world's 2x2
+    k1 = sharded["k1"]
+    kernels["kernels"].append({
+        "name": "flash_attention_fwd_f32_sharded_objects",
+        "route": "cuda",
+        "source": "ray_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "ray_tpu/ops/flash_attention.py:103",
+        "launches": sum(sharded[x]["launches"]["flash_forward"]
+                        for x in ("a", "b")),
+        **{k: k1[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                              "bound_by", "library_ms")}})
     detail = {"card": card, "preflight": preflight, "build": build,
               "kernel": kern, "flash": flash, "serve": serve,
               "serve_cut": serve_cut, "spec_serve": spec_serve,
@@ -7355,6 +7709,7 @@ def main() -> int:
               "pipeline": pipeline, "tune": tune_r, "dag": dag,
               "autoscale": autoscale, "data": data, "rl": rl,
               "rl_more": rl_more, "mesh": mesh, "harness": harness,
+              "sharded": sharded,
               "phase_seconds": phase_s,
               "seconds": time.perf_counter() - t_start}
     out_dir = ROOT / "chiprun_out"

@@ -29,9 +29,9 @@ Intended deltas, and nothing else:
   ``write_packed`` copies 64 MiB or more of buffers into the arena in
   16 MiB pieces on a few threads (page faults on fresh shared-memory pages
   bound a one-thread copy);
-- ``device_objects``: single-card CUDA tensors (no mesh sharding), stored
-  and handed out as copies taken on the card, as torch tensors are
-  mutable;
+- ``device_objects``: CUDA tensors, and DTensors on a mesh (put by every
+  rank, each shard held by its own rank), stored and handed out as copies
+  taken where they live, as torch tensors are mutable;
 - ``profiling.collect_device`` reads ``torch.cuda.memory_stats``;
   ``object_store`` reports which free list it uses (``native_allocator``);
 - ``config``: of the serve knobs only ``serve_affinity``,

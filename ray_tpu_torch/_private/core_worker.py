@@ -232,7 +232,7 @@ def _trace(msg: str) -> None:
 PENDING = "PENDING"
 INLINE = "INLINE"  # packed bytes in the in-process store
 SHARED = "SHARED"  # in a node arena; location recorded
-DEVICE = "DEVICE"  # CUDA tensor parked in the owner's device registry
+DEVICE = "DEVICE"  # CUDA tensor or DTensor shards parked in registries
 FAILED = "FAILED"
 
 
@@ -251,6 +251,9 @@ class ObjectEntry:
     # holder is the EXECUTOR worker (location = its worker address, the
     # the tensor stays there), for puts the owner itself (location None)
     device_meta: Optional[bytes] = None
+    # a sharded (DTensor) put's holders: worker address per flat mesh
+    # coordinate (the meta names each shard's coordinate)
+    holders: Optional[List[Address]] = None
 
 
 @dataclasses.dataclass
@@ -1444,7 +1447,7 @@ class CoreWorker:
                 meta_blob = serialization.dumps(meta)
             return {"status": status,
                     "meta": meta_blob,
-                    "holder": entry.location}
+                    "holders": entry.holders or [entry.location]}
         return {"status": status}
 
     @idempotent
@@ -1594,6 +1597,8 @@ class CoreWorker:
                     self._maybe_free(entry)
 
     def put(self, value: Any) -> Tuple[ObjectID, Address]:
+        if device_objects.is_sharded(value):
+            return self._put_sharded(value)
         oid = ObjectID.from_put()
         if device_objects.is_device_array(value):
             # no host round-trip: a snapshot stays here on the card (the
@@ -1650,6 +1655,58 @@ class CoreWorker:
         entry.size = meta.nbytes
         self._wake(entry)
 
+    def _put_sharded(self, dt) -> Tuple[ObjectID, Address]:
+        """A collective put of a DTensor: every rank of its mesh calls it.
+        The coordinate-0 rank owns the object and makes its id, which it
+        broadcasts over the mesh's group; each rank parks a snapshot of its
+        own local shard in its own registry under that id, then one
+        all_gather_object tells every rank each rank's worker address (so
+        no rank returns before every shard is in place). Each rank returns
+        a ref to the same object; the owner counts the other ranks as
+        borrowers from the start, and each of their refs releases one."""
+        import torch.distributed as dist
+
+        mesh = dt.device_mesh
+        ranks = [int(r) for r in mesh.mesh.flatten().tolist()]
+        group = device_objects.mesh_group(mesh)
+        me = dist.get_rank()
+        owner_rank = ranks[0]
+        snap = device_objects.snapshot(dt)
+        box = [None]
+        if me == owner_rank:
+            oid = ObjectID.from_put()
+            box = [oid.binary()]
+            self._run(self._async_begin_sharded(oid, len(ranks) - 1))
+        if len(ranks) > 1:
+            dist.broadcast_object_list(box, src=owner_rank, group=group)
+        oid = ObjectID(box[0])
+        self.device_objects.put(oid, snap)
+        gathered = [None] * len(ranks)
+        if len(ranks) > 1:
+            dist.all_gather_object(gathered, (me, tuple(self.address)),
+                                   group=group)
+        else:
+            gathered = [(me, tuple(self.address))]
+        by_rank = dict(gathered)
+        holders = [by_rank[r] for r in ranks]
+        if me == owner_rank:
+            self._run(self._async_seal_sharded(
+                oid, device_objects.extract_meta(dt), holders))
+        return oid, holders[0]
+
+    async def _async_begin_sharded(self, oid: ObjectID, borrowers: int):
+        entry = self._ensure_entry(oid)
+        entry.borrows += borrowers
+
+    async def _async_seal_sharded(self, oid: ObjectID, meta,
+                                  holders: List[Address]) -> None:
+        entry = self._ensure_entry(oid)
+        entry.state = DEVICE
+        entry.size = meta.nbytes
+        entry.device_meta = serialization.dumps(meta)
+        entry.holders = holders
+        self._wake(entry)
+
     async def _async_store_owned(self, oid: ObjectID, packed: bytes) -> ObjectEntry:
         entry = self._ensure_entry(oid)
         if len(packed) <= self.config.max_direct_call_object_size or (
@@ -1696,6 +1753,12 @@ class CoreWorker:
     async def _async_get_one(self, oid: ObjectID, owner: Address, deadline) -> Any:
         if tuple(owner) == tuple(self.address):
             return await self._get_owned(oid, deadline)
+        local = self.device_objects.get(oid)
+        if local is not None:
+            # a holder's own get (a rank of a sharded put, or the worker
+            # that returned the tensor): a private copy of what it holds,
+            # no host traffic and no collective
+            return device_objects.snapshot(local)
         return await self._get_remote(oid, owner, deadline)
 
     async def _get_owned(self, oid: ObjectID, deadline) -> Any:
@@ -1726,7 +1789,7 @@ class CoreWorker:
                     # task-return device object: the tensor lives with the
                     # executor worker; stream it from there
                     return await self._fetch_device(
-                        oid, entry.location,
+                        oid, entry.holders or [entry.location],
                         serialization.loads(entry.device_meta))
                 return await self._read_shared(oid, entry.size, entry.location)
             except (ObjectLostError, RpcConnectionError, RpcTimeoutError, RemoteError) as e:
@@ -1764,10 +1827,11 @@ class CoreWorker:
             if status == "value":
                 return serialization.unpack(r["value"])
             if status == "device":
-                holder = tuple(r["holder"]) if r.get("holder") else owner
+                holders = [tuple(h) if h else tuple(owner)
+                           for h in r["holders"]]
                 try:
                     return await self._fetch_device(
-                        oid, holder, serialization.loads(r["meta"]))
+                        oid, holders, serialization.loads(r["meta"]))
                 except ObjectLostError as e:
                     # holder worker died: ask the owner to reconstruct
                     # from lineage, then keep polling (same stance as
@@ -1845,25 +1909,29 @@ class CoreWorker:
             # back in (no extra client-side backoff on top of it)
             await asyncio.sleep(delay)
 
-    async def _fetch_device(self, oid: ObjectID, holder: Address, meta) -> Any:
-        """Materialize a remote device object locally: stream each shard's
-        host staging buffer in bounded chunks (next chunk prefetched while
-        the current one is appended — the wire stays busy), then assemble
-        with the sender's logical sharding on this process's devices
-        (device_objects.assemble; device_put dispatches asynchronously so
-        uploads overlap the Python-side loop). Holder loss surfaces as
+    async def _fetch_device(self, oid: ObjectID, holders: List[Address],
+                            meta) -> Any:
+        """Materialize a remote device object locally: stream each shard
+        this process needs (``device_objects.needed_shards``) from its
+        holder (``holders[meta.holder_of(i)]``) as host staging buffers in
+        bounded chunks (next chunk prefetched while the current one is
+        appended — the wire stays busy), then assemble it, with the
+        sender's logical sharding where this process has an equivalent
+        mesh (device_objects.assemble). Holder loss surfaces as
         ObjectLostError so the callers' reconstruction loops engage."""
-        client = self.clients.get(holder)
         chunk = self.config.object_transfer_chunk_bytes
         shard_data = {}
         pending = nxt = None
         try:
-            for index_key, nbytes in meta.shards:
+            for i in device_objects.needed_shards(meta):
+                index_key, nbytes = meta.shards[i]
+                index_key = tuple(tuple(p) for p in index_key)
+                client = self.clients.get(tuple(holders[meta.holder_of(i)]))
                 parts = []
                 pos = 0
                 pending = None
                 if nbytes == 0:  # zero-size shard: nothing on the wire
-                    shard_data[tuple(tuple(p) for p in index_key)] = b""
+                    shard_data[index_key] = b""
                     continue
                 while pos < nbytes or pending is not None:
                     if pending is None:
@@ -1882,7 +1950,7 @@ class CoreWorker:
                     parts.append(await pending)
                     pending = nxt
                     nxt = None
-                shard_data[tuple(tuple(p) for p in index_key)] = b"".join(parts)
+                shard_data[index_key] = b"".join(parts)
         except (RpcConnectionError, RpcTimeoutError, RemoteError) as e:
             raise ObjectLostError(
                 oid.hex(), f"device object holder unreachable: {e}") from e
@@ -2170,18 +2238,26 @@ class CoreWorker:
             self.objects.pop(oid, None)
             self.in_process.free(oid)
             if entry.state == DEVICE:
-                # owner GC: dropping the registry reference frees the device memory
-                if not self.device_objects.drop(oid) \
-                        and entry.location is not None:
-                    # holder is the executor worker: tell it to release
-                    async def free_device():
-                        try:
-                            await self.clients.get(entry.location).notify(
-                                "device_free", {"object_id": oid.binary()})
-                        except Exception:
-                            pass
+                # owner GC: dropping the registry reference frees the
+                # device memory; every other holder (the executor worker
+                # of a return, the other ranks of a sharded put) is told
+                # to release its own
+                self.device_objects.drop(oid)
+                others = {tuple(h) for h in (entry.holders
+                                             or [entry.location])
+                          if h is not None
+                          and tuple(h) != tuple(self.address)}
 
-                    asyncio.get_running_loop().create_task(free_device())
+                async def free_device(holder):
+                    try:
+                        await self.clients.get(holder).notify(
+                            "device_free", {"object_id": oid.binary()})
+                    except Exception:
+                        pass
+
+                for holder in others:
+                    asyncio.get_running_loop().create_task(
+                        free_device(holder))
             if entry.state == SHARED and entry.location is not None:
                 async def free_remote():
                     try:

@@ -216,6 +216,9 @@ class Supervisor:
             visible if len(visible) == n_gpus
             else [str(i) for i in range(n_gpus)])
         self._gpu_returned = asyncio.Event()
+        # worker_failed notices in flight to the owners of dead workers'
+        # leases (held until done: the loop keeps tasks only weakly)
+        self._owner_notices: Set[asyncio.Task] = set()
         # runtime envs staged on this node (working_dir/py_modules/pip)
         async def _kv_get(ns: str, key: str):
             return await self.clients.get(self.controller_addr).call(
@@ -1174,21 +1177,24 @@ class Supervisor:
             "WORKER_EXITED", f"worker {w.worker_id_hex[:8]}: {reason}",
             severity="INFO" if exitcode == 0 else "WARNING",
             worker_id=w.worker_id_hex, exitcode=exitcode, reason=reason)
-        # fail leases bound to this worker and tell their owners
-        for lease in [l for l in self.leases.values() if l.worker is w]:
-            if lease.owner is not None:
-                try:
-                    await self.clients.get(lease.owner).notify(
-                        "worker_failed",
-                        {
-                            "worker_id_hex": w.worker_id_hex,
-                            "exitcode": exitcode,
-                            "reason": reason,
-                        },
-                    )
-                except Exception:
-                    pass
+        # fail leases bound to this worker, give its cards back (its process
+        # has exited), then tell the owners. The owner may have died with
+        # the worker (an actor killed together with the actor that made
+        # it, as serve.shutdown kills a replica's controller): a notice to
+        # a dead address retries its connect for rpc_connect_timeout_s,
+        # and neither the lease, nor the card, nor the next worker exit
+        # waits for that
+        leases = [l for l in self.leases.values() if l.worker is w]
+        for lease in leases:
             await self._release(lease.lease_id)
+        self._return_gpus(w)
+        for lease in leases:
+            if lease.owner is not None:
+                self._notify_owner(lease.owner, {
+                    "worker_id_hex": w.worker_id_hex,
+                    "exitcode": exitcode,
+                    "reason": reason,
+                })
         if w.is_actor:
             try:
                 # the controller's restart accounting depends on this
@@ -1206,7 +1212,18 @@ class Supervisor:
                 )
             except Exception:
                 pass
-        self._return_gpus(w)
+
+    def _notify_owner(self, owner, body) -> None:
+        """Send a lease owner ``worker_failed`` on a task of its own."""
+        async def notify():
+            try:
+                await self.clients.get(owner).notify("worker_failed", body)
+            except Exception:
+                pass  # the owner is gone too: nothing to tell
+
+        task = asyncio.get_running_loop().create_task(notify())
+        self._owner_notices.add(task)
+        task.add_done_callback(self._owner_notices.discard)
 
     async def _log_tail_loop(self) -> None:
         """Stream worker stdout/stderr to drivers (log_to_driver): tail

@@ -458,10 +458,21 @@ class Executor:
 
         results = []
         for oid, value in zip(spec.return_ids(), values):
-            if (device_objects.is_device_array(value)
-                    and value.nbytes >
-                    self.core.config.max_direct_call_object_size):
-                # Large CUDA tensor return: keep a snapshot on the card
+            sharded = device_objects.is_sharded(value)
+            if sharded and value.device_mesh.mesh.numel() != 1:
+                # a larger mesh's other shards are other processes'
+                # returns: no one process can return the whole object
+                raise ValueError(
+                    f"{spec.name} returned a DTensor on a mesh of "
+                    f"{value.device_mesh.mesh.numel()} ranks: a task can "
+                    f"return only a one-rank mesh's; have every rank call "
+                    f"ray_tpu_torch.put(dtensor) and return the ref")
+            if sharded or (device_objects.is_device_array(value)
+                           and value.nbytes >
+                           self.core.config.max_direct_call_object_size):
+                # A DTensor on a one-rank mesh (whatever its size: its
+                # layout has no host form), or a large CUDA tensor
+                # return: keep a snapshot on its device
                 # (this worker is the holder; the function may still hold
                 # and write the tensor it returned), report layout
                 # metadata only — no host pickle. The owner frees it via device_free at zero

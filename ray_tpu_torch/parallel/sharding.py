@@ -5,8 +5,10 @@ axis names; a rule table maps them to mesh axes, which gives a JAX-style
 partition spec per tensor (one entry per tensor dim: a mesh axis name, a
 tuple of them, or None). ``spec_to_placements`` turns such a spec into the
 DTensor form, one placement per mesh dim: ``Shard(d)`` for the tensor dim
-the mesh dim splits, else ``Replicate()``. ``shard_params`` places a params
-tree with ``distribute_tensor``.
+the mesh dim splits, else ``Replicate()``; ``placements_to_spec`` is its
+inverse, which the object layer records for a sharded tensor as JAX records
+a ``NamedSharding``'s spec. ``shard_params`` places a params tree with
+``distribute_tensor``.
 
 ``ShardingRules.spec``, ``sanitize_spec`` and ``param_specs`` read only a
 mesh's axis names and sizes, so they take a ``MeshSpec`` as well as a
@@ -180,6 +182,34 @@ def spec_to_placements(spec: Spec, mesh) -> tuple:
                                  f"tensor dims in spec {spec!r}")
             placements[p] = Shard(dim)
     return tuple(placements)
+
+
+def placements_to_spec(placements, mesh) -> Spec:
+    """The inverse of ``spec_to_placements``: one DTensor placement per
+    mesh dim -> a JAX-style spec. A tensor dim that is ``Shard(d)`` on
+    several mesh dims becomes a tuple entry in mesh order, a replicated dim
+    ``None``; trailing ``None``s are dropped. A ``Partial`` placement (a
+    pending reduction) has no spec form and raises."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names, _ = mesh_axes(mesh)
+    if len(placements) != len(names):
+        raise ValueError(f"{len(placements)} placements for a mesh of "
+                         f"{len(names)} dims {names}")
+    by_dim: Dict[int, list] = {}
+    for name, p in zip(names, placements):
+        if isinstance(p, Shard):
+            by_dim.setdefault(p.dim, []).append(name)
+        elif not isinstance(p, Replicate):
+            raise ValueError(
+                f"placement {p!r} on mesh axis {name!r} has no partition "
+                f"spec: redistribute the tensor to Shard/Replicate first")
+    if any(d < 0 for d in by_dim):
+        raise ValueError(f"placements {placements!r} shard a negative dim")
+    spec = [None] * (max(by_dim) + 1 if by_dim else 0)
+    for d, axes in by_dim.items():
+        spec[d] = axes[0] if len(axes) == 1 else tuple(axes)
+    return tuple(spec)
 
 
 def shard_params(params, mesh, rules: Optional[ShardingRules] = None,

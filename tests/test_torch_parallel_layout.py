@@ -214,6 +214,29 @@ def test_spec_to_placements_refuses_out_of_order_axes():
         psharding.spec_to_placements((("fsdp", "dp"),), pm)
 
 
+@pytest.mark.parametrize("spec", [("x", "y"), (None, "y"), ("x",),
+                                  (("x", "y"),), ()])
+def test_placements_to_spec_inverts_spec_to_placements(spec):
+    """Every spec of JAX's device-object tests, on its 2x4 ("x", "y")
+    mesh: spec -> placements -> the same spec."""
+    pm = pmesh.MeshSpec((("x", 2), ("y", 4)))
+    placements = psharding.spec_to_placements(spec, pm)
+    assert psharding.placements_to_spec(placements, pm) == spec
+    # trailing Nones are dropped: JAX's spec keeps what its caller wrote
+    assert psharding.placements_to_spec(
+        psharding.spec_to_placements(spec + (None,), pm), pm) == spec
+
+
+def test_placements_to_spec_refuses_partial():
+    from torch.distributed.tensor import Partial
+
+    pm = pmesh.MeshSpec((("x", 2), ("y", 4)))
+    with pytest.raises(ValueError, match="redistribute"):
+        psharding.placements_to_spec((Partial(), Shard(0)), pm)
+    with pytest.raises(ValueError, match="2 dims"):
+        psharding.placements_to_spec((Shard(0),), pm)
+
+
 @pytest.mark.parametrize("name", ["v4-8", "v4-32", "v5p-64", "v5e-16",
                                   "v5litepod-256", "v6e-8", "v6e-64",
                                   "v2-8", "v5e-4", " V5P-8 "])
