@@ -12,11 +12,13 @@ of its checks fails:
      (paged attention; flash attention K1-K3) for sm_90a into
      ``build/kernels/``, one nvcc each, started together; ptxas lines;
      ``cuobjdump -sass`` counts the HMMA (tensor-core) instructions of each
-     kernel, and the run fails if the bf16 K1, K2 or K3 at D=64 or 128, or
-     the bf16 split kernel of K4 at any of its head widths, has none.
+     kernel, and the run fails if the bf16 K1, K2 or K3 or the float32 K1
+     at D=64 or 128, or K4's split kernel for bf16 or float32 q over a bf16
+     pool at any of its head widths, has none, or if the float32 K1 spills.
   3. kernel: the paged-attention kernel (split over pages, then merged;
-     the split kernel on the tensor cores in bf16, float32 FMA in float32
-     and for a pool of the other dtype than q's) against
+     the split kernel on the tensor cores over a bf16 pool, under bf16 q
+     or float32 q split into three bf16 parts, and float32 FMA over a
+     float32 pool) against
      ``paged_attention_reference`` on the card, at llama3_8b shapes
      (H=32, Hkv=8, D=128, 16-token pages), for the (q, pool) dtype pairs
      bf16/bf16, float32/float32, float32/bf16 and bf16/float32 (a float16
@@ -32,7 +34,8 @@ of its checks fails:
      the kernel, of its plain version (over 5 calls), of
      scaled_dot_product_attention over a pre-gathered contiguous view (a
      yardstick only: the port never calls it) and the bound (live-page bytes over the memory rate, or the
-     operations over the peak rate, whichever is larger).
+     operations over the peak rate, whichever is larger); the split
+     kernel each pair and case ran (tensor cores or FMA).
   4. flash: the flash-attention forward (K1), dQ (K2) and dK/dV (K3)
      kernels against their plain versions on the card, bf16 and float32, at
      gpt2_small (B16 S1024 H12 D64), gpt_1b (B4 S1024 H16/8 D128), a
@@ -41,8 +44,13 @@ of its checks fails:
      dK and a dV 2% off refused, two runs of K2 and of K3 bitwise equal;
      times of each kernel, its plain version, the library yardstick (SDPA
      forward for K1; the autograd backward of that same call for K2 and K3
-     together) and the bound. In bf16, K1, K2 and K3 run on the tensor
-     cores (mma.sync); every float32 kernel runs float32 FMA.
+     together) and the bound. At D=64 and 128, K1, K2 and K3 in bf16 and K1
+     in float32 run on the tensor cores (mma.sync; the float32 K1 as six
+     bf16 products of its operands' split parts, held to the float32
+     gate); the float32 K2 and K3 run float32 FMA; each case prints the
+     route of each kernel. Then K1-K3 in float32 at train parity's shape
+     (B2 S48 H4/2 D16, FMA) against their plain versions, timed for the
+     kernels line's float32 K1-K3 entries.
   5. serve: ``LLMServerImpl(preset="llama3_8b")`` at full width and depth
      (32 layers), random bf16 weights from a seeded torch.Generator,
      answers 12 streamed requests that share a prefix (8 slots, one request
@@ -70,8 +78,9 @@ of its checks fails:
      text (at least one request retires on
      "eos", at most 96 pages in use), (d) ``scheduler="batch"``, (e) a
      float32 KV cache under the bf16 model (K4's bf16 q / float32 pool
-     pair), (f) the same weights in float32 over a bf16 KV cache (K4's
-     float32 q / bf16 pool pair); the 12 requests each: tokens/s, TTFT,
+     pair, FMA), (f) the same weights in float32 over a bf16 KV cache
+     (K4's float32 q / bf16 pool pair, on the tensor cores; each route
+     checked); the 12 requests each: tokens/s, TTFT,
      decode-step ms, K4 launches exact per dtype pair (0 off the
      in-place lane), temperature-0 texts equal to serve-8's (counted, not
      gated). The kernels line's launches of the two mixed
@@ -102,7 +111,7 @@ of its checks fails:
      layernorm, tied) and moe_debug in float32, five steps on the card
      against five on the CPU from the same weights on the same batches:
      losses, grad norms and moe_debug's routing losses within the stated
-     tolerance.
+     tolerance; the card runs' K1-K3 launches (float32, D=16) counted.
  11. runtime (run after serve-lanes, before parity): the port's runtime
      (``ray_tpu_torch.init``, a controller, a supervisor and worker
      processes): ``rt.init()`` counts one GPU; 200 no-op actor calls
@@ -479,7 +488,8 @@ of its checks fails:
      owner's get DTensors with the same placements, their local tensors
      bit-equal and on ``cuda:0``; a ``num_gpus=1`` consumer actor gets
      every leaf whole on its card, each bit-equal to the seed's, and runs
-     the forward loss at B2 x S1024 through K1's float32 kernel: the loss
+     the forward loss at B2 x S1024 through K1's float32 kernel (on the
+     tensor cores, split-bf16): the loss
      bit-equal to the same forward here on the unsharded tree, K1 exactly
      12 in the consumer. (b) A gloo world of 4 CPU runtime actors holds
      the tree on a 2x2 ``("fsdp", "tp")`` mesh sharded by the port's
@@ -526,15 +536,23 @@ ROOT = Path(__file__).resolve().parent
 # one H100 SXM (NVIDIA's data sheet, dense, at its 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # f32 off tensor cores
+# float32 on the tensor cores as split-bf16 products: the float32 K1 takes
+# six bf16 products for each float32 one (both operands in three parts),
+# K4's float32 q over a bf16 pool three (q and P in three parts, the pool
+# exact); their operations bound is those products over the bf16 peak
+PEAK_FLOPS.update({"float32_bf16x6": PEAK_FLOPS["bfloat16"] / 6,
+                   "float32_bf16x3": PEAK_FLOPS["bfloat16"] / 3})
 
 SOURCES = ("paged_attention", "flash_attention")
 # the kernel instantiations that must run on the tensor cores
+SPLIT_BF16_K1 = tuple(f"flash_fwd_f32_mma_kernel<f32, {d}>" for d in (64, 128))
 TENSOR_CORE_KERNELS = (
     tuple(f"{name}_mma_kernel<bf16, {d}>"
           for name in ("flash_fwd", "flash_dq", "flash_dkv")
           for d in (64, 128))
-    + tuple(f"paged_attention_split_mma_kernel<bf16, {d}>"
-            for d in (32, 64, 128, 256)))
+    + SPLIT_BF16_K1
+    + tuple(f"paged_attention_split_mma_kernel<{t}, {d}>"
+            for t in ("bf16", "f32") for d in (32, 64, 128, 256)))
 ARENA_LEN = 2048          # serve arena per slot: 128 pages of 16 tokens
 SERVE_NEW_TOKENS = 32
 SPEC_K = 4                # draft tokens per speculative round
@@ -548,7 +566,8 @@ VERIFY_LENGTHS = [0, 16, 37, 100, 255, 640, 1024, ARENA_LEN - SPEC_K - 1]
 TOL = {"float32": (1e-5, 1e-5),       # atol, rtol: sum order differs
        "bfloat16": (1e-5, 2.0 ** -7)}  # at most one bf16 rounding step
 # K4's (q dtype, pool dtype) pairs: one pool dtype as q's, and a pool of
-# the other dtype (``cache_dtype``), which the FMA split kernel widens
+# the other dtype (``cache_dtype``): float32 q over bf16 on the tensor
+# cores (q in three bf16 parts), bf16 q over float32 on the FMA kernel
 K4_PAIRS = {"bfloat16": ("bfloat16", "bfloat16"),
             "float32": ("float32", "float32"),
             "float32_q_bfloat16_pool": ("float32", "bfloat16"),
@@ -569,18 +588,30 @@ def kernel_label(mangled: str) -> str:
     """``flash_dkv_kernel<bf16, 128>`` from a mangled kernel name; the
     number is the head dim (the largest the kernel takes, for the paged
     split kernels), or the head-dim elements per lane of the paged merge
-    kernel. The paged FMA split kernel names q's element type, then the
-    pool's (``paged_attention_split_kernel<f32, bf16, 128>``). The
-    tensor-core kernels (``*_mma_kernel<D>``) take bf16 only."""
+    kernel. The paged split kernels name q's element type, then the
+    pool's where it is a template argument
+    (``paged_attention_split_kernel<f32, bf16, 128>``,
+    ``paged_attention_split_mma_kernel<f32, 128>``). The flash tensor-core
+    kernels (``*_mma_kernel<D>``) take bf16, but ``flash_fwd_f32_mma_kernel``
+    float32."""
     import re
 
-    m = re.search(r"\d+([a-z_]+_kernel)I((?:13__nv_bfloat16|f)*)Li(\d+)E",
-                  mangled)
-    if not m:
-        return mangled.split()[-1][:60]
-    types = [{"f": "f32"}.get(t, "bf16")
-             for t in re.findall(r"13__nv_bfloat16|f", m[2])] or ["bf16"]
-    return f"{m[1]}<{', '.join(types)}, {m[3]}>"
+    for m in re.finditer(r"_kernelI((?:13__nv_bfloat16|f)*)Li(\d+)E",
+                         mangled):
+        end = m.start() + len("_kernel")
+        # the name's first letter follows its length, in decimal (the
+        # digits before it may end a namespace's name, so a suffix of them)
+        for start in range(m.start(), 0, -1):
+            digits = re.search(r"\d+$", mangled[:start])
+            if mangled[start].isalpha() and digits and any(
+                    int(digits[0][i:]) == end - start
+                    for i in range(len(digits[0]))):
+                name = mangled[start:end]
+                types = ([{"f": "f32"}.get(t, "bf16")
+                          for t in re.findall(r"13__nv_bfloat16|f", m[1])]
+                         or (["f32"] if "_f32_" in name else ["bf16"]))
+                return f"{name}<{', '.join(types)}, {m[2]}>"
+    return mangled.split()[-1][:60]
 
 
 def ptxas_lines(log: str) -> list:
@@ -639,6 +670,15 @@ def build_phase() -> dict:
             raise AssertionError(f"{key}: no HMMA instruction in the built "
                                  "library: the kernel is off the tensor "
                                  "cores")
+    # the float32 K1 holds three planes of fragments: nothing may spill
+    for key in SPLIT_BF16_K1:
+        line = next((ln for ln in out["flash_attention"]["ptxas"]
+                     if ln.startswith(f"{key}:")), None)
+        if _build.build_log.get("flash_attention") is not None and (
+                line is None or "0 bytes spill stores" not in line
+                or "0 bytes spill loads" not in line):
+            raise AssertionError(f"{key} spills or was not reported by "
+                                 f"ptxas: {line!r}")
     return out
 
 
@@ -815,9 +855,6 @@ def kernel_phase(torch) -> dict:
     for dtype_name, (q_name, pool_name) in K4_PAIRS.items():
         dtype, pool_dtype = getattr(torch, q_name), getattr(torch, pool_name)
         atol, rtol = TOL[q_name]  # the output is in q's dtype
-        # the tensor cores compute the bf16 pair, float32 FMA the others
-        compute = "bfloat16" if pool_name == q_name == "bfloat16" \
-            else "float32"
         for shape_name, shp in shapes.items():
             case = make_case(torch, dtype, **shp, pool_dtype=pool_dtype)
             n0 = paged_attention.launches
@@ -852,6 +889,11 @@ def kernel_phase(torch) -> dict:
                   "calls bitwise equal; no host sync in the call",
                   flush=True)
             plan = _plan_line(case)
+            # the peak of the route: the tensor cores in bf16 (float32 q as
+            # three bf16 products), float32 FMA otherwise
+            compute = (("bfloat16" if q_name == "bfloat16"
+                        else "float32_bf16x3") if plan["tensor_cores"]
+                       else "float32")
             sdpa = sdpa_call(torch, case)
             sdpa_err = float((sdpa().transpose(1, 2).float()
                               - ref.float()).abs().max())
@@ -864,11 +906,14 @@ def kernel_phase(torch) -> dict:
             r = dict(max_abs_err=max_err, atol=atol, rtol=rtol, ms=ms,
                      plain_ms=plain_ms, library_ms=library_ms,
                      bound_ms=bound_ms, bound_by=bound_by,
-                     sdpa_max_abs_err=sdpa_err, plan=plan)
+                     bound_peak=compute, sdpa_max_abs_err=sdpa_err,
+                     plan=plan)
+            if compute == "float32_bf16x3":
+                r["fma_bound_ms"] = bound(case, "float32")[0]
             results[f"{shape_name}_{dtype_name}"] = r
             print(f"  times: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                   f"sdpa {library_ms:.4f} ms, bound {bound_ms:.5f} ms "
-                  f"({bound_by})", flush=True)
+                  f"({bound_by}, peak {compute})", flush=True)
         # row i of a 32-token window == a 1-token call at length + i
         for shp in windows:
             _window_rows_check(torch, paged_attention,
@@ -917,9 +962,11 @@ FLASH_CASES = {
 #    of the plain one in relative L2 norm, which a bias of 2% (2e-2) breaks
 #    tenfold; PERF.md has the measured shares.
 #  * O, dQ, dK and dV in float32: the float32 gate, 1e-5 x RMS and 1e-5.
-#    In O only the order of the sums differs; the float32 K2 and K3 run the
-#    same sequential float32 FMA chains as their plain versions and agree
-#    with them bit for bit.
+#    In O only the order of the sums differs (at D=64 and 128 the float32
+#    K1 runs six bf16 products of split parts on the tensor cores, whose
+#    sums round toward zero); the float32 K2 and K3 run the same
+#    sequential float32 FMA chains as their plain versions and agree with
+#    them bit for bit.
 # Each run also checks that the gates refuse an O 2% off on the rows past
 # the first key tile, and a dQ, a dK and a dV 2% off.
 # lse is float32 on both sides, from the same scores: an absolute tolerance.
@@ -948,7 +995,14 @@ def flash_bounds(case, dtype_name, item):
     """(ms, "bytes" | "operations") for K1, K2, K3: every input read once,
     every output written once, against the memory rate; 4 B H D flops per
     visible (query, key) pair for K1 (q.k and p.v), 1.5x that for K2 and 2x
-    for K3, against the peak rate for the inputs' type."""
+    for K3, against the peak rate of the kernel's route: the inputs' type,
+    or for the float32 K1 on the tensor cores six bf16 products a float32
+    one (``float32_bf16x6``), with its bound at the float32 FMA peak beside
+    it (``fwd_fma``)."""
+    import torch
+
+    from ray_tpu_torch.ops.flash_attention import kernel_route
+
     B, S, H, Hkv, D = (case[k] for k in ("B", "S", "H", "Hkv", "D"))
     pairs = S * (S + 1) // 2 if case["causal"] else S * S
     fwd_flops = 4 * B * H * D * pairs
@@ -956,13 +1010,28 @@ def flash_bounds(case, dtype_name, item):
     work = {"fwd": (fwd_flops, 2 * qb + 2 * kvb + rows),
             "dq": (1.5 * fwd_flops, 3 * qb + 2 * kvb + 2 * rows),
             "dkv": (2 * fwd_flops, 2 * qb + 4 * kvb + 2 * rows)}
+    peaks = {name: dtype_name for name in work}
+    if dtype_name == "float32" and kernel_route(
+            "flash_fwd", torch.float32, D) == "tensor cores":
+        peaks["fwd"] = "float32_bf16x6"
+        work["fwd_fma"] = work["fwd"]
+        peaks["fwd_fma"] = "float32"
     out = {}
     for name, (flops, nbytes) in work.items():
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+        t_ops = flops / PEAK_FLOPS[peaks[name]] * 1e3
         out[name] = ((t_bytes, "bytes") if t_bytes >= t_ops
                      else (t_ops, "operations"))
     return out
+
+
+def flash_routes(dtype, D) -> dict:
+    """The route (tensor cores or FMA) K1, K2 and K3 take in ``dtype`` at
+    head width ``D``."""
+    from ray_tpu_torch.ops.flash_attention import kernel_route
+
+    return {key: kernel_route(f"flash_{key}", dtype, D)
+            for key in ("fwd", "dq", "dkv")}
 
 
 def _flash_err(got, ref, atol_rms, rtol, l2=None):
@@ -1095,7 +1164,8 @@ def flash_kernel_phase(torch, cases=None, timed=True) -> dict:
                                            causal=causal)
             dk_ref, dv_ref = fa.flash_dkv_reference(q, k, v, do, lse, delta,
                                                     causal=causal)
-            r = {"lse_atol": LSE_ATOL}
+            r = {"lse_atol": LSE_ATOL,
+                 "routes": flash_routes(dtype, case["D"])}
             for key, got, ref in (("o", o, o_ref), ("dq", dq, dq_ref),
                                   ("dk", dk, dk_ref), ("dv", dv, dv_ref)):
                 if not torch.isfinite(got).all():
@@ -1153,7 +1223,9 @@ def flash_kernel_phase(torch, cases=None, timed=True) -> dict:
                   f"{r['dq_2pct_off_gate_used']:.1f}, dk "
                   f"{r['dk_2pct_off_gate_used']:.1f}, dv "
                   f"{r['dv_2pct_off_gate_used']:.1f}; K2 and K3 bitwise "
-                  "equal twice", flush=True)
+                  "equal twice; routes K1 " + r["routes"]["fwd"] + ", K2 "
+                  + r["routes"]["dq"] + ", K3 " + r["routes"]["dkv"],
+                  flush=True)
             if "dk_plain64_gate_used" in r:
                 print("  the plain version in float64 against float32: "
                       + ", ".join(
@@ -1168,7 +1240,53 @@ def flash_kernel_phase(torch, cases=None, timed=True) -> dict:
                                       (q, k, v, do, lse, delta)))
             results[f"{name}_{dtype_name}"] = r
             torch.cuda.empty_cache()
+    if cases is None:
+        results["train_parity_shape_float32"] = _flash_f32_small(torch)
     return results
+
+
+# the float32 K1-K3 of train parity's llama_debug and moe_debug (tokens
+# [2, 48], 4 heads over 2 kv heads of width 16): FMA
+TRAIN_PARITY_FLASH = dict(B=2, S=48, H=4, Hkv=2, D=16, causal=True)
+
+
+def _flash_f32_small(torch) -> dict:
+    """K1, K2 and K3 in float32 at ``TRAIN_PARITY_FLASH`` against their
+    plain versions under the float32 gate, with their times, their plain
+    versions', SDPA's forward and backward and their bounds."""
+    import torch.nn.functional as F
+
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    case = TRAIN_PARITY_FLASH
+    q, k, v, do = flash_inputs(torch, case, torch.float32)
+    o, lse = fa.flash_forward(q, k, v, causal=True)
+    delta = fa.delta_rows(do, o)
+    dq = fa.flash_dq(q, k, v, do, lse, delta, causal=True)
+    dk, dv = fa.flash_dkv(q, k, v, do, lse, delta, causal=True)
+    o_ref, lse_ref = fa.flash_forward_reference(q, k, v, causal=True)
+    dq_ref = fa.flash_dq_reference(q, k, v, do, lse, delta, causal=True)
+    dk_ref, dv_ref = fa.flash_dkv_reference(q, k, v, do, lse, delta,
+                                            causal=True)
+    r = {"routes": flash_routes(torch.float32, case["D"]),
+         "lse_max_abs_err": float((lse - lse_ref).abs().max())}
+    for key, got, ref in (("o", o, o_ref), ("dq", dq, dq_ref),
+                          ("dk", dk, dk_ref), ("dv", dv, dv_ref)):
+        err, _, used = _gate_err(got, ref, key, _gate(key, "float32"))
+        r[f"{key}_max_abs_err"], r[f"{key}_gate_used"] = err, used
+        if not (torch.isfinite(got).all() and used <= 1.0):
+            raise AssertionError(f"flash f32 at {case}: {key} uses "
+                                 f"{used:.3g} x the float32 gate")
+    if not r["lse_max_abs_err"] <= LSE_ATOL:
+        raise AssertionError(f"flash f32 at {case}: lse differs by "
+                             f"{r['lse_max_abs_err']:.3e}")
+    r.update(_flash_times(torch, F, fa, case, "float32",
+                          (q, k, v, do, lse, delta)))
+    print(f"flash f32 at train parity's shape {case}: routes {r['routes']}; "
+          f"max|err| o {r['o_max_abs_err']:.2e}, dq {r['dq_max_abs_err']:.2e}"
+          f", dk {r['dk_max_abs_err']:.2e}, dv {r['dv_max_abs_err']:.2e} "
+          "(float32 gate)", flush=True)
+    return r
 
 
 def _flash_times(torch, F, fa, case, dtype_name, inputs) -> dict:
@@ -1200,6 +1318,8 @@ def _flash_times(torch, F, fa, case, dtype_name, inputs) -> dict:
         r[f"{name}_ms"] = time_ms(torch, kernel)
         r[f"{name}_plain_ms"] = time_ms(torch, plain, iters=5, warmup=1)
         r[f"{name}_bound_ms"], r[f"{name}_bound_by"] = bounds[name]
+    if "fwd_fma" in bounds:  # the float32 K1 on the tensor cores
+        r["fwd_fma_bound_ms"] = bounds["fwd_fma"][0]
     r["fwd_library_ms"] = sdpa_fwd
     r["dq_library_ms"] = r["dkv_library_ms"] = sdpa_bwd  # one call, the pair
     print(f"  times: K1 {r['fwd_ms']:.3f} ms (plain {r['fwd_plain_ms']:.3f}, "
@@ -1468,21 +1588,25 @@ def train_parity_phase(torch) -> dict:
             ms = [step(state, b)[1] for b in batches]
             runs[dev] = tuple([float(m[k]) for m in ms] for k in (
                 "loss", "grad_norm", "moe_aux") if k in ms[0])
-            if dev == "cuda" and fa.flash_dkv.launches == 0:
-                raise AssertionError("the card run did not use the kernels")
+            if dev == "cuda":
+                launches = {f.__name__: f.launches for f in fa.KERNELS}
+                if launches["flash_dkv"] == 0:
+                    raise AssertionError("the card run did not use the "
+                                         "kernels")
         if not all(math.isfinite(x) for x in sum(runs["cuda"], [])):
             raise AssertionError(f"{name}: non-finite metrics {runs}")
         rel = max(abs(a - b) / abs(b) for x, y in zip(runs["cuda"],
                                                       runs["cpu"])
                   for a, b in zip(x, y))
         out[name] = dict(card=runs["cuda"], cpu=runs["cpu"], max_rel=rel,
-                         rtol=TRAIN_PARITY_RTOL)
+                         rtol=TRAIN_PARITY_RTOL, launches=launches)
         what = ("losses, grad norms and routing losses"
                 if len(runs["cpu"]) > 2 else "losses and grad norms")
         print(f"train parity {name}: float32, {TRAIN_STEPS} steps, {what} "
               f"card vs CPU within {rel:.2e} (rtol "
               f"{TRAIN_PARITY_RTOL:g}); losses "
-              f"{[round(x, 5) for x in runs['cuda'][0]]}", flush=True)
+              f"{[round(x, 5) for x in runs['cuda'][0]]}; K1-K3 launches "
+              f"on the card {launches}", flush=True)
         if not rel <= TRAIN_PARITY_RTOL:
             raise AssertionError(f"{name}: card and CPU training differ: "
                                  f"{runs}")
@@ -1887,7 +2011,7 @@ def serve_lanes_phase(torch, plain) -> dict:
     roundings."""
     from ray_tpu_torch import presets
     from ray_tpu_torch.models.transformer import init_params
-    from ray_tpu_torch.ops.paged_attention import paged_attention
+    from ray_tpu_torch.ops.paged_attention import paged_attention, split_plan
 
     cfg = presets.llama3_8b(**CUT_OVERRIDES)
     t0 = time.perf_counter()
@@ -1910,6 +2034,18 @@ def serve_lanes_phase(torch, plain) -> dict:
     pairs = {"c_kv_pages": "bfloat16/bfloat16",
              "e_cache_f32": "bfloat16/float32",
              "f_f32_cache_bf16": "float32/bfloat16"}
+    # the split kernel each pair takes at llama3_8b's decode shape: the
+    # tensor cores over a bf16 pool (float32 q as three bf16 parts), FMA
+    # over a float32 one
+    routes = {}
+    for name, pair in pairs.items():
+        qb, pb = (2 if d == "bfloat16" else 4 for d in pair.split("/"))
+        routes[name] = ("tensor cores" if split_plan(
+            8, 1, cfg.num_heads, cfg.kv_heads, cfg.head_dim, 16,
+            ARENA_LEN // 16, pb, qb).tensor_cores else "FMA")
+    if (routes["f_f32_cache_bf16"], routes["e_cache_f32"]) != (
+            "tensor cores", "FMA"):
+        raise AssertionError(f"serve-lanes: K4's routes {routes}")
     out = {"eos_id": eos}
     for name, kw in configs.items():
         batch = kw.get("scheduler") == "batch"
@@ -1963,6 +2099,9 @@ def serve_lanes_phase(torch, plain) -> dict:
             raise AssertionError(f"serve-lanes {name}: K4 launches "
                                  f"{pair_launches} ({launches} in all), "
                                  f"expected {want}")
+        if name in routes:
+            r["k4_route"] = routes[name]
+            line += f"; K4's split kernel on the {routes[name]}"
         print(f"serve-lanes {name}: {r['requests']} requests, {tokens} "
               f"tokens in {wall:.2f} s = {r['tokens_per_s']:.1f} tokens/s; "
               f"TTFT mean {r['ttft_mean_s']:.3f} s, max "
@@ -7277,8 +7416,11 @@ def _k1_at_consumer_shape(torch) -> dict:
         raise AssertionError(f"sharded: K1 f32 at {case} uses {used:.3g} x "
                              f"its tolerance (max |err| {err:.3e})")
     qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    bound_ms, bound_by = flash_bounds(case, "float32", 4)["fwd"]
+    bounds = flash_bounds(case, "float32", 4)
+    bound_ms, bound_by = bounds["fwd"]
     return {"max_abs_err": err, "rel_l2": rel_l2, "gate_used": used,
+            "route": flash_routes(torch.float32, case["D"])["fwd"],
+            "fma_bound_ms": bounds.get("fwd_fma", bounds["fwd"])[0],
             "ms": time_ms(torch, lambda: fa.flash_forward(q, k, v,
                                                           causal=True)),
             "plain_ms": time_ms(torch, lambda: fa.flash_forward_reference(
@@ -7432,9 +7574,11 @@ def sharded_phase(torch, card) -> dict:
     r["k1"] = k1 = _k1_at_consumer_shape(torch)
     print(f"sharded K1: float32 at B{SHARDED_B} S{SHARDED_S} H12 D64 "
           f"causal, max |err| {k1['max_abs_err']:.3e} ({k1['gate_used']:.3g}"
-          f" of the float32 gate), {k1['ms']:.4f} ms (plain "
-          f"{k1['plain_ms']:.4f}, sdpa {k1['library_ms']:.4f}, bound "
-          f"{k1['bound_ms']:.4f} {k1['bound_by']}); {card}", flush=True)
+          f" of the float32 gate), {k1['ms']:.4f} ms on the "
+          f"{k1['route']} (plain {k1['plain_ms']:.4f}, sdpa "
+          f"{k1['library_ms']:.4f}, bound {k1['bound_ms']:.4f} "
+          f"{k1['bound_by']}, at the FMA peak {k1['fma_bound_ms']:.4f}); "
+          f"{card}", flush=True)
     return r
 
 
@@ -7699,6 +7843,27 @@ def main() -> int:
                         for x in ("a", "b")),
         **{k: k1[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                               "bound_by", "library_ms")}})
+    # the float32 K1, K2 and K3 (FMA at D=16) that train parity's card runs
+    # launch, timed at that shape; SDPA's backward is K2's and K3's
+    # yardstick together
+    small = flash["train_parity_shape_float32"]
+    for key, line, err in (
+            ("fwd", 103, small["o_max_abs_err"]),
+            ("dq", 203, small["dq_max_abs_err"]),
+            ("dkv", 239, max(small["dk_max_abs_err"],
+                             small["dv_max_abs_err"]))):
+        wrapper = {"fwd": "flash_forward", "dq": "flash_dq",
+                   "dkv": "flash_dkv"}[key]
+        kernels["kernels"].append({
+            "name": f"flash_attention_{key}_f32_train_parity",
+            "route": "cuda",
+            "source": "ray_tpu_torch/csrc/flash_attention.cu",
+            "replaces": f"ray_tpu/ops/flash_attention.py:{line}",
+            "launches": sum(x["launches"][wrapper]
+                            for x in train_parity.values()),
+            "max_abs_err": err,
+            **{k: small[f"{key}_{k}"] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}})
     detail = {"card": card, "preflight": preflight, "build": build,
               "kernel": kern, "flash": flash, "serve": serve,
               "serve_cut": serve_cut, "spec_serve": spec_serve,

@@ -11,7 +11,7 @@
 // lse and delta are [B, H, Sq] float32. Query head h reads kv head
 // h / (H / Hkv); no kv head is repeated in memory.
 //
-// Two designs share this file.
+// Three designs share this file.
 //
 // bf16 K1, K2 and K3 at D = 64 and 128 (the train path): tensor cores.
 //   What bounds them: at gpt2_small shapes the card's least time for K1 is
@@ -51,9 +51,42 @@
 //   neighbouring bf16 value; K2 and K3 stay deterministic (no atomics, a
 //   fixed loop order).
 //
-// float32 everywhere, and bf16 at D = 16 (which nothing on the card runs):
-// float32 FMA. Tensor cores would mean TF32 for float32 and break its
-// semantics. What bounds them: operations. At training shapes a block does
+// float32 K1 at D = 64 and 128: flash_fwd_f32_mma_kernel, on the tensor
+//   cores with split-bf16 products.
+//   What bounds it: operations. It does about 2 * 64 * D flops for every
+//   key row it reads, so on float32 FMA (67 TFLOP/s) no design passes its
+//   operations bound, which the FMA kernel below came within 4.1x of. A
+//   float32 value is exactly the sum of three bf16 parts (hi = bf16(x),
+//   mid = bf16(x - hi), lo = bf16(x - hi - mid): 3 x 8 significand bits
+//   cover float32's 24), and a bf16 x bf16 product is exact in the float32
+//   sums of mma.sync. So a float32 product is the six bf16 products of the
+//   parts above 2^-24 (lo.hi, mid.mid, hi.lo, mid.hi, hi.mid, hi.hi):
+//   float32's product precision, in the tensor-core time of 3xTF32, with
+//   only the order of the sums changed. The design is the bf16 K1's (4
+//   warps of 16 query rows, the row max and sum in the accumulator quads,
+//   future tiles skipped, the same masking rule), with:
+//   * K and V tiles staged as float32 by cp.async, then split once per
+//     tile into three bf16 planes in shared memory, which every warp reads
+//     with ldmatrix (.trans for V in P.V) as the bf16 K1 reads its tiles;
+//     tile j + 1 lands in the staging while tile j is multiplied;
+//   * Q read from device memory and split into planes once per block; at
+//     D = 64 its fragments stay in registers (3 planes x 16 registers); at
+//     D = 128 they are read from its planes at each key tile, as bf16 K2
+//     reads Q, and key tiles are 32 rows, so S, P's parts and O fit in 255
+//     registers without a spill;
+//   * P stays float32 (v's dtype) and goes to P.V as three bf16 parts in
+//     registers, straight from the score fragments;
+//   * mma.sync rounds each float32 sum it returns toward zero, the same
+//     way every time, so a sum that takes many of them at full size drifts
+//     (24 a score and hundreds an output element missed the float32 gate
+//     on the card). S takes the five small products over every k-step
+//     first and hi.hi last; each tile's P.V is summed from zero the same
+//     way and added to O by one float32 FMA, rounded to nearest;
+//   * O and lse are written in float32 straight from the accumulators.
+//
+// float32 at other head widths (D = 16: the train-parity models), float32
+// K2 and K3, and bf16 at D = 16 (which nothing on the card runs): float32
+// FMA. What bounds them: operations. At training shapes a block does
 // about 2 * 64 * D flops for every key row it reads, far above the ~20
 // flops per byte where float32 arithmetic off the tensor cores stops being
 // memory-bound. So the design keeps every tile it multiplies in shared
@@ -82,8 +115,8 @@
 //   * K3 owns one key tile of one kv head and loops over the group's query
 //     heads and the query tiles: dK and dV sum in registers and are written
 //     once, with no atomics, so two runs give the same bits.
-//   * the tensor-core kernels above replace it for bf16 K1, K2 and K3 at
-//     D = 64 and 128; wgmma and TMA are left for later work.
+//   * the tensor-core kernels above replace it for bf16 K1, K2 and K3 and
+//     float32 K1 at D = 64 and 128; wgmma and TMA are left for later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -1137,6 +1170,393 @@ flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   store_rows<D>(dv, vst, b, kvh, key_lo, Sk, Hkv, lane);
 }
 
+// ------------------------------- tensor cores: float32 K1, split-bf16
+
+constexpr int kPadF = 4;  // floats of padding per float32 staging row
+
+// x = (a, b) as three bf16 parts, each pair packed lo-element first:
+// hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid). Each
+// subtraction is exact in float32, and hi + mid + lo == x exactly.
+__device__ __forceinline__ void split3(float a, float b, uint32_t& hi,
+                                       uint32_t& mid, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(h);
+  const float ra = a - hf.x;
+  const float rb = b - hf.y;
+  const __nv_bfloat162 m = __floats2bfloat162_rn(ra, rb);
+  const float2 mf = __bfloat1622float2(m);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(ra - mf.x, rb - mf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  mid = *reinterpret_cast<const uint32_t*>(&m);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// 4 consecutive floats as their hi, mid and lo parts at dst, dst + plane
+// and dst + 2 plane (8 bytes each)
+__device__ __forceinline__ void store_split4(bf16* dst, int plane, float4 x) {
+  uint32_t h0, m0, l0, h1, m1, l1;
+  split3(x.x, x.y, h0, m0, l0);
+  split3(x.z, x.w, h1, m1, l1);
+  *reinterpret_cast<uint2*>(dst) = make_uint2(h0, h1);
+  *reinterpret_cast<uint2*>(dst + plane) = make_uint2(m0, m1);
+  *reinterpret_cast<uint2*>(dst + 2 * plane) = make_uint2(l0, l1);
+}
+
+// Accumulator fragments c[2i], c[2i + 1] (16 rows x 16 columns) as the A
+// fragments of a product over those 16 columns, one per bf16 part
+// (a[0] hi, a[1] mid, a[2] lo): to_a_frag without the rounding.
+__device__ __forceinline__ void to_a_frags3(uint32_t (&a)[3][4],
+                                           const float (&lo)[4],
+                                           const float (&hi)[4]) {
+  split3(lo[0], lo[1], a[0][0], a[1][0], a[2][0]);
+  split3(lo[2], lo[3], a[0][1], a[1][1], a[2][1]);
+  split3(hi[0], hi[1], a[0][2], a[1][2], a[2][2]);
+  split3(hi[2], hi[3], a[0][3], a[1][3], a[2][3]);
+}
+
+// c += a . b for float32 a and b given as their bf16 parts (index 0 hi,
+// 1 mid, 2 lo; b0, b1 the two B registers of each part), all but hi . hi:
+// the five products of parts between 2^-24 and 2^-8 of the float32
+// product, the smallest first. A product's sum then takes hi . hi last
+// (mma(c, a[0], b0[0], b1[0])), once every small part is in it.
+__device__ __forceinline__ void mma5(float (&c)[4], const uint32_t (&a)[3][4],
+                                     const uint32_t (&b0)[3],
+                                     const uint32_t (&b1)[3]) {
+  mma(c, a[2], b0[0], b1[0]);  // lo . hi
+  mma(c, a[1], b0[1], b1[1]);  // mid . mid
+  mma(c, a[0], b0[2], b1[2]);  // hi . lo
+  mma(c, a[1], b0[0], b1[0]);  // mid . hi
+  mma(c, a[0], b0[1], b1[1]);  // hi . mid
+}
+
+// Rows [r0, r0 + ROWS) of head `head` of a [B, S, NH, D] float32 tensor
+// into a [ROWS][D + kPadF] shared tile by cp.async; rows at or past S are
+// zeros.
+template <int D, int ROWS>
+__device__ __forceinline__ void cp_tile_f32(float* dst,
+                                            const float* __restrict__ src,
+                                            int b, int head, int r0, int S,
+                                            int NH) {
+  constexpr int kChunks = D / 4;  // 16-byte chunks per row
+  constexpr int ld = D + kPadF;
+  static_assert(ROWS * kChunks % kMmaThreads == 0, "tile / threads");
+#pragma unroll
+  for (int i = 0; i < ROWS * kChunks / kMmaThreads; ++i) {
+    const int e = threadIdx.x + i * kMmaThreads;
+    const int r = e / kChunks;
+    const int c = (e % kChunks) * 4;
+    const int row = r0 + r;
+    const bool in = row < S;
+    const float* p =
+        src + ((static_cast<size_t>(b) * S + (in ? row : 0)) * NH + head) * D
+        + c;
+    cp_async16(smem_addr(dst + r * ld + c), p, in);
+  }
+}
+
+// A staged [ROWS][D + kPadF] float32 tile as three [ROWS][D + kPadH] bf16
+// planes (hi, mid, lo), ROWS * (D + kPadH) elements apart
+template <int D, int ROWS>
+__device__ __forceinline__ void split_tile(bf16* planes, const float* tile) {
+  constexpr int kChunks = D / 4;
+  constexpr int ldf = D + kPadF;
+  constexpr int ld = D + kPadH;
+#pragma unroll 4
+  for (int e = threadIdx.x; e < ROWS * kChunks; e += kMmaThreads) {
+    const int r = e / kChunks;
+    const int c = (e % kChunks) * 4;
+    store_split4(planes + r * ld + c, ROWS * ld,
+                 *reinterpret_cast<const float4*>(tile + r * ldf + c));
+  }
+}
+
+// Rows [r0, r0 + 64) of head `head` of a [B, S, NH, D] float32 tensor, read
+// from device memory, as three [64][D + kPadH] bf16 planes; zeros past S.
+template <int D>
+__device__ __forceinline__ void split_rows(bf16* planes,
+                                           const float* __restrict__ src,
+                                           int b, int head, int r0, int S,
+                                           int NH) {
+  constexpr int kChunks = D / 4;
+  constexpr int ld = D + kPadH;
+#pragma unroll 4
+  for (int e = threadIdx.x; e < kTile * kChunks; e += kMmaThreads) {
+    const int r = e / kChunks;
+    const int c = (e % kChunks) * 4;
+    const int row = r0 + r;
+    const float4 x =
+        row < S ? *reinterpret_cast<const float4*>(
+                      src + ((static_cast<size_t>(b) * S + row) * NH + head) *
+                                D + c)
+                : make_float4(0.f, 0.f, 0.f, 0.f);
+    store_split4(planes + r * ld + c, kTile * ld, x);
+  }
+}
+
+// float32 K1 keeps Q's fragments (3 planes x D / 4 registers) in registers
+// at D = 64; at D = 128 it reads them from Q's planes at each key tile, and
+// takes key tiles of 32 rows, so S, P's parts and O (64 registers) fit
+__host__ __device__ constexpr bool f32_q_in_registers(int D) {
+  return D <= 64;
+}
+__host__ __device__ constexpr int f32_key_tile(int D) {
+  return D <= 64 ? 64 : 32;
+}
+
+// K1 in float32 on tensor cores. The bf16 K1's warps, in grid (H, B, query
+// tiles): the last query tiles of every head and batch, which walk the
+// most keys under a causal mask, start first, so a small batch ends no
+// later than its longest tile (the bf16 K1's grid order starts them head
+// by head); warp w owns query rows q0 + 16 w + [0, 16), a lane rows g and
+// g + 8 of its warp's slice. Per key
+// tile: the float32 K and V tiles land in the staging by cp.async and are
+// split into bf16 planes, then S = Q.K^T and the tile's P.V run as six
+// bf16 products over the planes, P's parts straight from the score
+// fragments. Each mma.sync rounds its float32 sum toward zero, about half
+// an ulp of that sum each time, always the same way; so a sum takes few of
+// them at its full size: S takes the five small products over every
+// k-step first and hi . hi last (D / 16 roundings at full size, as few as
+// the bf16 K1's), and each tile's P.V is summed from zero in the same
+// order, then added to O with one float32 FMA (O = O alpha + P.V, rounded
+// to nearest), in chunks of 64 columns so the tile's sum fits beside O.
+// At D = 128 the key tiles are 32 rows (f32_key_tile).
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_fwd_f32_mma_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v, float* __restrict__ o,
+                         float* __restrict__ lse, int Sq, int Sk, int H,
+                         int Hkv, float sm_scale, int causal) {
+  constexpr int ld = D + kPadH;
+  constexpr int ldf = D + kPadF;
+  constexpr int KD = D / 16;      // k-steps over D
+  constexpr int DN = D / 8;       // n-tiles over D
+  constexpr int KT = f32_key_tile(D);  // key rows per tile
+  constexpr int KN = KT / 8;      // n-tiles over a key tile
+  constexpr int CN = D <= 64 ? DN : 8;  // n-tiles of O a tile's P.V sums
+  constexpr int kPlane = KT * ld;           // bf16 elements of a K, V plane
+  constexpr uint32_t kPlaneBytes = kPlane * sizeof(bf16);
+  constexpr uint32_t kQPlaneBytes = kTile * ld * sizeof(bf16);
+  constexpr bool kQRegs = f32_q_in_registers(D);
+  static_assert(!kQRegs || KT == kTile, "Q's planes fit in K's");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* kst = reinterpret_cast<float*>(smem_raw);         // [KT][ldf]
+  float* vst = kst + KT * ldf;                              // [KT][ldf]
+  bf16* kp = reinterpret_cast<bf16*>(vst + KT * ldf);       // [3][KT][ld]
+  bf16* vp = kp + 3 * kPlane;                               // [3][KT][ld]
+  // Q's planes: in K's until the key loop when Q stays in registers
+  bf16* qp = kQRegs ? kp : vp + 3 * kPlane;                 // [3][64][ld]
+
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kTile;
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int kvh = h / (H / Hkv);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int row_lo = q0 + 16 * warp + g;  // and row_lo + 8
+  const int k_end = causal ? min(Sk, q0 + kTile) : Sk;
+  const int n_tiles = (k_end + KT - 1) / KT;
+
+  cp_tile_f32<D, KT>(kst, k, b, kvh, 0, Sk, Hkv);
+  cp_tile_f32<D, KT>(vst, v, b, kvh, 0, Sk, Hkv);
+  cp_async_commit();
+  split_rows<D>(qp, q, b, h, q0, Sq, H);  // while tile 0 lands
+  __syncthreads();
+
+  const uint32_t qs_a = smem_addr(qp + 16 * warp * ld + a_off(lane, ld));
+  uint32_t qf[kQRegs ? KD : 1][3][4];
+  if constexpr (kQRegs) {
+#pragma unroll
+    for (int kd = 0; kd < KD; ++kd)
+#pragma unroll
+      for (int p = 0; p < 3; ++p)
+        ldsm_x4(qf[kd][p], qs_a + p * kQPlaneBytes + kd * 32);
+  }
+  float acc[DN][4];
+#pragma unroll
+  for (int n = 0; n < DN; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.f, 0.f};  // this lane's share of the row sums
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int k0 = j * KT;
+    cp_async_wait<0>();
+    // tile j is staged, and every warp is done with the planes of tile
+    // j - 1 (and, before the first tile, with Q's)
+    __syncthreads();
+    split_tile<D, KT>(kp, kst);
+    split_tile<D, KT>(vp, vst);
+    __syncthreads();  // the planes are whole, the staging is free
+    if (j + 1 < n_tiles) {  // tile j + 1 flies while tile j is multiplied
+      cp_tile_f32<D, KT>(kst, k, b, kvh, k0 + KT, Sk, Hkv);
+      cp_tile_f32<D, KT>(vst, v, b, kvh, k0 + KT, Sk, Hkv);
+      cp_async_commit();
+    }
+    const uint32_t ks_b = smem_addr(kp + b_off(lane, ld));
+    const uint32_t vs_a = smem_addr(vp + a_off(lane, ld));
+
+    // S = Q.K^T: the small products over every k-step, then hi . hi
+    float s[KN][4];
+#pragma unroll
+    for (int n = 0; n < KN; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+    for (int kd = 0; kd < KD; ++kd) {
+      uint32_t qa[3][4];
+#pragma unroll
+      for (int p = 0; p < 3; ++p) {
+        if constexpr (kQRegs) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) qa[p][e] = qf[kd][p][e];
+        } else {
+          ldsm_x4(qa[p], qs_a + p * kQPlaneBytes + kd * 32);
+        }
+      }
+#pragma unroll
+      for (int jj = 0; jj < KN / 2; ++jj) {
+        uint32_t kb[3][4];
+#pragma unroll
+        for (int p = 0; p < 3; ++p)
+          ldsm_x4(kb[p], ks_b + p * kPlaneBytes + (16 * jj * ld + 16 * kd) * 2);
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const uint32_t b0[3] = {kb[0][2 * hh], kb[1][2 * hh], kb[2][2 * hh]};
+          const uint32_t b1[3] = {kb[0][2 * hh + 1], kb[1][2 * hh + 1],
+                                  kb[2][2 * hh + 1]};
+          mma5(s[2 * jj + hh], qa, b0, b1);
+        }
+      }
+    }
+#pragma unroll
+    for (int kd = 0; kd < KD; ++kd) {
+      uint32_t qh[4];
+      if constexpr (kQRegs) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) qh[e] = qf[kd][0][e];
+      } else {
+        ldsm_x4(qh, qs_a + kd * 32);
+      }
+#pragma unroll
+      for (int jj = 0; jj < KN / 2; ++jj) {
+        uint32_t kb[4];
+        ldsm_x4(kb, ks_b + (16 * jj * ld + 16 * kd) * 2);
+        mma(s[2 * jj], qh, kb[0], kb[1]);
+        mma(s[2 * jj + 1], qh, kb[2], kb[3]);
+      }
+    }
+
+    // scale, then mask (only the diagonal and the last tile have masked
+    // keys); exp(-1e30 - m) is exactly 0 for a masked key
+    const bool masked = k0 + KT > Sk || (causal && k0 + KT - 1 > q0);
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int n = 0; n < KN; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[n][e] * sm_scale;
+        if (masked) {
+          const int key = k0 + 8 * n + 2 * t + (e & 1);
+          const int row = row_lo + 8 * (e >> 1);
+          if (!(key < Sk && (!causal || row >= key))) x = kNegInf;
+        }
+        s[n][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = quad_max(mx[i]);
+      alpha[i] = expf(m[i] - mx[i]);
+      m[i] = mx[i];
+    }
+    float rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int n = 0; n < KN; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[n][e] = expf(s[n][e] - m[e >> 1]);
+        rs[e >> 1] += s[n][e];
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l[i] = alpha[i] * l[i] + rs[i];
+
+    // O = O alpha + P . V, P float32 (v's dtype) as three bf16 parts; the
+    // tile's P . V summed from zero, CN n-tiles of O at a time
+#pragma unroll
+    for (int c0 = 0; c0 < DN; c0 += CN) {
+      float pv[CN][4];
+#pragma unroll
+      for (int n = 0; n < CN; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) pv[n][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KN / 2; ++kk) {
+        uint32_t pa[3][4];
+        to_a_frags3(pa, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+        for (int dd = 0; dd < CN / 2; ++dd) {
+          uint32_t vb[3][4];
+#pragma unroll
+          for (int p = 0; p < 3; ++p)
+            ldsm_x4_t(vb[p], vs_a + p * kPlaneBytes +
+                                 (16 * kk * ld + 8 * c0 + 16 * dd) * 2);
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const uint32_t b0[3] = {vb[0][2 * hh], vb[1][2 * hh],
+                                    vb[2][2 * hh]};
+            const uint32_t b1[3] = {vb[0][2 * hh + 1], vb[1][2 * hh + 1],
+                                    vb[2][2 * hh + 1]};
+            mma5(pv[2 * dd + hh], pa, b0, b1);
+          }
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < KN / 2; ++kk) {
+        uint32_t ph[4];  // P's hi parts
+        to_a_frag(ph, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+        for (int dd = 0; dd < CN / 2; ++dd) {
+          uint32_t vb[4];
+          ldsm_x4_t(vb, vs_a + (16 * kk * ld + 8 * c0 + 16 * dd) * 2);
+          mma(pv[2 * dd], ph, vb[0], vb[1]);
+          mma(pv[2 * dd + 1], ph, vb[2], vb[3]);
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < CN; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[c0 + n][e] = fmaf(acc[c0 + n][e], alpha[e >> 1], pv[n][e]);
+    }
+  }
+
+  // O / l in float32 straight from the accumulators; a masked row (l == 0)
+  // gives 0
+  float ls[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float sum = quad_sum(l[i]);
+    ls[i] = sum == 0.f ? 1.f : sum;
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row_lo + 8 * i;
+    if (row >= Sq) continue;
+    float* orow = o + ((static_cast<size_t>(b) * Sq + row) * H + h) * D;
+#pragma unroll
+    for (int n = 0; n < DN; ++n)
+      *reinterpret_cast<float2*>(orow + 8 * n + 2 * t) = make_float2(
+          acc[n][2 * i] / ls[i], acc[n][2 * i + 1] / ls[i]);
+    if (t == 0)
+      lse[(static_cast<size_t>(b) * H + h) * Sq + row] = m[i] + logf(ls[i]);
+  }
+}
+
 template <int D>
 constexpr size_t fwd_mma_smem() {
   return 5 * static_cast<size_t>(kTile) * (D + kPadH) * sizeof(bf16);
@@ -1153,9 +1573,20 @@ constexpr size_t dkv_mma_smem() {
           2 * (2 * QT * (D + kPadH) + 4 * QT)) * sizeof(bf16);
 }
 
+template <int D>
+constexpr size_t fwd_f32_mma_smem() {  // K, V staging; K, V (and Q) planes
+  constexpr size_t kt = f32_key_tile(D);
+  return 2 * kt * (D + kPadF) * sizeof(float) +
+         (6 * kt + (f32_q_in_registers(D) ? 0 : 3 * kTile)) * (D + kPadH) *
+             sizeof(bf16);
+}
+
 // bf16 at D = 64 and 128 takes the tensor-core kernels
 template <typename T, int D>
 constexpr bool kTensorCores = std::is_same<T, bf16>::value && D >= 64;
+// and float32 K1 at those widths the split-bf16 tensor-core forward
+template <typename T, int D>
+constexpr bool kF32TensorCores = std::is_same<T, float>::value && D >= 64;
 
 // ------------------------------------------------------------------ launch
 
@@ -1184,6 +1615,17 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
     kernel<<<grid, kMmaThreads, smem, st>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<T*>(o),
+        static_cast<float*>(lse), Sq, Sk, H, Hkv, sm_scale, causal);
+  } else if constexpr (kF32TensorCores<T, D>) {
+    constexpr size_t smem = fwd_f32_mma_smem<D>();
+    auto kernel = flash_fwd_f32_mma_kernel<D>;
+    cudaError_t err = set_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    if ((Sq + kTile - 1) / kTile > 65535) return cudaErrorInvalidValue;
+    dim3 grid(H, B, (Sq + kTile - 1) / kTile);
+    kernel<<<grid, kMmaThreads, smem, st>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<float*>(o),
         static_cast<float*>(lse), Sq, Sk, H, Hkv, sm_scale, causal);
   } else {
     const size_t smem = (3 * tile_floats(D) + kTile * kLdP) * sizeof(float);

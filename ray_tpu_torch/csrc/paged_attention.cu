@@ -37,16 +37,25 @@
 //     each row to a float32 workspace the wrapper allocates, and a second
 //     kernel of the same call merges a row's splits in ascending order.
 //   * bf16 pools (head widths 32, 64, 128, 256; pages of a multiple of 16
-//     tokens), llama3_8b's serve path: paged_attention_split_mma_kernel.
-//     The products run on the tensor cores (mma.sync m16n8k16, float32
-//     sums), so a page's arithmetic is a few dozen instructions a warp:
-//     a step is 4 pages, one a warp, two steps in flight; the query tile
-//     is always 16 rows (zeros past the call's rows). P goes to P.V as
-//     bf16 hi + lo parts, so it keeps float32's precision to ~2^-17.
-//   * float32 pools, the other bf16 shapes, and a pool whose dtype is not
-//     q's (float32 q over a bf16 pool, bf16 q over a float32 pool: the
-//     TPU kernel widens q and every page to float32 and writes q's dtype,
-//     and so does this one): paged_attention_split_kernel, float32 FMA. Every warp has work at decode (K G = 4 rows): a
+//     tokens), llama3_8b's serve path, under bf16 or float32 q:
+//     paged_attention_split_mma_kernel<TQ>. The products run on the tensor
+//     cores (mma.sync m16n8k16, float32 sums), so a page's arithmetic is a
+//     few dozen instructions a warp: a step is 4 pages, one a warp, two
+//     steps in flight; the query tile is always 16 rows (zeros past the
+//     call's rows). Under bf16 q, P goes to P.V as bf16 hi + lo parts, so
+//     it keeps float32's precision to ~2^-17. Float32 q (a float32 model
+//     over a bf16 cache: the TPU kernel widens q and every page to float32,
+//     and writes q's dtype) is split once into three bf16 planes in shared
+//     memory (hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid),
+//     whose sum is x exactly), so S is the sum of three exact products over
+//     the unchanged bf16 pages, and P goes to P.V in three parts: the
+//     float32 products of the FMA kernel, in another order of sums. What
+//     held that pair back on the FMA kernel was not its bytes (the same as
+//     the bf16 pair's) but its dependent float32 chains per page.
+//   * float32 pools, the other bf16 shapes, bf16 q over a float32 pool (the
+//     TPU kernel widens both, and so does this one), and float32 q over a
+//     bf16 pool whose tensor-core tile does not fit one block's shared
+//     memory: paged_attention_split_kernel, float32 FMA. Every warp has work at decode (K G = 4 rows): a
 //     score (row, key) is one quad of lanes, each lane a sequential FMA
 //     chain over its eighth of D, summed by two shuffles; P.V gives each
 //     thread 4 columns of up to kRowTile / (128 / (D / 4)) rows, a
@@ -420,6 +429,21 @@ __device__ __forceinline__ void split_bf16(float2 p, uint32_t& hi,
   hi = *reinterpret_cast<const uint32_t*>(&h);
   lo = *reinterpret_cast<const uint32_t*>(&l);
 }
+// p as three bf16 parts (hi, mid = bf16(p - hi), lo = bf16(p - hi - mid)),
+// whose sum is p exactly, each a pair packed lo-element first
+__device__ __forceinline__ void split3(float2 p, uint32_t& hi, uint32_t& mid,
+                                       uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(p.x, p.y);
+  const float2 hf = __bfloat1622float2(h);
+  const float rx = p.x - hf.x;
+  const float ry = p.y - hf.y;
+  const __nv_bfloat162 m = __floats2bfloat162_rn(rx, ry);
+  const float2 mf = __bfloat1622float2(m);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(rx - mf.x, ry - mf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  mid = *reinterpret_cast<const uint32_t*>(&m);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
 // Per-lane element offsets into a [rows][ld] bf16 tile for ldmatrix.x4:
 // a_off, the A fragment of rows 0-15, columns 0-15 (also, .trans, the B
 // fragments of two 8-column n-tiles over rows 0-15 as the depth); b_off,
@@ -432,15 +456,22 @@ __device__ __forceinline__ int b_off(int lane, int ld) {
 }
 
 // dynamic shared memory of the mma kernel: the page ring (reused for the
-// warps' partial sums at the end), the query tile, the scores, page ids
+// warps' partial sums at the end), the query tile (q_planes bf16 planes of
+// it: 1 for bf16 q, 3 for float32 q), the scores, page ids
 __host__ __device__ constexpr int mma_ld(int D) { return D + 8; }
 __host__ __device__ constexpr int mma_sc_ld(int Tp) {
   return pages_per_split(Tp) * Tp + 8;
 }
-__host__ __device__ constexpr int split_mma_smem(int D, int Tp) {
+__host__ __device__ constexpr int split_mma_smem(int D, int Tp,
+                                                 int q_planes) {
   return kRingSteps * kStep * Tp * mma_ld(D) * 2 +
-         kRowTile * mma_ld(D) * 2 + kRowTile * mma_sc_ld(Tp) * 4 +
+         q_planes * kRowTile * mma_ld(D) * 2 + kRowTile * mma_sc_ld(Tp) * 4 +
          pages_per_split(Tp) * 4;
+}
+// bf16 planes of the mma kernel's query tile for q in TQ
+template <typename TQ>
+__host__ __device__ constexpr int q_planes() {
+  return std::is_same<TQ, float>::value ? 3 : 1;
 }
 
 // Step `st` of the mma kernel's ring (st < nks: k pages 4 st .. 4 st + 3
@@ -475,20 +506,23 @@ __device__ __forceinline__ void issue_step(
 }
 
 // One split of one (slot, kv head, 16-row tile) on the tensor cores, for
-// bf16 pools with D % 16 == 0 and Tp % 16 == 0. The same plan, workspace
-// and merge as paged_attention_split_kernel. A step is 4 pages, one a
-// warp; pass 1 (k pages): S = Q.K^T by mma.sync m16n8k16, Q's fragments
-// read from shared memory at each k-step, scaled, masked and written to
-// the scores; the split's exact softmax as in the FMA kernel; pass 2 (v
-// pages): each warp sums P.V over its own pages (pages w, w + 4, ... of
-// the split, in order) with P split into bf16 hi and lo parts, so P keeps
-// float32's precision to about 2^-17; the four warps' sums are then added
-// in warp order. Every element of a product depends only on its own row
-// of the query tile, and a row's masked keys give exact zeros in P, so
-// row i of a window is still a 1-token call at lengths[s] + i bit for bit.
-template <int D>
+// bf16 pools with D % 16 == 0 and Tp % 16 == 0, under q in TQ (bf16 or
+// float32). The same plan, workspace and merge as
+// paged_attention_split_kernel. A step is 4 pages, one a warp; pass 1 (k
+// pages): S = Q.K^T by mma.sync m16n8k16, Q's fragments read from shared
+// memory at each k-step (float32 q: from each of its three planes, the
+// smallest part first), scaled, masked and written to the scores; the
+// split's exact softmax as in the FMA kernel; pass 2 (v pages): each warp
+// sums P.V over its own pages (pages w, w + 4, ... of the split, in
+// order) with P split into bf16 parts (hi and lo under bf16 q, so P keeps
+// float32's precision to about 2^-17; hi, mid and lo under float32 q, so P
+// is exact); the four warps' sums are then added in warp order. Every
+// element of a product depends only on its own row of the query tile, and
+// a row's masked keys give exact zeros in P, so row i of a window is still
+// a 1-token call at lengths[s] + i bit for bit.
+template <typename TQ, int D>
 __global__ void __launch_bounds__(kThreads)
-paged_attention_split_mma_kernel(const bf16* __restrict__ q,
+paged_attention_split_mma_kernel(const TQ* __restrict__ q,
                                  const bf16* __restrict__ k_pool,
                                  const bf16* __restrict__ v_pool,
                                  const int* __restrict__ tables,
@@ -500,6 +534,8 @@ paged_attention_split_mma_kernel(const bf16* __restrict__ q,
   constexpr int ld = mma_ld(D);
   constexpr int KD = D / 16;  // k-steps over D
   constexpr int DN = D / 8;   // n-tiles over D
+  constexpr int kQP = q_planes<TQ>();
+  constexpr uint32_t kQPlaneBytes = kRowTile * ld * 2;
   extern __shared__ __align__(16) unsigned char smem[];
   const int s = blockIdx.x;
   const int kvh = blockIdx.y;
@@ -517,8 +553,8 @@ paged_attention_split_mma_kernel(const bf16* __restrict__ q,
   const int t = lane & 3;
 
   bf16* ring = reinterpret_cast<bf16*>(smem);  // [kRingSteps * 4][Tp][ld]
-  bf16* qs = ring + kRingSteps * kStep * Tp * ld;       // [16][ld]
-  float* sc = reinterpret_cast<float*>(qs + kRowTile * ld);  // [16][ldsc]
+  bf16* qs = ring + kRingSteps * kStep * Tp * ld;       // [kQP][16][ld]
+  float* sc = reinterpret_cast<float*>(qs + kQP * kRowTile * ld);  // [16][ldsc]
   int* pids = reinterpret_cast<int*>(sc + kRowTile * ldsc);  // [pps]
 
   const int first = split * pps;
@@ -531,20 +567,42 @@ paged_attention_split_mma_kernel(const bf16* __restrict__ q,
   const int n = min(pps, live - first);
   const int nks = (n + kStep - 1) / kStep;  // steps of each pass
 
-  // the tile's query rows (zeros past the tile) join the first group
-  for (int e = tid; e < kRowTile * (D / 8); e += kThreads) {
-    const int r = e / (D / 8);
-    const int c = e % (D / 8);
-    const int i = (r0 + r) / G;
-    const int h = kvh * G + (r0 + r - i * G);
-    const bool in = r < rt;
-    cp_async16(
-        smem_addr(qs + r * ld + 8 * c),
-        q + ((static_cast<size_t>(s) * K + (in ? i : 0)) * H +
-             (in ? h : 0)) * D + 8 * c,
-        in);
+  if constexpr (kQP == 1) {
+    // the tile's query rows (zeros past the tile) join the first group
+    for (int e = tid; e < kRowTile * (D / 8); e += kThreads) {
+      const int r = e / (D / 8);
+      const int c = e % (D / 8);
+      const int i = (r0 + r) / G;
+      const int h = kvh * G + (r0 + r - i * G);
+      const bool in = r < rt;
+      cp_async16(
+          smem_addr(qs + r * ld + 8 * c),
+          q + ((static_cast<size_t>(s) * K + (in ? i : 0)) * H +
+               (in ? h : 0)) * D + 8 * c,
+          in);
+    }
+  } else {
+    // float32 query rows (zeros past the tile), read from device memory
+    // and split into their hi, mid and lo planes
+    for (int e = tid; e < kRowTile * (D / 4); e += kThreads) {
+      const int r = e / (D / 4);
+      const int c = (e % (D / 4)) * 4;
+      const int i = (r0 + r) / G;
+      const int h = kvh * G + (r0 + r - i * G);
+      const float4 x =
+          r < rt ? *reinterpret_cast<const float4*>(
+                       q + ((static_cast<size_t>(s) * K + i) * H + h) * D + c)
+                 : make_float4(0.f, 0.f, 0.f, 0.f);
+      uint32_t h0, m0, l0, h1, m1, l1;
+      split3(make_float2(x.x, x.y), h0, m0, l0);
+      split3(make_float2(x.z, x.w), h1, m1, l1);
+      bf16* dst = qs + r * ld + c;
+      *reinterpret_cast<uint2*>(dst) = make_uint2(h0, h1);
+      *reinterpret_cast<uint2*>(dst + kRowTile * ld) = make_uint2(m0, m1);
+      *reinterpret_cast<uint2*>(dst + 2 * kRowTile * ld) = make_uint2(l0, l1);
+    }
   }
-  __syncthreads();  // the page ids are in place
+  __syncthreads();  // the page ids (and float32 q's planes) are in place
 #pragma unroll
   for (int st = 0; st < kRingSteps - 1; ++st)
     issue_step<D>(st, nks, n, ring, k_pool, v_pool, pids, kvh, Hkv, Tp);
@@ -571,11 +629,23 @@ paged_attention_split_mma_kernel(const bf16* __restrict__ q,
         float sf[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
 #pragma unroll
         for (int kd = 0; kd < KD; ++kd) {
-          uint32_t qa[4], kb[4];
-          ldsm_x4(qa, qs_a + kd * 32);
-          ldsm_x4(kb, kb_addr + (16 * kt * ld + 16 * kd) * 2);
-          mma(sf[0], qa, kb[0], kb[1]);
-          mma(sf[1], qa, kb[2], kb[3]);
+          if constexpr (kQP == 1) {
+            uint32_t qa[4], kb[4];
+            ldsm_x4(qa, qs_a + kd * 32);
+            ldsm_x4(kb, kb_addr + (16 * kt * ld + 16 * kd) * 2);
+            mma(sf[0], qa, kb[0], kb[1]);
+            mma(sf[1], qa, kb[2], kb[3]);
+          } else {
+            uint32_t kb[4];
+            ldsm_x4(kb, kb_addr + (16 * kt * ld + 16 * kd) * 2);
+#pragma unroll
+            for (int p = 2; p >= 0; --p) {  // lo, mid, hi
+              uint32_t qa[4];
+              ldsm_x4(qa, qs_a + p * kQPlaneBytes + kd * 32);
+              mma(sf[0], qa, kb[0], kb[1]);
+              mma(sf[1], qa, kb[2], kb[3]);
+            }
+          }
         }
         // scale, then mask to -1e30; rows g and g + 8 of the tile
 #pragma unroll
@@ -595,28 +665,43 @@ paged_attention_split_mma_kernel(const bf16* __restrict__ q,
       }
     } else if (pg < n) {
       // acc += P . V over the page's 16-key tiles, P as bf16 hi + lo
+      // (bf16 q) or hi + mid + lo (float32 q)
       const uint32_t vb_addr = smem_addr(page + a_off(lane, ld));
       for (int kt = 0; kt < Tp / 16; ++kt) {
         const int col = pg * Tp + 16 * kt + 2 * t;
-        uint32_t ph[4], pl[4];
-        split_bf16(*reinterpret_cast<const float2*>(sc + g * ldsc + col),
-                   ph[0], pl[0]);
-        split_bf16(
+        const float2 pf[4] = {
+            *reinterpret_cast<const float2*>(sc + g * ldsc + col),
             *reinterpret_cast<const float2*>(sc + (g + 8) * ldsc + col),
-            ph[1], pl[1]);
-        split_bf16(*reinterpret_cast<const float2*>(sc + g * ldsc + col + 8),
-                   ph[2], pl[2]);
-        split_bf16(
-            *reinterpret_cast<const float2*>(sc + (g + 8) * ldsc + col + 8),
-            ph[3], pl[3]);
+            *reinterpret_cast<const float2*>(sc + g * ldsc + col + 8),
+            *reinterpret_cast<const float2*>(sc + (g + 8) * ldsc + col + 8)};
+        if constexpr (kQP == 1) {
+          uint32_t ph[4], pl[4];
 #pragma unroll
-        for (int dd = 0; dd < DN / 2; ++dd) {
-          uint32_t vb[4];
-          ldsm_x4_t(vb, vb_addr + (16 * kt * ld + 16 * dd) * 2);
-          mma(acc[2 * dd], ph, vb[0], vb[1]);
-          mma(acc[2 * dd + 1], ph, vb[2], vb[3]);
-          mma(acc[2 * dd], pl, vb[0], vb[1]);
-          mma(acc[2 * dd + 1], pl, vb[2], vb[3]);
+          for (int e = 0; e < 4; ++e) split_bf16(pf[e], ph[e], pl[e]);
+#pragma unroll
+          for (int dd = 0; dd < DN / 2; ++dd) {
+            uint32_t vb[4];
+            ldsm_x4_t(vb, vb_addr + (16 * kt * ld + 16 * dd) * 2);
+            mma(acc[2 * dd], ph, vb[0], vb[1]);
+            mma(acc[2 * dd + 1], ph, vb[2], vb[3]);
+            mma(acc[2 * dd], pl, vb[0], vb[1]);
+            mma(acc[2 * dd + 1], pl, vb[2], vb[3]);
+          }
+        } else {
+          uint32_t pp[3][4];  // hi, mid, lo
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            split3(pf[e], pp[0][e], pp[1][e], pp[2][e]);
+#pragma unroll
+          for (int dd = 0; dd < DN / 2; ++dd) {
+            uint32_t vb[4];
+            ldsm_x4_t(vb, vb_addr + (16 * kt * ld + 16 * dd) * 2);
+#pragma unroll
+            for (int p = 2; p >= 0; --p) {  // lo, mid, hi
+              mma(acc[2 * dd], pp[p], vb[0], vb[1]);
+              mma(acc[2 * dd + 1], pp[p], vb[2], vb[3]);
+            }
+          }
         }
       }
     }
@@ -749,23 +834,24 @@ cudaError_t launch_d(const void* q, const void* k_pool, const void* v_pool,
   const int R = K * (H / Hkv);
   const int rt = R < kRowTile ? R : kRowTile;
   const dim3 grid(S, Hkv, splits * ((R + kRowTile - 1) / kRowTile));
-  // the tensor cores take bf16 q and pools at the head widths they are
-  // built for
-  constexpr bool kBf16 =
-      std::is_same<TQ, bf16>::value && std::is_same<TP, bf16>::value;
-  const bool tensor_cores = kBf16 && D == DMAX && Tp % 16 == 0;
+  // the tensor cores take bf16 pools, under bf16 or float32 q, at the head
+  // widths they are built for, where the tile fits one block
+  constexpr bool kBf16Pool = std::is_same<TP, bf16>::value;
+  const int mma_smem = split_mma_smem(D, Tp, q_planes<TQ>());
+  const bool tensor_cores =
+      kBf16Pool && D == DMAX && Tp % 16 == 0 && mma_smem <= kMaxSmem;
   const size_t smem = tensor_cores
-                          ? split_mma_smem(D, Tp)
+                          ? mma_smem
                           : split_smem(D, sizeof(TQ), sizeof(TP), Tp, rt);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   cudaError_t err;
-  if constexpr (kBf16) {
+  if constexpr (kBf16Pool) {
     if (tensor_cores) {
-      auto kernel = paged_attention_split_mma_kernel<DMAX>;
+      auto kernel = paged_attention_split_mma_kernel<TQ, DMAX>;
       err = set_smem(kernel, smem);
       if (err != cudaSuccess) return err;
       kernel<<<grid, kThreads, smem, stream>>>(
-          static_cast<const bf16*>(q), static_cast<const bf16*>(k_pool),
+          static_cast<const TQ*>(q), static_cast<const bf16*>(k_pool),
           static_cast<const bf16*>(v_pool), static_cast<const int*>(tables),
           static_cast<const int*>(lengths), static_cast<float*>(ws_acc),
           static_cast<float*>(ws_ml), K, H, Hkv, N, Tp, P, splits, sm_scale);

@@ -15,9 +15,12 @@ Three kernels, each behind its own wrapper:
 
 On a CUDA tensor each wrapper launches its hand-written Hopper kernel in
 ``ray_tpu_torch/csrc/flash_attention.cu`` (built by ``ops/_build.py``), or
-raises; ``<wrapper>.launches`` counts its launches. In bf16 at head widths
-64 and 128, K1, K2 and K3 run on the tensor cores (``mma.sync``, float32
-sums); every float32 kernel runs float32 FMA. On a CPU tensor each
+raises; ``<wrapper>.launches`` counts its launches. At head widths 64 and
+128, K1, K2 and K3 in bf16 and K1 in float32 run on the tensor cores
+(``mma.sync``, float32 sums); the float32 K1 splits each operand into three
+bf16 parts, whose six cross products above 2^-24 keep float32's product
+precision. The float32 K2 and K3, and every kernel at head width 16, run
+float32 FMA (``kernel_route`` says which). On a CPU tensor each
 wrapper runs its plain PyTorch version (``flash_forward_reference``,
 ``flash_dq_reference``, ``flash_dkv_reference``), with the same math in
 float32 and the same casts: P is cast to v's dtype before P.V, and P and dS
@@ -44,6 +47,12 @@ from ray_tpu_torch.ops import _build
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 64, 128)  # head widths the kernels are built for
+# the head widths at which a kernel runs on the tensor cores, per dtype
+# (``csrc/flash_attention.cu``: kTensorCores, kF32TensorCores)
+MMA_HEAD_DIMS = {("flash_fwd", torch.bfloat16): (64, 128),
+                 ("flash_dq", torch.bfloat16): (64, 128),
+                 ("flash_dkv", torch.bfloat16): (64, 128),
+                 ("flash_fwd", torch.float32): (64, 128)}
 
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _ARGTYPES = {
@@ -52,6 +61,13 @@ _ARGTYPES = {
     "flash_dkv": [ctypes.c_void_p] * 8,
 }
 _DIMS = [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+
+
+def kernel_route(name: str, dtype: torch.dtype, head_dim: int) -> str:
+    """Which kernel ``name`` ("flash_fwd", "flash_dq", "flash_dkv") takes
+    in ``dtype`` at ``head_dim``: "tensor cores" or "FMA"."""
+    dims = MMA_HEAD_DIMS.get((name, dtype), ())
+    return "tensor cores" if head_dim in dims else "FMA"
 
 
 def _scale(q: torch.Tensor, sm_scale: Optional[float]) -> float:

@@ -10,12 +10,16 @@ slot's live tokens. No contiguous per-slot view is ever built.
     ``ops/_build.py``), or raises: one kernel over (slot, kv head, split of
     the page table, tile of query rows) into a float32 workspace, and one
     that merges each row's splits. The split kernel runs on the tensor
-    cores for bf16 q and pools at the head widths of ``MMA_HEAD_DIMS`` and
-    pages of a multiple of 16 tokens (llama3_8b's serve path), and float32
-    FMA otherwise. q and the pools may differ in dtype, as the TPU kernel
-    allows (``cache_dtype``): float32 q over bf16 pools, or bf16 q over
-    float32 pools, both on the FMA kernel, which widens each to float32 as
-    it reads it; the output is in q's dtype. Any other pair raises.
+    cores for bf16 pools at the head widths of ``MMA_HEAD_DIMS`` and pages
+    of a multiple of 16 tokens (llama3_8b's serve path), under bf16 q or
+    float32 q, where its tile fits one block, and float32 FMA otherwise.
+    q and the pools may differ in dtype, as the TPU kernel allows
+    (``cache_dtype``): float32 q over bf16 pools, or bf16 q over float32
+    pools; the TPU kernel widens both to float32. Float32 q on the tensor
+    cores is split into three bf16 parts whose sum is q exactly, so its
+    products over the bf16 pages are float32's; bf16 q over float32 pools
+    takes the FMA kernel, which widens both. The output is in q's dtype.
+    Any other pair raises.
     ``split_plan`` is the host side of that split; it reads shapes only,
     never ``lengths`` or ``tables``, which stay on the card.
     ``paged_attention.launches`` counts the wrapper's launches, and
@@ -75,9 +79,9 @@ class SplitPlan(NamedTuple):
     table, tiles of query rows, the split kernel's grid, the float32
     workspace (``[S, Hkv, splits, rows, D]`` sums and ``[..., 2]`` row max
     and sum), the split kernel's shared memory in bytes, and whether that
-    kernel is the tensor-core one (bf16 q and pools, D in
-    ``MMA_HEAD_DIMS``, pages of a multiple of 16 tokens) or the float32
-    FMA one."""
+    kernel is the tensor-core one (bf16 pools under bf16 or float32 q, D in
+    ``MMA_HEAD_DIMS``, pages of a multiple of 16 tokens, its shared memory
+    within ``MAX_SMEM``) or the float32 FMA one."""
     pages_per_split: int
     splits: int
     row_tiles: int
@@ -99,14 +103,16 @@ def split_plan(S: int, K: int, H: int, Hkv: int, D: int, T: int, P: int,
     splits = -(-P // pages)
     rows = K * (H // Hkv)
     tiles = -(-rows // ROW_TILE)
-    tensor_cores = (elem_bytes == 2 and q_bytes == 2 and D in MMA_HEAD_DIMS
-                    and T % 16 == 0)
-    if tensor_cores:
-        # the ring of 4-page steps, the 16-row query tile (rows of D + 8
-        # bf16), the scores (rows of pages * T + 8 floats), the page ids
-        row = 2 * (D + 8)
-        smem = ((RING_STEPS * 4 * T + ROW_TILE) * row
+    # the tensor-core kernel: the ring of 4-page steps, the 16-row query
+    # tile (rows of D + 8 bf16; float32 q as three bf16 planes), the scores
+    # (rows of pages * T + 8 floats), the page ids
+    q_planes = 3 if q_bytes == 4 else 1
+    mma_smem = ((RING_STEPS * 4 * T + ROW_TILE * q_planes) * 2 * (D + 8)
                 + ROW_TILE * (pages * T + 8) * 4 + pages * 4)
+    tensor_cores = (elem_bytes == 2 and D in MMA_HEAD_DIMS and T % 16 == 0
+                    and mma_smem <= MAX_SMEM)
+    if tensor_cores:
+        smem = mma_smem
     else:
         def padded(elem):  # a page or query row, padded as the kernel's
             row = D * elem

@@ -212,6 +212,75 @@ def test_wrappers_never_fall_back_off_the_cpu(wrapper):
         getattr(fa, wrapper)(*args)
 
 
+@pytest.mark.parametrize("name,dtype,d,route", [
+    ("flash_fwd", torch.float32, 64, "tensor cores"),
+    ("flash_fwd", torch.float32, 128, "tensor cores"),
+    ("flash_fwd", torch.float32, 16, "FMA"),
+    ("flash_dq", torch.float32, 64, "FMA"),
+    ("flash_dkv", torch.float32, 128, "FMA"),
+    ("flash_fwd", torch.bfloat16, 64, "tensor cores"),
+    ("flash_dkv", torch.bfloat16, 128, "tensor cores"),
+    ("flash_dq", torch.bfloat16, 16, "FMA")])
+def test_kernel_route_mirrors_the_kernels(name, dtype, d, route):
+    assert fa.kernel_route(name, dtype, d) == route
+
+
+NS = "_ZN51_GLOBAL__N__ba107a96_18_flash_attention_cu_1ad8dec0"
+
+
+@pytest.mark.parametrize("mangled,label", [
+    (NS + "24flash_fwd_f32_mma_kernelILi64EEEvPKfS2_S2_PfS3_iiiifi",
+     "flash_fwd_f32_mma_kernel<f32, 64>"),
+    (NS[:-1] + "120flash_fwd_mma_kernelILi128EEEvPK13__nv_bfloat16S3_",
+     "flash_fwd_mma_kernel<bf16, 128>"),
+    (NS + "16flash_dkv_kernelIfLi16EEEvPKT_S3_S3_S3_PKfS5_PS1_S6_iiiifi",
+     "flash_dkv_kernel<f32, 16>"),
+    (NS + "32paged_attention_split_mma_kernelIfLi128EEEvPKT_",
+     "paged_attention_split_mma_kernel<f32, 128>"),
+    (NS + "32paged_attention_split_mma_kernelI13__nv_bfloat16Li32EEEvPKT_",
+     "paged_attention_split_mma_kernel<bf16, 32>"),
+    (NS + "28paged_attention_split_kernelIf13__nv_bfloat16Li128EEEvPKT_",
+     "paged_attention_split_kernel<f32, bf16, 128>")])
+def test_chip_smoke_labels_each_kernel_instantiation(mangled, label):
+    """The build phase's names for the kernels whose HMMA instructions and
+    spills it gates."""
+    import chip_smoke
+
+    assert chip_smoke.kernel_label(mangled) == label
+    assert ("mma" in label) == (label in chip_smoke.TENSOR_CORE_KERNELS)
+
+
+def _bf16_parts(x):
+    """x as hi + mid + lo bf16 parts, as the float32 tensor-core K1 splits
+    each operand (``split3`` in ``csrc/flash_attention.cu``)."""
+    hi = x.to(torch.bfloat16)
+    r = x - hi.float()
+    mid = r.to(torch.bfloat16)
+    lo = (r - mid.float()).to(torch.bfloat16)
+    return hi, mid, lo
+
+
+def test_float32_is_three_bf16_parts_and_six_products_keep_its_precision():
+    """The arithmetic the float32 tensor-core K1 rests on: every float32
+    value is the sum of its three bf16 parts exactly, and a dot product
+    as the six cross products of the parts above 2^-24 (each exact in
+    float32) lies within float32's rounding of the exact dot product."""
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy((rng.standard_normal(1 << 16)
+                          * np.exp2(rng.integers(-60, 60, 1 << 16)))
+                         .astype(np.float32))
+    hi, mid, lo = _bf16_parts(x)
+    assert torch.equal(hi.double() + mid.double() + lo.double(), x.double())
+    q, k = (torch.from_numpy(rng.standard_normal((64, 128)).astype(
+        np.float32)) for _ in range(2))
+    qp, kp = _bf16_parts(q), _bf16_parts(k)
+    six = sum(qp[i].double() @ kp[j].double().T
+              for i, j in ((2, 0), (1, 1), (0, 2), (1, 0), (0, 1), (0, 0)))
+    exact = q.double() @ k.double().T
+    scale = q.double().abs() @ k.double().abs().T
+    assert float(((six - exact).abs() / scale).max()) < 2.0 ** -22
+
+
 def test_dispatcher_rejects_a_typo():
     q, k, v, _ = (_t(a) for a in _inputs(s=16))
     with pytest.raises(ValueError, match="unknown attention impl"):

@@ -230,18 +230,49 @@ def test_mixed_dtype_pool_matches_jax_reference(pair, K):
                                np.asarray(want, np.float32), **tol)
 
 
-def test_mixed_pairs_take_the_fma_kernel():
-    """A pool of another dtype than q's goes to the float32 FMA split
-    kernel, whose page ring holds the pool's rows and whose query tile
-    holds q's (the shared memory the kernel takes, as the card ran it)."""
+def test_mixed_pairs_route_f32_q_to_tensor_cores_and_bf16_q_to_fma():
+    """Float32 q over a bf16 pool goes to the tensor-core split kernel,
+    whose query tile holds q as three bf16 planes; bf16 q over a float32
+    pool goes to the float32 FMA split kernel, whose page ring holds the
+    pool's rows and whose query tile holds q's (the shared memory each
+    kernel takes)."""
     dec = dict(S=8, K=1, H=32, Hkv=8, D=128, T=16, P=128)
     pre = dict(dec, S=1, K=32)
-    for shapes, pool, qb, smem in ((dec, 2, 4, 47424), (pre, 2, 4, 66624),
-                                   (dec, 4, 2, 79168), (pre, 4, 2, 95296)):
+    for shapes, pool, qb, tc, smem in ((dec, 2, 4, True, 82240),
+                                       (pre, 2, 4, True, 82240),
+                                       (dec, 4, 2, False, 79168),
+                                       (pre, 4, 2, False, 95296)):
         plan = split_plan(**shapes, elem_bytes=pool, q_bytes=qb)
-        assert plan.tensor_cores is False
+        assert plan.tensor_cores is tc
         assert plan.smem_bytes == smem
     assert split_plan(**dec, elem_bytes=2, q_bytes=2).tensor_cores
+
+
+# float32 q over a bf16 pool at (D, T): the route and the split kernel's
+# shared memory. The tensor cores take the bf16 kernel's head widths and
+# pages of a multiple of 16 tokens where the tile (three query planes)
+# fits one block; the rest stays on the FMA kernel, as does bf16 q over a
+# float32 pool
+F32_Q_PLANS = [(32, 16, 4, 2, True, 36160), (64, 16, 4, 2, True, 51520),
+               (64, 32, 4, 2, True, 79136), (128, 16, 4, 2, True, 82240),
+               (128, 48, 4, 2, True, 185620), (256, 16, 4, 2, True, 143680),
+               (96, 16, 4, 2, False, 30528), (128, 8, 4, 2, False, 27008),
+               (128, 64, 4, 2, False, 170256), (256, 32, 4, 2, False, 155936),
+               (64, 16, 2, 4, False, 45888), (128, 16, 2, 4, False, 79168)]
+
+
+@pytest.mark.parametrize("D,T,qb,pool,tc,smem", F32_Q_PLANS)
+def test_mixed_pair_split_plan_route(D, T, qb, pool, tc, smem):
+    plan = split_plan(S=8, K=1, H=32, Hkv=8, D=D, T=T, P=128,
+                      elem_bytes=pool, q_bytes=qb)
+    assert plan.tensor_cores is tc
+    assert plan.smem_bytes == smem <= 232448
+    # the bf16 pair at the same shape shares the route where both fit
+    both = split_plan(S=8, K=1, H=32, Hkv=8, D=D, T=T, P=128, elem_bytes=2,
+                      q_bytes=2)
+    if tc:
+        assert both.tensor_cores
+        assert smem - both.smem_bytes == 2 * 16 * 2 * (D + 8)
 
 
 @pytest.mark.parametrize("qd,kd,vd", [

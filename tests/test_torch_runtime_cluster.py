@@ -192,7 +192,14 @@ def test_gpu_pinning_with_a_faked_resource():
         rt.shutdown()
 
 
-def retire_leftover_jax_runtime(timeout: float = 30.0) -> None:
+# How long a JAX router thread can take to see its stop: its long-poll get
+# gives up after ``LONG_POLL_TIMEOUT_S + 30`` s (``ray_tpu/serve/_private/
+# router.py``, ``Router._poll_loop``), and a runtime an earlier file left
+# up may never answer it; 15 s more of margin.
+RETIRE_TIMEOUT_S = JaxRouter.LONG_POLL_TIMEOUT_S + 45
+
+
+def retire_leftover_jax_runtime(timeout: float = RETIRE_TIMEOUT_S) -> None:
     """Shut down a JAX runtime that an earlier test left up in this
     process, and the JAX router threads that would start it again.
 
@@ -203,7 +210,9 @@ def retire_leftover_jax_runtime(timeout: float = 30.0) -> None:
     new local cluster that nothing shuts down; the next
     ``ray_tpu.init()`` in the process raises "called twice" (ROADMAP §C).
     The JAX package is left as it is, so the tests that start a JAX
-    cluster of their own call this first."""
+    cluster of their own call this first. It waits for each thread as long
+    as that thread's long-poll get can block (``RETIRE_TIMEOUT_S``); the
+    wait is paid only where such a thread exists."""
     threads = [t for t in threading.enumerate()
                if isinstance(getattr(getattr(t, "_target", None),
                                      "__self__", None), JaxRouter)]
@@ -222,16 +231,55 @@ def retire_leftover_jax_runtime(timeout: float = 30.0) -> None:
 def retire_leftover_jax_runtime_for_later_files() -> None:
     """``retire_leftover_jax_runtime`` for a port test file that starts no
     JAX runtime itself: after the file, it retires one that an earlier file
-    left up in this worker, so the JAX files that follow do not meet it. It
-    waits out a router thread's long poll (that thread's get gives up after
-    ``LONG_POLL_TIMEOUT_S + 30`` s). A JAX thread that still does not stop
-    is reported as a warning: the port file's own tests never touch it."""
+    left up in this worker, so the JAX files that follow do not meet it. A
+    JAX thread that still does not stop is reported as a warning: the port
+    file's own tests never touch it."""
     try:
-        retire_leftover_jax_runtime(
-            timeout=JaxRouter.LONG_POLL_TIMEOUT_S + 45)
+        retire_leftover_jax_runtime()
     except AssertionError as e:
         warnings.warn(f"a JAX runtime left up by an earlier test file "
                       f"could not be retired: {e}")
+
+
+class _SilentRef:
+    """A long-poll reference that no runtime answers: its get blocks for
+    its whole timeout, then gives up. ``ray_tpu.get`` hands it its timeout
+    through the compiled-graph path, so no JAX runtime is needed."""
+    _is_compiled_dag_ref = True
+
+    def get(self, timeout=None):
+        time.sleep(timeout)
+        raise TimeoutError("the long poll was not answered")
+
+
+class _SilentController:
+    """A JAX serve controller whose ``listen_for_change`` never answers."""
+
+    def __init__(self):
+        self.listen_for_change = self
+
+    def remote(self, *args):
+        return _SilentRef()
+
+
+def test_retire_waits_out_a_router_thread_blocked_in_its_long_poll():
+    """The state the port's cluster tests met in a whole parallel run: a
+    JAX router thread left by an earlier file, blocked in its long-poll
+    get (``timeout=LONG_POLL_TIMEOUT_S + 30``) on a runtime that does not
+    answer it within 30 s. ``retire_leftover_jax_runtime`` with its
+    default wait stops the thread and waits until its get gives up, so no
+    "JAX router threads" error reaches the caller."""
+    retire_leftover_jax_runtime()
+    router = JaxRouter(_SilentController(), "silent", "silent")
+    router.LONG_POLL_TIMEOUT_S = 1.0  # its get blocks 31 s
+    router._ensure_polling()
+    thread = router._poll_thread
+    t0 = time.monotonic()
+    retire_leftover_jax_runtime()
+    waited = time.monotonic() - t0
+    assert not thread.is_alive()
+    assert waited >= router.LONG_POLL_TIMEOUT_S + 30 - 1.0
+    assert RETIRE_TIMEOUT_S >= JaxRouter.LONG_POLL_TIMEOUT_S + 30
 
 
 @jserve.deployment

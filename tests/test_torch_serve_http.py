@@ -19,7 +19,6 @@ fail the tests after it."""
 
 import asyncio
 import base64
-import functools
 import hashlib
 import json
 import os
@@ -36,7 +35,6 @@ import ray_tpu
 import ray_tpu_torch as rt
 from ray_tpu import serve as jserve
 from ray_tpu._private.rpc import RpcTimeoutError as JaxRpcTimeoutError
-from ray_tpu.serve._private.router import Router as JaxRouter
 from ray_tpu_torch import serve
 from ray_tpu_torch.serve._private import http_server
 from tests.test_serve_asgi import _echo_app
@@ -83,11 +81,9 @@ def jax_runtime(port_base):
     runtime shared by the module let a wedged one (its proxy's
     ``/-/routes`` unanswered for 60 s, router threads of every earlier
     handle still polling a controller ``jserve.shutdown()`` killed) fail
-    every test after it (ROADMAP §C). A router thread blocked in its long
-    poll may take ``LONG_POLL_TIMEOUT_S + 30`` s to see the stop."""
-    retire = functools.partial(retire_leftover_jax_runtime,
-                               timeout=JaxRouter.LONG_POLL_TIMEOUT_S + 45)
-    retire()
+    every test after it (ROADMAP §C). The retire waits out a router
+    thread's long poll."""
+    retire_leftover_jax_runtime()
     ray_tpu.init(num_cpus=16, object_store_memory=128 * 1024 * 1024)
     try:
         yield
@@ -95,7 +91,7 @@ def jax_runtime(port_base):
         try:
             jserve.shutdown()
         finally:
-            retire()
+            retire_leftover_jax_runtime()
 
 
 @pytest.fixture
