@@ -13,12 +13,13 @@ of its checks fails:
      ``build/kernels/``, one nvcc each, started together; ptxas lines;
      ``cuobjdump -sass`` counts the HMMA (tensor-core) instructions of each
      kernel, and the run fails if the bf16 K1, K2 or K3 or the float32 K1
-     at D=64 or 128, or K4's split kernel for bf16 or float32 q over a bf16
-     pool at any of its head widths, has none, or if the float32 K1 spills.
+     at D=64 or 128, or K4's split kernel for any q/pool dtype pair at any
+     of its head widths (16-256), has none, or if the float32 K1 or a
+     float32-pool K4 a main path launches (D 128, and D 16 under float32
+     q) spills.
   3. kernel: the paged-attention kernel (split over pages, then merged;
-     the split kernel on the tensor cores over a bf16 pool, under bf16 q
-     or float32 q split into three bf16 parts, and float32 FMA over a
-     float32 pool) against
+     the split kernel on the tensor cores for every dtype pair, each
+     float32 operand split into three bf16 parts) against
      ``paged_attention_reference`` on the card, at llama3_8b shapes
      (H=32, Hkv=8, D=128, 16-token pages), for the (q, pool) dtype pairs
      bf16/bf16, float32/float32, float32/bf16 and bf16/float32 (a float16
@@ -35,7 +36,10 @@ of its checks fails:
      scaled_dot_product_attention over a pre-gathered contiguous view (a
      yardstick only: the port never calls it) and the bound (live-page bytes over the memory rate, or the
      operations over the peak rate, whichever is larger); the split
-     kernel each pair and case ran (tensor cores or FMA).
+     kernel each pair and case ran (tensor cores or FMA); and at
+     llama_debug's D 16 (the harness serve probe's 2 slots, cursors 10 and
+     16, and a verify window), every pair checked the same way and the
+     float32 pair timed.
   4. flash: the flash-attention forward (K1), dQ (K2) and dK/dV (K3)
      kernels against their plain versions on the card, bf16 and float32, at
      gpt2_small (B16 S1024 H12 D64), gpt_1b (B4 S1024 H16/8 D128), a
@@ -78,8 +82,8 @@ of its checks fails:
      text (at least one request retires on
      "eos", at most 96 pages in use), (d) ``scheduler="batch"``, (e) a
      float32 KV cache under the bf16 model (K4's bf16 q / float32 pool
-     pair, FMA), (f) the same weights in float32 over a bf16 KV cache
-     (K4's float32 q / bf16 pool pair, on the tensor cores; each route
+     pair), (f) the same weights in float32 over a bf16 KV cache (K4's
+     float32 q / bf16 pool pair; both on the tensor cores, each route
      checked); the 12 requests each: tokens/s, TTFT,
      decode-step ms, K4 launches exact per dtype pair (0 off the
      in-place lane), temperature-0 texts equal to serve-8's (counted, not
@@ -536,11 +540,15 @@ ROOT = Path(__file__).resolve().parent
 # one H100 SXM (NVIDIA's data sheet, dense, at its 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # f32 off tensor cores
-# float32 on the tensor cores as split-bf16 products: the float32 K1 takes
-# six bf16 products for each float32 one (both operands in three parts),
-# K4's float32 q over a bf16 pool three (q and P in three parts, the pool
-# exact); their operations bound is those products over the bf16 peak
+# float32 on the tensor cores as split-bf16 products: the float32 K1 and
+# K4 over a float32 pool under float32 q take six bf16 products for each
+# float32 one (both operands in three parts); K4's float32 q over a bf16
+# pool three (q and P in three parts, the pool exact); K4's bf16 q over a
+# float32 pool three in S (K in three parts) and six in P.V, 4.5 a product
+# on the whole; their operations bound is those products over the bf16
+# peak
 PEAK_FLOPS.update({"float32_bf16x6": PEAK_FLOPS["bfloat16"] / 6,
+                   "float32_bf16x4.5": PEAK_FLOPS["bfloat16"] / 4.5,
                    "float32_bf16x3": PEAK_FLOPS["bfloat16"] / 3})
 
 SOURCES = ("paged_attention", "flash_attention")
@@ -551,8 +559,16 @@ TENSOR_CORE_KERNELS = (
           for name in ("flash_fwd", "flash_dq", "flash_dkv")
           for d in (64, 128))
     + SPLIT_BF16_K1
-    + tuple(f"paged_attention_split_mma_kernel<{t}, {d}>"
-            for t in ("bf16", "f32") for d in (32, 64, 128, 256)))
+    + tuple(f"paged_attention_split_mma_kernel<{tq}, {tp}, {d}>"
+            for tq in ("bf16", "f32") for tp in ("bf16", "f32")
+            for d in (16, 32, 64, 128, 256)))
+# the instantiations whose ptxas report must show no spill: the float32 K1
+# (three planes of fragments), and K4 over a float32 pool where a main path
+# launches it (llama3_8b's D 128 under either q; llama_debug's D 16, float32
+# in the harness and bf16 over a float32 cache in the parity phase)
+NO_SPILL_KERNELS = SPLIT_BF16_K1 + tuple(
+    f"paged_attention_split_mma_kernel<{tq}, f32, {d}>"
+    for tq, d in (("bf16", 128), ("f32", 128), ("f32", 16), ("bf16", 16)))
 ARENA_LEN = 2048          # serve arena per slot: 128 pages of 16 tokens
 SERVE_NEW_TOKENS = 32
 SPEC_K = 4                # draft tokens per speculative round
@@ -563,11 +579,14 @@ CUT_LAYERS = 8
 CUT_OVERRIDES = {"num_layers": CUT_LAYERS}
 # the verify window's slot cursors: 0 to the last that fits the arena
 VERIFY_LENGTHS = [0, 16, 37, 100, 255, 640, 1024, ARENA_LEN - SPEC_K - 1]
+# K4's decode cursors: 0, page boundaries, and the arena's last token
+DECODE_LENGTHS = [0, 16, 37, 100, 255, 640, 1024, ARENA_LEN - 1]
 TOL = {"float32": (1e-5, 1e-5),       # atol, rtol: sum order differs
        "bfloat16": (1e-5, 2.0 ** -7)}  # at most one bf16 rounding step
 # K4's (q dtype, pool dtype) pairs: one pool dtype as q's, and a pool of
-# the other dtype (``cache_dtype``): float32 q over bf16 on the tensor
-# cores (q in three bf16 parts), bf16 q over float32 on the FMA kernel
+# the other dtype (``cache_dtype``); each runs on the tensor cores at
+# llama3_8b's and llama_debug's shapes, float32 operands as three bf16
+# parts
 K4_PAIRS = {"bfloat16": ("bfloat16", "bfloat16"),
             "float32": ("float32", "float32"),
             "float32_q_bfloat16_pool": ("float32", "bfloat16"),
@@ -589,28 +608,48 @@ def kernel_label(mangled: str) -> str:
     number is the head dim (the largest the kernel takes, for the paged
     split kernels), or the head-dim elements per lane of the paged merge
     kernel. The paged split kernels name q's element type, then the
-    pool's where it is a template argument
-    (``paged_attention_split_kernel<f32, bf16, 128>``,
-    ``paged_attention_split_mma_kernel<f32, 128>``). The flash tensor-core
-    kernels (``*_mma_kernel<D>``) take bf16, but ``flash_fwd_f32_mma_kernel``
-    float32."""
+    pool's (``paged_attention_split_kernel<f32, bf16, 128>``,
+    ``paged_attention_split_mma_kernel<bf16, bf16, 128>``). The flash
+    tensor-core kernels (``*_mma_kernel<D>``) take bf16, but
+    ``flash_fwd_f32_mma_kernel`` float32. A type that repeats in the
+    template arguments is mangled as a substitution (``S1_``: the third
+    name seen, counting each prefix of the nested name), resolved here."""
     import re
 
-    for m in re.finditer(r"_kernelI((?:13__nv_bfloat16|f)*)Li(\d+)E",
-                         mangled):
-        end = m.start() + len("_kernel")
-        # the name's first letter follows its length, in decimal (the
-        # digits before it may end a namespace's name, so a suffix of them)
-        for start in range(m.start(), 0, -1):
-            digits = re.search(r"\d+$", mangled[:start])
-            if mangled[start].isalpha() and digits and any(
-                    int(digits[0][i:]) == end - start
-                    for i in range(len(digits[0]))):
-                name = mangled[start:end]
-                types = ([{"f": "f32"}.get(t, "bf16")
-                          for t in re.findall(r"13__nv_bfloat16|f", m[1])]
-                         or (["f32"] if "_f32_" in name else ["bf16"]))
-                return f"{name}<{', '.join(types)}, {m[2]}>"
+    types = {"f": "f32", "13__nv_bfloat16": "bf16"}
+    for z in re.finditer(r"_ZN?(?=\d)", mangled):
+        # the (nested) name: <length><identifier> pieces up to the
+        # template arguments; each prefix is a substitution candidate
+        i, seen = z.end(), []
+        while (n := re.match(r"\d+", mangled[i:])) is not None:
+            i += len(n[0])
+            seen.append(None)
+            name = mangled[i:i + int(n[0])]
+            i += int(n[0])
+        if not seen or mangled[i:i + 1] != "I":
+            continue
+        args, i = [], i + 1
+        while True:
+            tail = mangled[i:]
+            t = next((k for k in types if tail.startswith(k)), None)
+            sub = re.match(r"S([0-9A-Z]*)_", tail)
+            dim = re.match(r"Li(\d+)E", tail)
+            if t is not None:
+                args.append(types[t])
+                if t[0].isdigit():  # a class type: a candidate of its own
+                    seen.append(types[t])
+                i += len(t)
+            elif sub is not None:
+                k = int(sub[1], 36) + 1 if sub[1] else 0
+                if k >= len(seen) or seen[k] is None:
+                    break
+                args.append(seen[k])
+                i += len(sub[0])
+            elif dim is not None:
+                args = args or (["f32"] if "_f32_" in name else ["bf16"])
+                return f"{name}<{', '.join(args)}, {dim[1]}>"
+            else:
+                break
     return mangled.split()[-1][:60]
 
 
@@ -670,11 +709,13 @@ def build_phase() -> dict:
             raise AssertionError(f"{key}: no HMMA instruction in the built "
                                  "library: the kernel is off the tensor "
                                  "cores")
-    # the float32 K1 holds three planes of fragments: nothing may spill
-    for key in SPLIT_BF16_K1:
-        line = next((ln for ln in out["flash_attention"]["ptxas"]
+    # the float32 K1 and the main path's float32-pool K4: nothing may spill
+    for key in NO_SPILL_KERNELS:
+        name = "flash_attention" if key.startswith("flash") else (
+            "paged_attention")
+        line = next((ln for ln in out[name]["ptxas"]
                      if ln.startswith(f"{key}:")), None)
-        if _build.build_log.get("flash_attention") is not None and (
+        if _build.build_log.get(name) is not None and (
                 line is None or "0 bytes spill stores" not in line
                 or "0 bytes spill loads" not in line):
             raise AssertionError(f"{key} spills or was not reported by "
@@ -833,14 +874,148 @@ def _window_rows_check(torch, paged_attention, case, dtype_name):
                 f"at length + {i}")
 
 
-def kernel_phase(torch) -> dict:
+def _k4_check(torch, case, label, q_name):
+    """One K4 case against its plain version within ``TOL`` of q's dtype:
+    the launch counter moves by one, two calls are bitwise equal, a third
+    under the sync check (the wrapper reads no length or table on the
+    host) too, and the output is finite. Returns (plain output, max
+    |err|)."""
     from ray_tpu_torch.ops.paged_attention import (paged_attention,
                                                    paged_attention_reference)
 
+    atol, rtol = TOL[q_name]  # the output is in q's dtype
+    n0 = paged_attention.launches
+    got = paged_attention(**case)
+    torch.cuda.synchronize()
+    if paged_attention.launches != n0 + 1:
+        raise AssertionError("the launch counter did not move")
+    if not torch.equal(got, paged_attention(**case)):
+        raise AssertionError(f"{label}: two calls differ")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = paged_attention(**case)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    if not torch.equal(got, again):
+        raise AssertionError(f"{label}: the call under the sync check "
+                             "differs")
+    ref = paged_attention_reference(**case)
+    err = (got.float() - ref.float()).abs()
+    limit = atol + rtol * ref.float().abs()
+    max_err = float(err.max())
+    if not bool((err <= limit).all()):
+        raise AssertionError(f"{label}: kernel disagrees with its plain "
+                             f"version (max |err| {max_err:.3e})")
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{label}: non-finite")
+    print(f"kernel {label}: max|err| {max_err:.3e} (tol {atol:g} + "
+          f"{rtol:g}*|ref|); two calls bitwise equal; no host sync in the "
+          "call", flush=True)
+    return ref, max_err
+
+
+def _k4_peak(q_name, pool_name, tensor_cores) -> str:
+    """The peak of K4's route for a pair: the tensor cores in bf16, a
+    float32 operand as three bf16 parts (``PEAK_FLOPS``'s ``float32_bf16x*``
+    keys), or float32 FMA."""
+    if not tensor_cores:
+        return "float32"
+    return {("bfloat16", "bfloat16"): "bfloat16",
+            ("float32", "bfloat16"): "float32_bf16x3",
+            ("bfloat16", "float32"): "float32_bf16x4.5",
+            ("float32", "float32"): "float32_bf16x6"}[q_name, pool_name]
+
+
+def _k4_times(torch, case, ref, max_err, q_name, pool_name, plan) -> dict:
+    """A K4 case's kernel, plain and SDPA times against its bound (and,
+    on the tensor cores in float32, the bound at the FMA peak beside)."""
+    from ray_tpu_torch.ops.paged_attention import (paged_attention,
+                                                   paged_attention_reference)
+
+    atol, rtol = TOL[q_name]
+    compute = _k4_peak(q_name, pool_name, plan["tensor_cores"])
+    sdpa = sdpa_call(torch, case)
+    sdpa_err = float((sdpa().transpose(1, 2).float()
+                      - ref.float()).abs().max())
+    ms = time_ms(torch, lambda: paged_attention(**case))
+    plain_ms = time_ms(torch, lambda: paged_attention_reference(**case),
+                       iters=5, warmup=1)
+    library_ms = time_ms(torch, sdpa)
+    bound_ms, bound_by = bound(case, compute)
+    r = dict(max_abs_err=max_err, atol=atol, rtol=rtol, ms=ms,
+             plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+             bound_by=bound_by, bound_peak=compute,
+             sdpa_max_abs_err=sdpa_err, plan=plan)
+    if compute.startswith("float32_bf16x"):
+        r["fma_bound_ms"] = bound(case, "float32")[0]
+    print(f"  times: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
+          f"{library_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}, peak "
+          f"{compute})", flush=True)
+    return r
+
+
+# llama_debug's K4 shapes (H 4, Hkv 2, D 16, 16-token pages, 128-token
+# arena: 8-page tables) in the harness serve probe (2 slots; cursors 10
+# and 16, the longest each of its prompt lengths 3 and 9 reaches under its
+# 8-token cap), and a verify window over them
+K4_D16 = {"decode_d16": dict(S=2, K=1, lengths=[10, 16], H=4, Hkv=2, D=16,
+                             P=8),
+          "verify_d16": dict(S=2, K=SPEC_K + 1, lengths=[13, 100], H=4,
+                             Hkv=2, D=16, P=8)}
+
+
+# the same tokens in 8-token pages, which the route rule sends to the FMA
+# kernel (the tensor cores take pages of a multiple of 16): llama3_8b's
+# decode, prefill and verify, and llama_debug's D 16 decode and verify
+K4_FMA = {"decode_t8": dict(S=8, K=1, lengths=DECODE_LENGTHS, T=8,
+                            P=ARENA_LEN // 8),
+          "prefill_t8": dict(S=1, K=32, lengths=[45], T=8, P=ARENA_LEN // 8),
+          "verify_t8": dict(S=8, K=SPEC_K + 1, lengths=VERIFY_LENGTHS, T=8,
+                            P=ARENA_LEN // 8),
+          "decode_d16_t8": dict(K4_D16["decode_d16"], T=8, P=16),
+          "verify_d16_t8": dict(K4_D16["verify_d16"], T=8, P=16)}
+
+
+def _k4_fma_route(torch, results, dtype_name, q_name, pool_name):
+    """Each ``K4_FMA`` case of a pair on the FMA kernel, against its plain
+    version; the decode cases of the float32-pool pairs timed beside their
+    16-token cases on the tensor cores; every verify window row equal to
+    its 1-token call."""
+    from ray_tpu_torch.ops.paged_attention import paged_attention
+
+    dtype, pool_dtype = getattr(torch, q_name), getattr(torch, pool_name)
+    for shape_name, shp in K4_FMA.items():
+        case = make_case(torch, dtype, **shp, pool_dtype=pool_dtype)
+        plan = _plan_line(case)
+        if plan["tensor_cores"]:
+            raise AssertionError(f"{shape_name} {dtype_name}: the route "
+                                 "rule sent 8-token pages to the tensor "
+                                 "cores")
+        ref, max_err = _k4_check(torch, case,
+                                 f"{shape_name} {dtype_name} (FMA)", q_name)
+        key = f"{shape_name}_{dtype_name}"
+        if shape_name.startswith("decode") and pool_name == "float32" and (
+                shape_name == "decode_t8" or q_name == "float32"):
+            results[key] = _k4_times(torch, case, ref, max_err, q_name,
+                                     pool_name, plan)
+        else:
+            results[key] = dict(max_abs_err=max_err, plan=plan)
+        if shape_name.startswith("verify"):
+            _window_rows_check(torch, paged_attention,
+                               make_case(torch, dtype, **shp, seed=1,
+                                         pool_dtype=pool_dtype),
+                               f"{dtype_name} (FMA)")
+    print(f"kernel {dtype_name}: on the FMA kernel with 8-token pages, "
+          "every row of the verify windows equals a 1-token call bit for "
+          "bit", flush=True)
+
+
+def kernel_phase(torch) -> dict:
+    from ray_tpu_torch.ops.paged_attention import paged_attention
+
     shapes = {
         # 8 slots, 1 token; lengths include 0 and page boundaries
-        "decode": dict(S=8, K=1, lengths=[0, 16, 37, 100, 255, 640, 1024,
-                                          2047]),
+        "decode": dict(S=8, K=1, lengths=DECODE_LENGTHS),
         # 1 slot, a 32-token prefill chunk at a cursor off a page boundary
         "prefill": dict(S=1, K=32, lengths=[45]),
         # the speculative verify window: 8 slots x (spec_k + 1) tokens
@@ -854,66 +1029,13 @@ def kernel_phase(torch) -> dict:
     results = {}
     for dtype_name, (q_name, pool_name) in K4_PAIRS.items():
         dtype, pool_dtype = getattr(torch, q_name), getattr(torch, pool_name)
-        atol, rtol = TOL[q_name]  # the output is in q's dtype
         for shape_name, shp in shapes.items():
             case = make_case(torch, dtype, **shp, pool_dtype=pool_dtype)
-            n0 = paged_attention.launches
-            got = paged_attention(**case)
-            torch.cuda.synchronize()
-            if paged_attention.launches != n0 + 1:
-                raise AssertionError("the launch counter did not move")
-            if not torch.equal(got, paged_attention(**case)):
-                raise AssertionError(f"{shape_name} {dtype_name}: two calls "
-                                     "differ")
-            # the wrapper must not read lengths or tables on the host
-            torch.cuda.set_sync_debug_mode("error")
-            try:
-                again = paged_attention(**case)
-            finally:
-                torch.cuda.set_sync_debug_mode(0)
-            if not torch.equal(got, again):
-                raise AssertionError(f"{shape_name} {dtype_name}: the call "
-                                     "under the sync check differs")
-            ref = paged_attention_reference(**case)
-            err = (got.float() - ref.float()).abs()
-            limit = atol + rtol * ref.float().abs()
-            max_err = float(err.max())
-            if not bool((err <= limit).all()):
-                raise AssertionError(
-                    f"{shape_name} {dtype_name}: kernel disagrees with its "
-                    f"plain version (max |err| {max_err:.3e})")
-            if not torch.isfinite(got).all():
-                raise AssertionError(f"{shape_name} {dtype_name}: non-finite")
-            print(f"kernel {shape_name} {dtype_name}: max|err| "
-                  f"{max_err:.3e} (tol {atol:g} + {rtol:g}*|ref|); two "
-                  "calls bitwise equal; no host sync in the call",
-                  flush=True)
+            ref, max_err = _k4_check(torch, case,
+                                     f"{shape_name} {dtype_name}", q_name)
             plan = _plan_line(case)
-            # the peak of the route: the tensor cores in bf16 (float32 q as
-            # three bf16 products), float32 FMA otherwise
-            compute = (("bfloat16" if q_name == "bfloat16"
-                        else "float32_bf16x3") if plan["tensor_cores"]
-                       else "float32")
-            sdpa = sdpa_call(torch, case)
-            sdpa_err = float((sdpa().transpose(1, 2).float()
-                              - ref.float()).abs().max())
-            ms = time_ms(torch, lambda: paged_attention(**case))
-            plain_ms = time_ms(torch,
-                               lambda: paged_attention_reference(**case),
-                               iters=5, warmup=1)
-            library_ms = time_ms(torch, sdpa)
-            bound_ms, bound_by = bound(case, compute)
-            r = dict(max_abs_err=max_err, atol=atol, rtol=rtol, ms=ms,
-                     plain_ms=plain_ms, library_ms=library_ms,
-                     bound_ms=bound_ms, bound_by=bound_by,
-                     bound_peak=compute, sdpa_max_abs_err=sdpa_err,
-                     plan=plan)
-            if compute == "float32_bf16x3":
-                r["fma_bound_ms"] = bound(case, "float32")[0]
-            results[f"{shape_name}_{dtype_name}"] = r
-            print(f"  times: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                  f"sdpa {library_ms:.4f} ms, bound {bound_ms:.5f} ms "
-                  f"({bound_by}, peak {compute})", flush=True)
+            results[f"{shape_name}_{dtype_name}"] = _k4_times(
+                torch, case, ref, max_err, q_name, pool_name, plan)
         # row i of a 32-token window == a 1-token call at length + i
         for shp in windows:
             _window_rows_check(torch, paged_attention,
@@ -924,6 +1046,28 @@ def kernel_phase(torch) -> dict:
               f"lengths 45 and 240 and of the {SPEC_K + 1}-token verify "
               f"windows at lengths {VERIFY_LENGTHS} equals a 1-token call "
               "bit for bit", flush=True)
+        # llama_debug's D 16 (its serving in the harness and the parity
+        # phase): checked for every pair, timed for the float32 one, whose
+        # launches the kernels line counts there
+        for shape_name, shp in K4_D16.items():
+            case = make_case(torch, dtype, **shp, pool_dtype=pool_dtype)
+            ref, max_err = _k4_check(torch, case,
+                                     f"{shape_name} {dtype_name}", q_name)
+            plan = _plan_line(case)
+            if (shape_name, dtype_name) == ("decode_d16", "float32"):
+                results["decode_d16_float32"] = _k4_times(
+                    torch, case, ref, max_err, q_name, pool_name, plan)
+            else:
+                results[f"{shape_name}_{dtype_name}"] = dict(
+                    max_abs_err=max_err, plan=plan)
+        _window_rows_check(torch, paged_attention,
+                           make_case(torch, dtype, **K4_D16["verify_d16"],
+                                     seed=1, pool_dtype=pool_dtype),
+                           dtype_name)
+        print(f"kernel {dtype_name}: every row of the D 16 verify windows "
+              f"at lengths {K4_D16['verify_d16']['lengths']} equals a "
+              "1-token call bit for bit", flush=True)
+        _k4_fma_route(torch, results, dtype_name, q_name, pool_name)
     # a pair the kernels have no entry for raises; nothing falls back
     case = make_case(torch, torch.float16, **shapes["decode"])
     try:
@@ -2035,16 +2179,14 @@ def serve_lanes_phase(torch, plain) -> dict:
              "e_cache_f32": "bfloat16/float32",
              "f_f32_cache_bf16": "float32/bfloat16"}
     # the split kernel each pair takes at llama3_8b's decode shape: the
-    # tensor cores over a bf16 pool (float32 q as three bf16 parts), FMA
-    # over a float32 one
+    # tensor cores for each (a float32 operand as three bf16 parts)
     routes = {}
     for name, pair in pairs.items():
         qb, pb = (2 if d == "bfloat16" else 4 for d in pair.split("/"))
         routes[name] = ("tensor cores" if split_plan(
             8, 1, cfg.num_heads, cfg.kv_heads, cfg.head_dim, 16,
             ARENA_LEN // 16, pb, qb).tensor_cores else "FMA")
-    if (routes["f_f32_cache_bf16"], routes["e_cache_f32"]) != (
-            "tensor cores", "FMA"):
+    if set(routes.values()) != {"tensor cores"}:
         raise AssertionError(f"serve-lanes: K4's routes {routes}")
     out = {"eos_id": eos}
     for name, kw in configs.items():
@@ -7815,12 +7957,13 @@ def main() -> int:
                 "dkv": "flash_dkv"}[name]]))
     # K4 through the harness scripts (phase 22): the paged-lane probe's
     # "cuda" arm at llama3_8b width in bf16 (c); in float32 (llama_debug,
-    # timed at llama3_8b's decode shape), the microbenchmark's serve probe
-    # in this process (b) and the serve chaos run's live replicas (d)
+    # timed at its own decode shape in the serve probe, D 16), the
+    # microbenchmark's serve probe in this process (b) and the serve chaos
+    # run's live replicas (d)
     kernels["kernels"].append(dict(
         kernels["kernels"][0], name="paged_attention_harness_paged_lane",
         launches=harness["paged"]["k4"]))
-    case = kern["decode_float32"]
+    case = kern["decode_d16_float32"]
     for suffix, n in (
             ("harness_serve_probe",
              harness["groups"]["groups"]["serve_group"]["k4"]),

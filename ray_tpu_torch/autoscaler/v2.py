@@ -28,7 +28,7 @@ import dataclasses
 import logging
 import time
 import uuid
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional
 
 from ray_tpu_torch.autoscaler.autoscaler import (AutoscalerConfig,
                                                  _nodes_to_launch,
@@ -63,6 +63,7 @@ class Instance:
     node_type: str
     status: str = QUEUED
     provider_id: str = ""       # cloud node id once ALLOCATED
+    requested_id: str = ""      # the id create_node returned for it
     node_id_hex: str = ""       # control-plane node id once RAY_RUNNING
     launch_request_id: str = ""
     retries: int = 0
@@ -123,27 +124,37 @@ class Reconciler:
         self.im = im or InstanceManager()
         self.idle_timeout_s = idle_timeout_s
         self._idle_since: Dict[str, float] = {}
-        # (node_type, expires_at) markers for timed-out allocation
-        # requests that may still fill late; consumed by terminating the
-        # stray node, and EXPIRED after 2x the allocation timeout so a
-        # never-filled stockout can't leave a permanent kill-marker that
-        # would reap a legitimate out-of-band node months later
-        self._abandoned_requests: List[Tuple[str, float]] = []
+        # provider id -> expires_at for timed-out allocation requests
+        # that may still fill late; consumed by terminating the stray
+        # node, and EXPIRED after 2x the allocation timeout. Keyed by the
+        # id create_node returned, so the reaper can only ever terminate
+        # a node this autoscaler requested (a provider that returns no
+        # ids leaves no marker: its late fill is never reaped)
+        self._abandoned_requests: Dict[str, float] = {}
 
     # ---- observation sync ------------------------------------------
 
     def _sync_provider(self) -> None:
         """Match REQUESTED/ALLOCATED instances against the provider's
-        live node list; time out requests the cloud never filled."""
+        live node list; time out requests the cloud never filled. An
+        instance adopts the node whose id create_node returned for it;
+        only where the provider returned no id does it adopt by type an
+        unclaimed node that no other instance requested."""
         live = {n["id"]: n for n in self.provider.non_terminated_nodes()}
         claimed = {i.provider_id for i in self.im.instances.values()
                    if i.provider_id}
+        requested = {i.requested_id for i in self.im.instances.values()
+                     if i.requested_id}
         for inst in self.im.by_status(REQUESTED):
-            # adopt an unclaimed provider node of the right type
-            match = next(
-                (pid for pid, n in live.items()
-                 if n["node_type"] == inst.node_type
-                 and pid not in claimed), None)
+            if inst.requested_id:
+                match = inst.requested_id if inst.requested_id in live \
+                    else None
+            else:
+                match = next(
+                    (pid for pid, n in live.items()
+                     if n["node_type"] == inst.node_type
+                     and pid not in claimed and pid not in requested),
+                    None)
             if match is not None:
                 inst.provider_id = match
                 claimed.add(match)
@@ -155,30 +166,21 @@ class Reconciler:
                 # the cloud request is still outstanding: if it fills
                 # AFTER the retry's request, the stray node must be
                 # terminated, not silently leaked as a billable orphan
-                self._abandoned_requests.append(
-                    (inst.node_type, time.monotonic()
-                     + max(2 * self.ALLOCATION_TIMEOUT_S, 300.0)))
+                if inst.requested_id:
+                    self._abandoned_requests[inst.requested_id] = (
+                        time.monotonic()
+                        + max(2 * self.ALLOCATION_TIMEOUT_S, 300.0))
         # reap late fills of abandoned requests: a live provider node no
-        # instance claims, of an abandoned type, is terminated (consume
-        # one marker per node so legitimate future launches still adopt)
+        # instance claims, whose id an abandoned request was given
         now = time.monotonic()
-        self._abandoned_requests = [
-            m for m in self._abandoned_requests if m[1] > now]
-        if self._abandoned_requests:
-            claimed = {i.provider_id for i in self.im.instances.values()
-                       if i.provider_id}
-            for pid, n in list(live.items()):
-                if pid in claimed:
-                    continue
-                marker = next((m for m in self._abandoned_requests
-                               if m[0] == n["node_type"]), None)
-                if marker is not None and not any(
-                        i.status == REQUESTED
-                        and i.node_type == n["node_type"]
-                        for i in self.im.instances.values()):
-                    self._abandoned_requests.remove(marker)
-                    self.provider.terminate_node(pid)
-                    live.pop(pid, None)
+        self._abandoned_requests = {
+            pid: t for pid, t in self._abandoned_requests.items()
+            if t > now}
+        for pid in [p for p in self._abandoned_requests
+                    if p in live and p not in claimed]:
+            del self._abandoned_requests[pid]
+            self.provider.terminate_node(pid)
+            live.pop(pid)
         for inst in self.im.by_status(ALLOCATED, RAY_RUNNING):
             if inst.provider_id not in live:
                 # the cloud reclaimed it under us (preemption)
@@ -225,13 +227,16 @@ class Reconciler:
             nt = next(t for t in self.config.node_types
                       if t.name == type_name)
             try:
-                self.provider.create_node(nt, len(insts))
+                ids = list(self.provider.create_node(nt, len(insts)) or [])
             except Exception as e:
                 for inst in insts:
                     self.im.transition(inst, REQUESTED, "create_node")
                     self.im.transition(inst, ALLOCATION_FAILED, str(e))
                 continue
-            for inst in insts:
+            # the ids the provider returned, one an instance in order (a
+            # retry's new request replaces the abandoned one's id)
+            for k, inst in enumerate(insts):
+                inst.requested_id = str(ids[k]) if k < len(ids) else ""
                 self.im.transition(inst, REQUESTED, "create_node")
 
     def _desired_new(self, alive: List[dict],

@@ -36,32 +36,63 @@
 //     then a butterfly); pass 2 sums P.V. The block writes (m, l, acc) of
 //     each row to a float32 workspace the wrapper allocates, and a second
 //     kernel of the same call merges a row's splits in ascending order.
-//   * bf16 pools (head widths 32, 64, 128, 256; pages of a multiple of 16
-//     tokens), llama3_8b's serve path, under bf16 or float32 q:
-//     paged_attention_split_mma_kernel<TQ>. The products run on the tensor
-//     cores (mma.sync m16n8k16, float32 sums), so a page's arithmetic is a
-//     few dozen instructions a warp: a step is 4 pages, one a warp, two
-//     steps in flight; the query tile is always 16 rows (zeros past the
-//     call's rows). Under bf16 q, P goes to P.V as bf16 hi + lo parts, so
-//     it keeps float32's precision to ~2^-17. Float32 q (a float32 model
-//     over a bf16 cache: the TPU kernel widens q and every page to float32,
-//     and writes q's dtype) is split once into three bf16 planes in shared
-//     memory (hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid),
-//     whose sum is x exactly), so S is the sum of three exact products over
-//     the unchanged bf16 pages, and P goes to P.V in three parts: the
-//     float32 products of the FMA kernel, in another order of sums. What
-//     held that pair back on the FMA kernel was not its bytes (the same as
-//     the bf16 pair's) but its dependent float32 chains per page.
-//   * float32 pools, the other bf16 shapes, bf16 q over a float32 pool (the
-//     TPU kernel widens both, and so does this one), and float32 q over a
-//     bf16 pool whose tensor-core tile does not fit one block's shared
-//     memory: paged_attention_split_kernel, float32 FMA. Every warp has work at decode (K G = 4 rows): a
-//     score (row, key) is one quad of lanes, each lane a sequential FMA
-//     chain over its eighth of D, summed by two shuffles; P.V gives each
-//     thread 4 columns of up to kRowTile / (128 / (D / 4)) rows, a
-//     sequential FMA chain over keys. Its ring holds kRing single pages,
-//     rows padded so the 16-byte reads of two neighbouring rows fall in
-//     distinct banks.
+//   * the tensor cores, paged_attention_split_mma_kernel<TQ, TP, D>: every
+//     (q, pool) dtype pair at head widths 16, 32, 64, 128 and 256 with
+//     pages of a multiple of 16 tokens, where the tile fits one block
+//     (llama3_8b's serve path in each pair, llama_debug's at D 16). The
+//     products run as mma.sync m16n8k16 (bf16 parts, float32 sums), so a
+//     page's arithmetic is a few dozen instructions a warp: a step is 4
+//     pages, one a warp; the query tile is always 16 rows (zeros past the
+//     call's rows). A float32 value is the sum of three bf16 parts
+//     exactly (hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid)),
+//     and a product of two parts is exact in float32, so the float32
+//     operands the TPU kernel widens to keep their precision:
+//       - bf16 pools: K and V fragments by ldmatrix, 3 steps in the ring
+//         (two in flight). Under bf16 q, P goes to P.V as bf16 hi + lo
+//         parts (float32's precision to ~2^-17). Float32 q (a float32
+//         model over a bf16 cache: the TPU kernel widens q and every page
+//         and writes q's dtype) is split once into three bf16 planes in
+//         shared memory, so S is three exact products over the unchanged
+//         pages, and P goes to P.V in three parts. At D 128 and 16-token
+//         pages a block takes 73,536 B (3 fit an SM) or, under float32 q,
+//         82,240 B (2 fit).
+//       - float32 pools (under bf16 q the TPU kernel widens both): the
+//         pages land as float32 by the same 16-byte cp.async copies, and
+//         each K or V element is split into its three parts in registers
+//         as its fragment is read. At decode every element feeds one
+//         product (the K G = 4 rows share one 16-row tile), so bf16 planes
+//         in shared memory would cost 1.5x the page's bytes for no reuse.
+//         ldmatrix reads b16 only, so the fragments are plain shared loads
+//         in mma's B layout: for S two 64-bit loads a lane (key g; dims
+//         2t, 2t + 1 and 2t + 8, 2t + 9), for P.V four 32-bit loads (keys
+//         2t, 2t + 1, 2t + 8, 2t + 9; column g). Padding: a K row is D + 8
+//         floats, so the four keys g of a half-warp's 64-bit loads lie 8
+//         banks apart (D + 8 = 8 mod 32; 24 at D 16); a V row is D + 4
+//         floats, so the four keys 2t of a warp's 32-bit loads lie 8 banks
+//         apart (2 (D + 4) = 8 mod 32) and its 32 loads hit 32 banks. Both
+//         keep rows of a multiple of 16 bytes. S is q times K's three
+//         parts under bf16 q, and under float32 q the six products of
+//         parts above 2^-24 (lo.hi, mid.mid, hi.lo, mid.hi, hi.mid,
+//         hi.hi); P.V is P in three parts times V in three, the same six.
+//         mma.sync rounds each float32 sum it returns toward zero, the
+//         same way each time, so S takes the small products over every
+//         k-step first and hi . hi last, and each page's P.V is summed
+//         from zero in that order, then added to the accumulator by one
+//         float32 add. The ring holds 2 steps (one in flight): at D 128
+//         and 16-token pages a block takes 90,944 B (bf16 q) or 99,648 B
+//         (float32 q), so 2 fit an SM (3 steps: 125-134 KB, 1 block).
+//     What held the float32-q and float32-pool pairs back on the FMA
+//     kernel was not their bytes but their dependent float32 chains per
+//     page.
+//   * float32 FMA, paged_attention_split_kernel: the other head widths
+//     (D 96, say), pages of 8 tokens, and tiles that do not fit one
+//     block's shared memory. Every warp has work at decode (K G = 4
+//     rows): a score (row, key) is one quad of lanes, each lane a
+//     sequential FMA chain over its eighth of D, summed by two shuffles;
+//     P.V gives each thread 4 columns of up to kRowTile / (128 / (D / 4))
+//     rows, a sequential FMA chain over keys. Its ring holds kRing single
+//     pages, rows padded so the 16-byte reads of two neighbouring rows fall
+//     in distinct banks.
 //
 // Row i of a K-token window equals a K=1 call at lengths[s] + i bit for
 // bit: a row's arithmetic depends only on its own position. The split
@@ -300,7 +331,7 @@ paged_attention_split_kernel(const TQ* __restrict__ q,         // [S,K,H,D]
           part[u] = 0.f;
         }
 #pragma unroll
-        for (int cs = 0; cs < DMAX / 32; ++cs) {
+        for (int cs = 0; cs < (DMAX + 31) / 32; ++cs) {
           const int ch = ql + 4 * cs;
           if (ch < c8) {
 #pragma unroll
@@ -393,11 +424,18 @@ paged_attention_split_kernel(const TQ* __restrict__ q,         // [S,K,H,D]
   }
 }
 
-// ------------------------------------------ tensor cores: bf16, D % 16 == 0
+// ---------------------------------------------- tensor cores: D % 16 == 0
 
 using bf16 = __nv_bfloat16;
 constexpr int kStep = kWarps;  // pages a step of the mma kernel: one a warp
-constexpr int kRingSteps = 3;  // steps in its ring: two in flight
+
+// steps of the mma kernel's ring: three over bf16 pools (two in flight
+// while one is multiplied); two over float32 pools, whose pages take twice
+// the bytes, so that two blocks of llama3_8b's (D 128, 16-token pages)
+// still fit an SM
+__host__ __device__ constexpr int ring_steps(int elem_p) {
+  return elem_p == 4 ? 2 : 3;
+}
 
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile(
@@ -444,6 +482,23 @@ __device__ __forceinline__ void split3(float2 p, uint32_t& hi, uint32_t& mid,
   mid = *reinterpret_cast<const uint32_t*>(&m);
   lo = *reinterpret_cast<const uint32_t*>(&l);
 }
+// the hi part alone, packed as split3's
+__device__ __forceinline__ uint32_t hi_part(float2 p) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(p.x, p.y);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+// c += the five products of three-part operands whose parts lie above
+// 2^-24 of hi . hi, smallest first (lo.hi, mid.mid, hi.lo, mid.hi,
+// hi.mid); a[p], b0[p], b1[p]: part p (0 hi, 1 mid, 2 lo)
+__device__ __forceinline__ void mma5(float (&c)[4], const uint32_t (&a)[3][4],
+                                     const uint32_t (&b0)[3],
+                                     const uint32_t (&b1)[3]) {
+  mma(c, a[2], b0[0], b1[0]);
+  mma(c, a[1], b0[1], b1[1]);
+  mma(c, a[0], b0[2], b1[2]);
+  mma(c, a[1], b0[0], b1[0]);
+  mma(c, a[0], b0[1], b1[1]);
+}
 // Per-lane element offsets into a [rows][ld] bf16 tile for ldmatrix.x4:
 // a_off, the A fragment of rows 0-15, columns 0-15 (also, .trans, the B
 // fragments of two 8-column n-tiles over rows 0-15 as the depth); b_off,
@@ -455,16 +510,24 @@ __device__ __forceinline__ int b_off(int lane, int ld) {
   return ((lane & 7) + (lane >> 4) * 8) * ld + ((lane >> 3) & 1) * 8;
 }
 
-// dynamic shared memory of the mma kernel: the page ring (reused for the
-// warps' partial sums at the end), the query tile (q_planes bf16 planes of
-// it: 1 for bf16 q, 3 for float32 q), the scores, page ids
+// Row strides of the mma kernel's shared tiles, in elements: the query
+// planes, bf16 pages, float32 K pages and the warps' partial sums D + 8;
+// float32 V pages D + 4 (see the file head for why each).
 __host__ __device__ constexpr int mma_ld(int D) { return D + 8; }
+template <typename TP>
+__host__ __device__ constexpr int v_ld(int D) {
+  return std::is_same<TP, float>::value ? D + 4 : D + 8;
+}
 __host__ __device__ constexpr int mma_sc_ld(int Tp) {
   return pages_per_split(Tp) * Tp + 8;
 }
-__host__ __device__ constexpr int split_mma_smem(int D, int Tp,
-                                                 int q_planes) {
-  return kRingSteps * kStep * Tp * mma_ld(D) * 2 +
+// dynamic shared memory of the mma kernel: the page ring (rows of the
+// pool's elements; reused for the warps' partial sums at the end), the
+// query tile (q_planes bf16 planes of it: 1 for bf16 q, 3 for float32 q),
+// the scores, page ids
+__host__ __device__ constexpr int split_mma_smem(int D, int Tp, int q_planes,
+                                                 int elem_p) {
+  return ring_steps(elem_p) * kStep * Tp * mma_ld(D) * elem_p +
          q_planes * kRowTile * mma_ld(D) * 2 + kRowTile * mma_sc_ld(Tp) * 4 +
          pages_per_split(Tp) * 4;
 }
@@ -477,54 +540,127 @@ __host__ __device__ constexpr int q_planes() {
 // Step `st` of the mma kernel's ring (st < nks: k pages 4 st .. 4 st + 3
 // of the split; nks <= st < 2 nks: those v pages) into its slots, then one
 // commit group (empty past the last step).
-template <int D>
+template <typename TP, int D>
 __device__ __forceinline__ void issue_step(
-    int st, int nks, int n, bf16* ring, const bf16* __restrict__ k_pool,
-    const bf16* __restrict__ v_pool, const int* pids, int kvh, int Hkv,
+    int st, int nks, int n, TP* ring, const TP* __restrict__ k_pool,
+    const TP* __restrict__ v_pool, const int* pids, int kvh, int Hkv,
     int Tp) {
-  constexpr int ld = mma_ld(D);
-  constexpr int chunks = D / 8;  // 16-byte pieces of a row
+  constexpr int kVec = 16 / sizeof(TP);  // elements of a 16-byte piece
+  constexpr int chunks = D / kVec;       // pieces of a row
   if (st < 2 * nks) {
     const bool is_v = st >= nks;
+    const int ld = is_v ? v_ld<TP>(D) : mma_ld(D);
     const int p0 = kStep * (is_v ? st - nks : st);
     const size_t tok_stride = static_cast<size_t>(Hkv) * D;
-    bf16* slots = ring + (st % kRingSteps) * kStep * Tp * ld;
+    TP* slots =
+        ring + (st % ring_steps(sizeof(TP))) * kStep * Tp * mma_ld(D);
     for (int j = 0; j < kStep && p0 + j < n; ++j) {
-      const bf16* src = (is_v ? v_pool : k_pool) +
-                        static_cast<size_t>(pids[p0 + j]) * Tp * tok_stride +
-                        static_cast<size_t>(kvh) * D;
-      bf16* dst = slots + j * Tp * ld;
+      const TP* src = (is_v ? v_pool : k_pool) +
+                      static_cast<size_t>(pids[p0 + j]) * Tp * tok_stride +
+                      static_cast<size_t>(kvh) * D;
+      TP* dst = slots + j * Tp * mma_ld(D);
       for (int e = threadIdx.x; e < Tp * chunks; e += kThreads) {
         const int row = e / chunks;
         const int c = e % chunks;
-        cp_async16(smem_addr(dst + row * ld + 8 * c),
-                   src + row * tok_stride + 8 * c);
+        cp_async16(smem_addr(dst + row * ld + kVec * c),
+                   src + row * tok_stride + kVec * c);
       }
     }
   }
   cp_async_commit();
 }
 
+// S over one 16-key tile of a float32 K page (rows of mma_ld(D) floats):
+// the B fragments are read as plain 64-bit loads in mma's layout (lane
+// (g, t): key g of each 8-key n-tile, dims 2t, 2t + 1 and 2t + 8, 2t + 9
+// of each k-step) and split into three bf16 parts in registers. The small
+// products over every k-step first (bf16 q: q.lo, q.mid; float32 q: the
+// five of mma5), then hi . hi over every k-step.
+template <int D, int kQP>
+__device__ __forceinline__ void scores_f32_page(float (&sf)[2][4],
+                                                const float* kf,
+                                                uint32_t qs_a) {
+  constexpr int ld = mma_ld(D);
+  constexpr uint32_t kQPlaneBytes = kRowTile * ld * 2;
+#pragma unroll
+  for (int kd = 0; kd < D / 16; ++kd) {
+    uint32_t qa[kQP][4];
+#pragma unroll
+    for (int p = 0; p < kQP; ++p)
+      ldsm_x4(qa[p], qs_a + p * kQPlaneBytes + kd * 32);
+#pragma unroll
+    for (int nn = 0; nn < 2; ++nn) {
+      const float* row = kf + 8 * nn * ld + 16 * kd;
+      uint32_t b0[3], b1[3];  // hi, mid, lo
+      split3(*reinterpret_cast<const float2*>(row), b0[0], b0[1], b0[2]);
+      split3(*reinterpret_cast<const float2*>(row + 8), b1[0], b1[1], b1[2]);
+      if constexpr (kQP == 1) {
+        mma(sf[nn], qa[0], b0[2], b1[2]);
+        mma(sf[nn], qa[0], b0[1], b1[1]);
+      } else {
+        mma5(sf[nn], qa, b0, b1);
+      }
+    }
+  }
+#pragma unroll
+  for (int kd = 0; kd < D / 16; ++kd) {
+    uint32_t qa[4];
+    ldsm_x4(qa, qs_a + kd * 32);
+#pragma unroll
+    for (int nn = 0; nn < 2; ++nn) {
+      const float* row = kf + 8 * nn * ld + 16 * kd;
+      mma(sf[nn], qa, hi_part(*reinterpret_cast<const float2*>(row)),
+          hi_part(*reinterpret_cast<const float2*>(row + 8)));
+    }
+  }
+}
+
+// P's A fragment of a 16-key tile from the scores (rows g and g + 8 of
+// the tile, keys 2t, 2t + 1 and 2t + 8, 2t + 9 from column `col`)
+__device__ __forceinline__ void p_frag(float2 (&pf)[4], const float* sc,
+                                       int ldsc, int g, int col) {
+  pf[0] = *reinterpret_cast<const float2*>(sc + g * ldsc + col);
+  pf[1] = *reinterpret_cast<const float2*>(sc + (g + 8) * ldsc + col);
+  pf[2] = *reinterpret_cast<const float2*>(sc + g * ldsc + col + 8);
+  pf[3] = *reinterpret_cast<const float2*>(sc + (g + 8) * ldsc + col + 8);
+}
+// V's B fragment of n-tile column c (this lane's column, g), keys 2t,
+// 2t + 1 (x) and 2t + 8, 2t + 9 (y) of a 16-key tile of a float32 V page
+// (rows of ld floats): four plain 32-bit loads
+__device__ __forceinline__ void v_frag(float2& x, float2& y, const float* vf,
+                                       int ld) {
+  x = make_float2(vf[0], vf[ld]);
+  y = make_float2(vf[8 * ld], vf[9 * ld]);
+}
+
 // One split of one (slot, kv head, 16-row tile) on the tensor cores, for
-// bf16 pools with D % 16 == 0 and Tp % 16 == 0, under q in TQ (bf16 or
-// float32). The same plan, workspace and merge as
+// pools in TP (bf16 or float32) with D % 16 == 0 and Tp % 16 == 0, under q
+// in TQ (bf16 or float32). The same plan, workspace and merge as
 // paged_attention_split_kernel. A step is 4 pages, one a warp; pass 1 (k
 // pages): S = Q.K^T by mma.sync m16n8k16, Q's fragments read from shared
-// memory at each k-step (float32 q: from each of its three planes, the
-// smallest part first), scaled, masked and written to the scores; the
-// split's exact softmax as in the FMA kernel; pass 2 (v pages): each warp
-// sums P.V over its own pages (pages w, w + 4, ... of the split, in
-// order) with P split into bf16 parts (hi and lo under bf16 q, so P keeps
-// float32's precision to about 2^-17; hi, mid and lo under float32 q, so P
-// is exact); the four warps' sums are then added in warp order. Every
-// element of a product depends only on its own row of the query tile, and
-// a row's masked keys give exact zeros in P, so row i of a window is still
-// a 1-token call at lengths[s] + i bit for bit.
-template <typename TQ, int D>
+// memory at each k-step (float32 q: from each of its three planes),
+// scaled, masked and written to the scores; the split's exact softmax as
+// in the FMA kernel; pass 2 (v pages): each warp sums P.V over its own
+// pages (pages w, w + 4, ... of the split, in order); the four warps' sums
+// are then added in warp order.
+//   * bf16 pools: K and V fragments by ldmatrix. S: the products over
+//     every k-step (float32 q: its lo, mid, hi planes at each k-step).
+//     P.V: P as bf16 hi + lo parts (bf16 q: P keeps float32's precision
+//     to about 2^-17) or hi, mid, lo (float32 q: P exact), added straight
+//     into the accumulators.
+//   * float32 pools: K and V fragments as plain loads, each element split
+//     into three bf16 parts in registers (scores_f32_page, v_frag). S:
+//     the small products over every k-step, then hi . hi. P.V: P and V in
+//     three parts, six products, each page's sum taken from zero in the
+//     same order and added to the accumulators with one float32 add.
+// Every element of a product depends only on its own row of the query
+// tile, and a row's masked keys give exact zeros in P, so row i of a
+// window is still a 1-token call at lengths[s] + i bit for bit.
+template <typename TQ, typename TP, int D>
 __global__ void __launch_bounds__(kThreads)
 paged_attention_split_mma_kernel(const TQ* __restrict__ q,
-                                 const bf16* __restrict__ k_pool,
-                                 const bf16* __restrict__ v_pool,
+                                 const TP* __restrict__ k_pool,
+                                 const TP* __restrict__ v_pool,
                                  const int* __restrict__ tables,
                                  const int* __restrict__ lengths,
                                  float* __restrict__ ws_acc,
@@ -532,9 +668,12 @@ paged_attention_split_mma_kernel(const TQ* __restrict__ q,
                                  int Hkv, int N, int Tp, int P, int splits,
                                  float sm_scale) {
   constexpr int ld = mma_ld(D);
+  constexpr int ldv = v_ld<TP>(D);
   constexpr int KD = D / 16;  // k-steps over D
   constexpr int DN = D / 8;   // n-tiles over D
   constexpr int kQP = q_planes<TQ>();
+  constexpr bool kF32Pool = std::is_same<TP, float>::value;
+  constexpr int kRS = ring_steps(sizeof(TP));
   constexpr uint32_t kQPlaneBytes = kRowTile * ld * 2;
   extern __shared__ __align__(16) unsigned char smem[];
   const int s = blockIdx.x;
@@ -552,8 +691,9 @@ paged_attention_split_mma_kernel(const TQ* __restrict__ q,
   const int g = lane >> 2;
   const int t = lane & 3;
 
-  bf16* ring = reinterpret_cast<bf16*>(smem);  // [kRingSteps * 4][Tp][ld]
-  bf16* qs = ring + kRingSteps * kStep * Tp * ld;       // [kQP][16][ld]
+  TP* ring = reinterpret_cast<TP*>(smem);  // [kRS * 4][Tp][ld]
+  // [kQP][16][ld]
+  bf16* qs = reinterpret_cast<bf16*>(ring + kRS * kStep * Tp * ld);
   float* sc = reinterpret_cast<float*>(qs + kQP * kRowTile * ld);  // [16][ldsc]
   int* pids = reinterpret_cast<int*>(sc + kRowTile * ldsc);  // [pps]
 
@@ -604,8 +744,8 @@ paged_attention_split_mma_kernel(const TQ* __restrict__ q,
   }
   __syncthreads();  // the page ids (and float32 q's planes) are in place
 #pragma unroll
-  for (int st = 0; st < kRingSteps - 1; ++st)
-    issue_step<D>(st, nks, n, ring, k_pool, v_pool, pids, kvh, Hkv, Tp);
+  for (int st = 0; st < kRS - 1; ++st)
+    issue_step<TP, D>(st, nks, n, ring, k_pool, v_pool, pids, kvh, Hkv, Tp);
 
   float acc[DN][4];
 #pragma unroll
@@ -615,31 +755,28 @@ paged_attention_split_mma_kernel(const TQ* __restrict__ q,
   const uint32_t qs_a = smem_addr(qs + a_off(lane, ld));
 
   for (int st = 0; st < 2 * nks; ++st) {
-    issue_step<D>(st + kRingSteps - 1, nks, n, ring, k_pool, v_pool, pids,
-                  kvh, Hkv, Tp);
-    cp_async_wait<kRingSteps - 1>();  // step st has landed
+    issue_step<TP, D>(st + kRS - 1, nks, n, ring, k_pool, v_pool, pids, kvh,
+                      Hkv, Tp);
+    cp_async_wait<kRS - 1>();  // step st has landed
     __syncthreads();
     const bool kpass = st < nks;
     const int pg = kStep * (kpass ? st : st - nks) + warp;  // page of split
-    const bf16* page = ring + ((st % kRingSteps) * kStep + warp) * Tp * ld;
+    const TP* page = ring + ((st % kRS) * kStep + warp) * Tp * ld;
     if (pg < n && kpass) {
       // S = Q.K^T over the page's 16-key tiles
-      const uint32_t kb_addr = smem_addr(page + b_off(lane, ld));
       for (int kt = 0; kt < Tp / 16; ++kt) {
         float sf[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+        if constexpr (kF32Pool) {
+          scores_f32_page<D, kQP>(sf, page + (16 * kt + g) * ld + 2 * t,
+                                  qs_a);
+        } else {
+          const uint32_t kb_addr = smem_addr(page + b_off(lane, ld));
 #pragma unroll
-        for (int kd = 0; kd < KD; ++kd) {
-          if constexpr (kQP == 1) {
-            uint32_t qa[4], kb[4];
-            ldsm_x4(qa, qs_a + kd * 32);
-            ldsm_x4(kb, kb_addr + (16 * kt * ld + 16 * kd) * 2);
-            mma(sf[0], qa, kb[0], kb[1]);
-            mma(sf[1], qa, kb[2], kb[3]);
-          } else {
+          for (int kd = 0; kd < KD; ++kd) {
             uint32_t kb[4];
             ldsm_x4(kb, kb_addr + (16 * kt * ld + 16 * kd) * 2);
 #pragma unroll
-            for (int p = 2; p >= 0; --p) {  // lo, mid, hi
+            for (int p = kQP - 1; p >= 0; --p) {  // lo, mid, hi
               uint32_t qa[4];
               ldsm_x4(qa, qs_a + p * kQPlaneBytes + kd * 32);
               mma(sf[0], qa, kb[0], kb[1]);
@@ -664,42 +801,89 @@ paged_attention_split_mma_kernel(const TQ* __restrict__ q,
           }
       }
     } else if (pg < n) {
-      // acc += P . V over the page's 16-key tiles, P as bf16 hi + lo
-      // (bf16 q) or hi + mid + lo (float32 q)
-      const uint32_t vb_addr = smem_addr(page + a_off(lane, ld));
-      for (int kt = 0; kt < Tp / 16; ++kt) {
-        const int col = pg * Tp + 16 * kt + 2 * t;
-        const float2 pf[4] = {
-            *reinterpret_cast<const float2*>(sc + g * ldsc + col),
-            *reinterpret_cast<const float2*>(sc + (g + 8) * ldsc + col),
-            *reinterpret_cast<const float2*>(sc + g * ldsc + col + 8),
-            *reinterpret_cast<const float2*>(sc + (g + 8) * ldsc + col + 8)};
-        if constexpr (kQP == 1) {
-          uint32_t ph[4], pl[4];
+      if constexpr (kF32Pool) {
+        // acc += P . V, P and V in three parts: the page's sum from zero,
+        // CN n-tiles of the output at a time (so it fits beside acc), the
+        // five small products over its key tiles, then hi . hi
+        constexpr int CN = DN < 8 ? DN : 8;
+        const float* vpage = reinterpret_cast<const float*>(page) +
+                             2 * t * ldv + g;
 #pragma unroll
-          for (int e = 0; e < 4; ++e) split_bf16(pf[e], ph[e], pl[e]);
+        for (int c0 = 0; c0 < DN; c0 += CN) {
+          float pv[CN][4];
 #pragma unroll
-          for (int dd = 0; dd < DN / 2; ++dd) {
-            uint32_t vb[4];
-            ldsm_x4_t(vb, vb_addr + (16 * kt * ld + 16 * dd) * 2);
-            mma(acc[2 * dd], ph, vb[0], vb[1]);
-            mma(acc[2 * dd + 1], ph, vb[2], vb[3]);
-            mma(acc[2 * dd], pl, vb[0], vb[1]);
-            mma(acc[2 * dd + 1], pl, vb[2], vb[3]);
+          for (int c = 0; c < CN; ++c)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) pv[c][e] = 0.f;
+          for (int kt = 0; kt < Tp / 16; ++kt) {
+            float2 pf[4];
+            p_frag(pf, sc, ldsc, g, pg * Tp + 16 * kt + 2 * t);
+            uint32_t pp[3][4];  // hi, mid, lo
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              split3(pf[e], pp[0][e], pp[1][e], pp[2][e]);
+#pragma unroll
+            for (int c = 0; c < CN; ++c) {
+              float2 x, y;
+              v_frag(x, y, vpage + 16 * kt * ldv + 8 * (c0 + c), ldv);
+              uint32_t b0[3], b1[3];
+              split3(x, b0[0], b0[1], b0[2]);
+              split3(y, b1[0], b1[1], b1[2]);
+              mma5(pv[c], pp, b0, b1);
+            }
           }
-        } else {
-          uint32_t pp[3][4];  // hi, mid, lo
+          for (int kt = 0; kt < Tp / 16; ++kt) {
+            float2 pf[4];
+            p_frag(pf, sc, ldsc, g, pg * Tp + 16 * kt + 2 * t);
+            uint32_t ph[4];
 #pragma unroll
-          for (int e = 0; e < 4; ++e)
-            split3(pf[e], pp[0][e], pp[1][e], pp[2][e]);
+            for (int e = 0; e < 4; ++e) ph[e] = hi_part(pf[e]);
 #pragma unroll
-          for (int dd = 0; dd < DN / 2; ++dd) {
-            uint32_t vb[4];
-            ldsm_x4_t(vb, vb_addr + (16 * kt * ld + 16 * dd) * 2);
+            for (int c = 0; c < CN; ++c) {
+              float2 x, y;
+              v_frag(x, y, vpage + 16 * kt * ldv + 8 * (c0 + c), ldv);
+              mma(pv[c], ph, hi_part(x), hi_part(y));
+            }
+          }
 #pragma unroll
-            for (int p = 2; p >= 0; --p) {  // lo, mid, hi
-              mma(acc[2 * dd], pp[p], vb[0], vb[1]);
-              mma(acc[2 * dd + 1], pp[p], vb[2], vb[3]);
+          for (int c = 0; c < CN; ++c)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[c0 + c][e] += pv[c][e];
+        }
+      } else {
+        // acc += P . V over the page's 16-key tiles, P as bf16 hi + lo
+        // (bf16 q) or hi + mid + lo (float32 q)
+        const uint32_t vb_addr = smem_addr(page + a_off(lane, ld));
+        for (int kt = 0; kt < Tp / 16; ++kt) {
+          float2 pf[4];
+          p_frag(pf, sc, ldsc, g, pg * Tp + 16 * kt + 2 * t);
+          if constexpr (kQP == 1) {
+            uint32_t ph[4], pl[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) split_bf16(pf[e], ph[e], pl[e]);
+#pragma unroll
+            for (int dd = 0; dd < DN / 2; ++dd) {
+              uint32_t vb[4];
+              ldsm_x4_t(vb, vb_addr + (16 * kt * ld + 16 * dd) * 2);
+              mma(acc[2 * dd], ph, vb[0], vb[1]);
+              mma(acc[2 * dd + 1], ph, vb[2], vb[3]);
+              mma(acc[2 * dd], pl, vb[0], vb[1]);
+              mma(acc[2 * dd + 1], pl, vb[2], vb[3]);
+            }
+          } else {
+            uint32_t pp[3][4];  // hi, mid, lo
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              split3(pf[e], pp[0][e], pp[1][e], pp[2][e]);
+#pragma unroll
+            for (int dd = 0; dd < DN / 2; ++dd) {
+              uint32_t vb[4];
+              ldsm_x4_t(vb, vb_addr + (16 * kt * ld + 16 * dd) * 2);
+#pragma unroll
+              for (int p = 2; p >= 0; --p) {  // lo, mid, hi
+                mma(acc[2 * dd], pp[p], vb[0], vb[1]);
+                mma(acc[2 * dd + 1], pp[p], vb[2], vb[3]);
+              }
             }
           }
         }
@@ -732,7 +916,7 @@ paged_attention_split_mma_kernel(const TQ* __restrict__ q,
         }
       }
     }
-    __syncthreads();  // the ring slots of step st are free for st + 3
+    __syncthreads();  // the ring slots of step st are free for st + kRS
   }
   cp_async_wait<0>();  // only empty groups are left
 
@@ -834,30 +1018,27 @@ cudaError_t launch_d(const void* q, const void* k_pool, const void* v_pool,
   const int R = K * (H / Hkv);
   const int rt = R < kRowTile ? R : kRowTile;
   const dim3 grid(S, Hkv, splits * ((R + kRowTile - 1) / kRowTile));
-  // the tensor cores take bf16 pools, under bf16 or float32 q, at the head
-  // widths they are built for, where the tile fits one block
-  constexpr bool kBf16Pool = std::is_same<TP, bf16>::value;
-  const int mma_smem = split_mma_smem(D, Tp, q_planes<TQ>());
-  const bool tensor_cores =
-      kBf16Pool && D == DMAX && Tp % 16 == 0 && mma_smem <= kMaxSmem;
+  // the tensor cores take every pair at the head widths they are built for
+  // (every DMAX), pages of a multiple of 16 tokens, where the tile fits one
+  // block
+  const int mma_smem =
+      split_mma_smem(D, Tp, q_planes<TQ>(), static_cast<int>(sizeof(TP)));
+  const bool tensor_cores = D == DMAX && Tp % 16 == 0 && mma_smem <= kMaxSmem;
   const size_t smem = tensor_cores
                           ? mma_smem
                           : split_smem(D, sizeof(TQ), sizeof(TP), Tp, rt);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   cudaError_t err;
-  if constexpr (kBf16Pool) {
-    if (tensor_cores) {
-      auto kernel = paged_attention_split_mma_kernel<TQ, DMAX>;
-      err = set_smem(kernel, smem);
-      if (err != cudaSuccess) return err;
-      kernel<<<grid, kThreads, smem, stream>>>(
-          static_cast<const TQ*>(q), static_cast<const bf16*>(k_pool),
-          static_cast<const bf16*>(v_pool), static_cast<const int*>(tables),
-          static_cast<const int*>(lengths), static_cast<float*>(ws_acc),
-          static_cast<float*>(ws_ml), K, H, Hkv, N, Tp, P, splits, sm_scale);
-    }
-  }
-  if (!tensor_cores) {
+  if (tensor_cores) {
+    auto kernel = paged_attention_split_mma_kernel<TQ, TP, DMAX>;
+    err = set_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, kThreads, smem, stream>>>(
+        static_cast<const TQ*>(q), static_cast<const TP*>(k_pool),
+        static_cast<const TP*>(v_pool), static_cast<const int*>(tables),
+        static_cast<const int*>(lengths), static_cast<float*>(ws_acc),
+        static_cast<float*>(ws_ml), K, H, Hkv, N, Tp, P, splits, sm_scale);
+  } else {
     auto kernel = paged_attention_split_kernel<TQ, TP, DMAX>;
     err = set_smem(kernel, smem);
     if (err != cudaSuccess) return err;
@@ -870,7 +1051,7 @@ cudaError_t launch_d(const void* q, const void* k_pool, const void* v_pool,
   }
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  paged_attention_merge_kernel<TQ, DMAX / 32>
+  paged_attention_merge_kernel<TQ, (DMAX >= 32 ? DMAX / 32 : 1)>
       <<<dim3((R + kWarps - 1) / kWarps, Hkv, S), kThreads, 0, stream>>>(
           static_cast<const float*>(ws_acc),
           static_cast<const float*>(ws_ml), static_cast<const int*>(lengths),
@@ -880,7 +1061,8 @@ cudaError_t launch_d(const void* q, const void* k_pool, const void* v_pool,
 
 // one switch over the head widths the kernels are built for
 #define PAGED_DISPATCH_D(CALL)                                  \
-  if (D <= 32) { constexpr int kD = 32; err = CALL; }           \
+  if (D <= 16) { constexpr int kD = 16; err = CALL; }           \
+  else if (D <= 32) { constexpr int kD = 32; err = CALL; }      \
   else if (D <= 64) { constexpr int kD = 64; err = CALL; }      \
   else if (D <= 128) { constexpr int kD = 128; err = CALL; }    \
   else if (D <= 256) { constexpr int kD = 256; err = CALL; }    \

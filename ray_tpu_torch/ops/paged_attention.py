@@ -9,16 +9,16 @@ slot's live tokens. No contiguous per-slot view is ever built.
     kernels in ``ray_tpu_torch/csrc/paged_attention.cu`` (built by
     ``ops/_build.py``), or raises: one kernel over (slot, kv head, split of
     the page table, tile of query rows) into a float32 workspace, and one
-    that merges each row's splits. The split kernel runs on the tensor
-    cores for bf16 pools at the head widths of ``MMA_HEAD_DIMS`` and pages
-    of a multiple of 16 tokens (llama3_8b's serve path), under bf16 q or
-    float32 q, where its tile fits one block, and float32 FMA otherwise.
-    q and the pools may differ in dtype, as the TPU kernel allows
-    (``cache_dtype``): float32 q over bf16 pools, or bf16 q over float32
-    pools; the TPU kernel widens both to float32. Float32 q on the tensor
-    cores is split into three bf16 parts whose sum is q exactly, so its
-    products over the bf16 pages are float32's; bf16 q over float32 pools
-    takes the FMA kernel, which widens both. The output is in q's dtype.
+    that merges each row's splits. q and the pools may differ in dtype, as
+    the TPU kernel allows (``cache_dtype``): float32 q over bf16 pools, or
+    bf16 q over float32 pools; the TPU kernel widens both to float32. The
+    split kernel runs on the tensor cores for every pair at the head
+    widths of ``MMA_HEAD_DIMS`` (llama3_8b's 128, llama_debug's 16) and
+    pages of a multiple of 16 tokens, where its tile fits one block, and
+    float32 FMA otherwise (D 96, 8-token pages, tiles too large). On the
+    tensor cores a float32 operand (q, a float32 pool's K and V, and the
+    probabilities P) is split into three bf16 parts whose sum is it
+    exactly, so its products are float32's. The output is in q's dtype.
     Any other pair raises.
     ``split_plan`` is the host side of that split; it reads shapes only,
     never ``lengths`` or ``tables``, which stay on the card.
@@ -55,13 +55,16 @@ NEG_INF = -1e30
 MAX_HEAD_DIM = 256
 MAX_PAGE_VECTORS = 4 * 256  # 16-byte vectors of one page and head
 # the kernels' split plan (``csrc/paged_attention.cu``: kSplitKeys,
-# kRowTile, kRing, kRingSteps; the C entry checks pages per split against
+# kRowTile, kRing, ring_steps; the C entry checks pages per split against
 # its own)
 SPLIT_KEYS = 256   # keys per split, in whole pages
 ROW_TILE = 16      # query rows per block
 RING_PAGES = 8     # page slots of the FMA kernel's shared-memory ring
-RING_STEPS = 3     # steps of 4 pages in the tensor-core kernel's ring
-MMA_HEAD_DIMS = (32, 64, 128, 256)  # head widths of the tensor-core kernel
+# steps of 4 pages in the tensor-core kernel's ring, by the pool's element
+# bytes: 3 over bf16 pools, 2 over float32 ones (two llama3_8b blocks fit
+# an SM)
+RING_STEPS = {2: 3, 4: 2}
+MMA_HEAD_DIMS = (16, 32, 64, 128, 256)  # head widths of the tensor cores
 MAX_SMEM = 232448  # bytes of shared memory a block can use
 
 # the C entry point of each (q dtype, pool dtype) pair the kernels take
@@ -79,7 +82,7 @@ class SplitPlan(NamedTuple):
     table, tiles of query rows, the split kernel's grid, the float32
     workspace (``[S, Hkv, splits, rows, D]`` sums and ``[..., 2]`` row max
     and sum), the split kernel's shared memory in bytes, and whether that
-    kernel is the tensor-core one (bf16 pools under bf16 or float32 q, D in
+    kernel is the tensor-core one (any dtype pair, D in
     ``MMA_HEAD_DIMS``, pages of a multiple of 16 tokens, its shared memory
     within ``MAX_SMEM``) or the float32 FMA one."""
     pages_per_split: int
@@ -103,13 +106,17 @@ def split_plan(S: int, K: int, H: int, Hkv: int, D: int, T: int, P: int,
     splits = -(-P // pages)
     rows = K * (H // Hkv)
     tiles = -(-rows // ROW_TILE)
-    # the tensor-core kernel: the ring of 4-page steps, the 16-row query
-    # tile (rows of D + 8 bf16; float32 q as three bf16 planes), the scores
+    # the tensor-core kernel: the ring of 4-page steps (rows of D + 8 pool
+    # elements; at D 128 and T 16 73,536 B for a bf16 pool under bf16 q,
+    # 82,240 under float32 q; 90,944 and 99,648 for a float32 pool, whose
+    # ring holds 2 steps so two blocks fit an SM), the 16-row query tile
+    # (rows of D + 8 bf16; float32 q as three bf16 planes), the scores
     # (rows of pages * T + 8 floats), the page ids
     q_planes = 3 if q_bytes == 4 else 1
-    mma_smem = ((RING_STEPS * 4 * T + ROW_TILE * q_planes) * 2 * (D + 8)
+    mma_smem = (RING_STEPS[elem_bytes] * 4 * T * (D + 8) * elem_bytes
+                + ROW_TILE * q_planes * (D + 8) * 2
                 + ROW_TILE * (pages * T + 8) * 4 + pages * 4)
-    tensor_cores = (elem_bytes == 2 and D in MMA_HEAD_DIMS and T % 16 == 0
+    tensor_cores = (D in MMA_HEAD_DIMS and T % 16 == 0
                     and mma_smem <= MAX_SMEM)
     if tensor_cores:
         smem = mma_smem

@@ -43,26 +43,38 @@ def _no_leftover_jax_runtime():
 
 
 class FakeProvider(NodeProvider):
-    """Cloud stub: create_node queues allocations that 'arrive' when the
-    test calls fill(); supports stockouts and preemption."""
+    """Cloud stub: create_node names a node for each one asked and fills
+    it at once, or, for a stocked-out type, never (until the test fills
+    it late from ``unfilled``); supports preemption, out-of-band nodes
+    (put into ``live`` by the test) and, with ``names_ids=False``, a cloud
+    whose create_node returns no ids."""
 
-    def __init__(self, stockout_types=()):
-        self.pending = []  # (node_type_name, count)
-        self.live = {}     # provider_id -> {"id", "node_type"}
+    def __init__(self, stockout_types=(), names_ids=True):
+        self.live = {}      # provider_id -> {"id", "node_type"}
+        self.unfilled = []  # ids named but not filled (stockouts)
         self.terminated = []
         self.stockout_types = set(stockout_types)
+        self.names_ids = names_ids
         self._n = 0
 
     def create_node(self, node_type, count: int):
-        if node_type.name in self.stockout_types:
-            return []  # the cloud accepted the request but never fills
         ids = []
         for _ in range(count):
             self._n += 1
             pid = f"prov-{self._n}"
-            self.live[pid] = {"id": pid, "node_type": node_type.name}
+            if node_type.name in self.stockout_types:
+                # the cloud accepted the request but does not fill it
+                self.unfilled.append((pid, node_type.name))
+            else:
+                self.live[pid] = {"id": pid, "node_type": node_type.name}
             ids.append(pid)
-        return ids
+        return ids if self.names_ids else []
+
+    def fill_late(self, k=0):
+        """The k-th unfilled request's node arrives; returns its id."""
+        pid, type_name = self.unfilled.pop(k)
+        self.live[pid] = {"id": pid, "node_type": type_name}
+        return pid
 
     def terminate_node(self, provider_node_id: str):
         self.live.pop(provider_node_id, None)
@@ -222,9 +234,7 @@ def _late_fill(v2, cfg, prov):
     for _ in range(8):
         r.reconcile(_state([head]))
     prov.stockout_types = set()
-    prov._n += 1
-    pid = f"prov-{prov._n}"
-    prov.live[pid] = {"id": pid, "node_type": "cpu4"}
+    pid = prov.fill_late()  # the first, abandoned request fills
     r.reconcile(_state([head]))
     assert pid in prov.terminated, "late-filled orphan not reaped"
     return r
@@ -293,6 +303,96 @@ class TestReconciler:
                          prov.terminated))
         assert outs[0] == outs[1]
         assert outs[0][0], "the scenario made no instance"
+
+
+# ------------------------------- nodes this autoscaler did not request
+# The port adopts and reaps by the ids create_node returned; the JAX
+# package's reconciler adopts an unclaimed node of the type and reaps one
+# by type (``ray_tpu/autoscaler/v2.py``), so these have no JAX twin.
+
+
+def _busy_worker(pid):
+    return _node("w1", provider_id=pid, avail=0.0)
+
+
+def test_out_of_band_node_is_neither_adopted_nor_terminated():
+    """An out-of-band node of the launched type, listed before the
+    autoscaler's own: the instance adopts the node create_node named for
+    it; a later request that stocks out and is abandoned, then fills
+    late, has its own node reaped; the out-of-band node stays alive and
+    unclaimed throughout."""
+    prov = FakeProvider()
+    prov.live["oob-1"] = {"id": "oob-1", "node_type": "cpu4"}
+    r = Reconciler(_config(), prov)
+    head = _node("head", cpu=0.0)
+    r.reconcile(_state([head], demand_on_first=[{"CPU": 4.0}]))
+    s = r.reconcile(_state([head]))
+    assert s["instances"][ALLOCATED] == 1
+    (own,) = r.im.instances.values()
+    assert own.provider_id == "prov-1"
+    assert own.requested_id == "prov-1"
+    r.reconcile(_state([head, _busy_worker("prov-1")]))
+    assert own.status == RAY_RUNNING
+    # a second node is wanted, the cloud stocks out, the request times out
+    prov.stockout_types = {"cpu4"}
+    r.ALLOCATION_TIMEOUT_S = 0.0
+    r.reconcile(_state([head, _busy_worker("prov-1")],
+                       demand_on_first=[{"CPU": 4.0}]))
+    for _ in range(6):
+        r.reconcile(_state([head, _busy_worker("prov-1")]))
+    assert [i.status for i in r.im.instances.values()] == [RAY_RUNNING,
+                                                           TERMINATED]
+    late = prov.fill_late()  # the abandoned first request fills
+    r.reconcile(_state([head, _busy_worker("prov-1")]))
+    assert late in prov.terminated
+    assert "oob-1" in prov.live and "oob-1" not in prov.terminated
+    assert all(i.provider_id != "oob-1" for i in r.im.instances.values())
+
+
+def test_reaper_leaves_a_node_it_never_requested():
+    """Every request stocks out and is abandoned; then a node of the same
+    type that no request named comes up: it is not reaped (the parent
+    design reaped any unclaimed node of an abandoned type), while the
+    abandoned request's own late fill is."""
+    prov = FakeProvider(stockout_types={"cpu4"})
+    r = Reconciler(_config(), prov)
+    r.ALLOCATION_TIMEOUT_S = 0.0
+    head = _node("head", cpu=0.0)
+    r.reconcile(_state([head], demand_on_first=[{"CPU": 4.0}]))
+    for _ in range(6):
+        r.reconcile(_state([head]))
+    assert [i.status for i in r.im.instances.values()] == [TERMINATED]
+    prov.live["oob-1"] = {"id": "oob-1", "node_type": "cpu4"}
+    r.reconcile(_state([head]))
+    assert "oob-1" in prov.live and prov.terminated == []
+    late = prov.fill_late()
+    r.reconcile(_state([head]))
+    assert prov.terminated == [late] and "oob-1" in prov.live
+
+
+def test_provider_without_ids_adopts_by_type_and_reaps_nothing():
+    """A cloud whose create_node returns no ids: the instance adopts an
+    unclaimed node of its type; an abandoned request leaves no marker, so
+    its late fill is left alive rather than risk reaping a node this
+    autoscaler never requested."""
+    prov = FakeProvider(names_ids=False)
+    r = Reconciler(_config(), prov)
+    head = _node("head", cpu=0.0)
+    r.reconcile(_state([head], demand_on_first=[{"CPU": 4.0}]))
+    s = r.reconcile(_state([head]))
+    assert s["instances"][ALLOCATED] == 1
+    (own,) = r.im.instances.values()
+    assert own.provider_id == "prov-1"
+    assert own.requested_id == ""
+    prov2 = FakeProvider(stockout_types={"cpu4"}, names_ids=False)
+    r2 = Reconciler(_config(), prov2)
+    r2.ALLOCATION_TIMEOUT_S = 0.0
+    r2.reconcile(_state([head], demand_on_first=[{"CPU": 4.0}]))
+    for _ in range(6):
+        r2.reconcile(_state([head]))
+    late = prov2.fill_late()
+    r2.reconcile(_state([head]))
+    assert late in prov2.live and prov2.terminated == []
 
 
 # ------------------------------------------------ the loop, on a cluster

@@ -226,6 +226,7 @@ def test_kernel_route_mirrors_the_kernels(name, dtype, d, route):
 
 
 NS = "_ZN51_GLOBAL__N__ba107a96_18_flash_attention_cu_1ad8dec0"
+PA = "_ZN51_GLOBAL__N__c4fc24a1_18_paged_attention_cu_104c41dd"
 
 
 @pytest.mark.parametrize("mangled,label", [
@@ -235,15 +236,38 @@ NS = "_ZN51_GLOBAL__N__ba107a96_18_flash_attention_cu_1ad8dec0"
      "flash_fwd_mma_kernel<bf16, 128>"),
     (NS + "16flash_dkv_kernelIfLi16EEEvPKT_S3_S3_S3_PKfS5_PS1_S6_iiiifi",
      "flash_dkv_kernel<f32, 16>"),
-    (NS + "32paged_attention_split_mma_kernelIfLi128EEEvPKT_",
-     "paged_attention_split_mma_kernel<f32, 128>"),
-    (NS + "32paged_attention_split_mma_kernelI13__nv_bfloat16Li32EEEvPKT_",
-     "paged_attention_split_mma_kernel<bf16, 32>"),
+    (PA + "32paged_attention_split_mma_kernelIf13__nv_bfloat16Li128EEEvPKT_"
+     "PKT0_S7_PKiS9_PfSA_iiiiiiif",
+     "paged_attention_split_mma_kernel<f32, bf16, 128>"),
+    (PA + "32paged_attention_split_mma_kernelIffLi16EEEvPKT_PKT0_S5_PKiS7_"
+     "PfS8_iiiiiiif",
+     "paged_attention_split_mma_kernel<f32, f32, 16>"),
+    (PA + "32paged_attention_split_mma_kernelI13__nv_bfloat16fLi128EEEvPKT_"
+     "PKT0_S7_PKiS9_PfSA_iiiiiiif",
+     "paged_attention_split_mma_kernel<bf16, f32, 128>"),
     (NS + "28paged_attention_split_kernelIf13__nv_bfloat16Li128EEEvPKT_",
-     "paged_attention_split_kernel<f32, bf16, 128>")])
+     "paged_attention_split_kernel<f32, bf16, 128>"),
+    # a type repeated in the template arguments is a substitution: S1_ is
+    # the third name seen (the namespace, the kernel's name, then bf16)
+    (PA + "32paged_attention_split_mma_kernelI13__nv_bfloat16S1_Li128EEEv"
+     "PKT_PKT0_S7_PKiS9_PfSA_iiiiiiif",
+     "paged_attention_split_mma_kernel<bf16, bf16, 128>"),
+    (PA + "28paged_attention_split_kernelI13__nv_bfloat16S1_Li64EEEvPKT_"
+     "PKT0_S7_PKiS9_PfSA_iiiiiiiif",
+     "paged_attention_split_kernel<bf16, bf16, 64>"),
+    (PA + "32paged_attention_split_mma_kernelI13__nv_bfloat16S1_Li16EEEv"
+     "PKT_PKT0_S7_PKiS9_PfSA_iiiiiiif",
+     "paged_attention_split_mma_kernel<bf16, bf16, 16>"),
+    # outside a namespace the kernel's name is the first (S_), bf16 S0_
+    ("_Z28paged_attention_split_kernelI13__nv_bfloat16S0_Li32EEvPKT_PKT0_"
+     "S5_PKiS7_PfS8_iiiiiiiif",
+     "paged_attention_split_kernel<bf16, bf16, 32>"),
+    (PA + "28paged_attention_merge_kernelI13__nv_bfloat16Li1EEEvPKfS4_PKiPT_"
+     "iiiiiii",
+     "paged_attention_merge_kernel<bf16, 1>")])
 def test_chip_smoke_labels_each_kernel_instantiation(mangled, label):
     """The build phase's names for the kernels whose HMMA instructions and
-    spills it gates."""
+    spills it gates, from the mangled names nvcc gives them."""
     import chip_smoke
 
     assert chip_smoke.kernel_label(mangled) == label

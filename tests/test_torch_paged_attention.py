@@ -178,16 +178,15 @@ def test_split_plan_depends_on_shapes_alone(dtype_bytes):
                          elem_bytes=dtype_bytes)
     assert prefill.row_tiles == 8 and prefill.grid == (1, 8, 64)
     assert prefill.workspace == (1, 8, 8, 128, 128)
-    # bf16 takes the tensor-core kernel, whose query tile is always 16 rows
-    assert decode.tensor_cores == prefill.tensor_cores == (dtype_bytes == 2)
-    if dtype_bytes == 2:
-        assert decode.smem_bytes == prefill.smem_bytes == 73536
-    else:
-        assert decode.smem_bytes == 80192 < prefill.smem_bytes <= 232448
+    # bf16 and float32 both take the tensor-core kernel, whose query tile
+    # is always 16 rows (a float32 pool's ring holds 2 steps, not 3)
+    assert decode.tensor_cores and prefill.tensor_cores
+    assert decode.smem_bytes == prefill.smem_bytes == {2: 73536,
+                                                       4: 99648}[dtype_bytes]
     assert split_plan(S=8, K=1, H=32, Hkv=8, D=96, T=16, P=128,
-                      elem_bytes=2).tensor_cores is False
+                      elem_bytes=dtype_bytes).tensor_cores is False
     assert split_plan(S=8, K=1, H=32, Hkv=8, D=128, T=8, P=128,
-                      elem_bytes=2).tensor_cores is False
+                      elem_bytes=dtype_bytes).tensor_cores is False
 
 
 def test_cpu_tensors_never_count_as_kernel_launches():
@@ -230,39 +229,45 @@ def test_mixed_dtype_pool_matches_jax_reference(pair, K):
                                np.asarray(want, np.float32), **tol)
 
 
-def test_mixed_pairs_route_f32_q_to_tensor_cores_and_bf16_q_to_fma():
-    """Float32 q over a bf16 pool goes to the tensor-core split kernel,
-    whose query tile holds q as three bf16 planes; bf16 q over a float32
-    pool goes to the float32 FMA split kernel, whose page ring holds the
-    pool's rows and whose query tile holds q's (the shared memory each
-    kernel takes)."""
+def test_mixed_pairs_route_to_tensor_cores():
+    """Both mixed pairs take the tensor-core split kernel at llama3_8b's
+    decode and prefill shapes: float32 q over a bf16 pool with q as three
+    bf16 planes in its query tile, bf16 q over a float32 pool with a ring
+    of two steps of float32 pages (the shared memory each takes)."""
     dec = dict(S=8, K=1, H=32, Hkv=8, D=128, T=16, P=128)
     pre = dict(dec, S=1, K=32)
     for shapes, pool, qb, tc, smem in ((dec, 2, 4, True, 82240),
                                        (pre, 2, 4, True, 82240),
-                                       (dec, 4, 2, False, 79168),
-                                       (pre, 4, 2, False, 95296)):
+                                       (dec, 4, 2, True, 90944),
+                                       (pre, 4, 2, True, 90944)):
         plan = split_plan(**shapes, elem_bytes=pool, q_bytes=qb)
         assert plan.tensor_cores is tc
         assert plan.smem_bytes == smem
     assert split_plan(**dec, elem_bytes=2, q_bytes=2).tensor_cores
 
 
-# float32 q over a bf16 pool at (D, T): the route and the split kernel's
-# shared memory. The tensor cores take the bf16 kernel's head widths and
-# pages of a multiple of 16 tokens where the tile (three query planes)
-# fits one block; the rest stays on the FMA kernel, as does bf16 q over a
-# float32 pool
-F32_Q_PLANS = [(32, 16, 4, 2, True, 36160), (64, 16, 4, 2, True, 51520),
+# (D, T, q bytes, pool bytes): the route and the split kernel's shared
+# memory. The tensor cores take every pair at head widths 16-256 with
+# pages of a multiple of 16 tokens where the tile fits one block: the
+# ring of 4-page steps (3 over a bf16 pool, 2 over a float32 one) of rows
+# of D + 8 pool elements, the query tile (three bf16 planes under float32
+# q), the scores and page ids. The rest stays on the FMA kernel.
+SPLIT_PLANS = [(32, 16, 4, 2, True, 36160), (64, 16, 4, 2, True, 51520),
                (64, 32, 4, 2, True, 79136), (128, 16, 4, 2, True, 82240),
                (128, 48, 4, 2, True, 185620), (256, 16, 4, 2, True, 143680),
                (96, 16, 4, 2, False, 30528), (128, 8, 4, 2, False, 27008),
                (128, 64, 4, 2, False, 170256), (256, 32, 4, 2, False, 155936),
-               (64, 16, 2, 4, False, 45888), (128, 16, 2, 4, False, 79168)]
+               (64, 16, 2, 4, True, 56128), (128, 16, 2, 4, True, 90944),
+               (128, 16, 4, 4, True, 99648), (64, 16, 4, 4, True, 60736),
+               (256, 16, 4, 4, True, 177472), (16, 16, 4, 4, True, 31552),
+               (16, 16, 2, 2, True, 26944), (16, 16, 4, 2, True, 28480),
+               (16, 16, 2, 4, True, 30016), (128, 32, 4, 4, True, 169248),
+               (16, 8, 4, 4, False, 8576), (128, 48, 4, 4, False, 227348),
+               (96, 16, 2, 4, False, 62272)]
 
 
-@pytest.mark.parametrize("D,T,qb,pool,tc,smem", F32_Q_PLANS)
-def test_mixed_pair_split_plan_route(D, T, qb, pool, tc, smem):
+@pytest.mark.parametrize("D,T,qb,pool,tc,smem", SPLIT_PLANS)
+def test_split_plan_route_of_each_pair(D, T, qb, pool, tc, smem):
     plan = split_plan(S=8, K=1, H=32, Hkv=8, D=D, T=T, P=128,
                       elem_bytes=pool, q_bytes=qb)
     assert plan.tensor_cores is tc
@@ -270,9 +275,24 @@ def test_mixed_pair_split_plan_route(D, T, qb, pool, tc, smem):
     # the bf16 pair at the same shape shares the route where both fit
     both = split_plan(S=8, K=1, H=32, Hkv=8, D=D, T=T, P=128, elem_bytes=2,
                       q_bytes=2)
-    if tc:
+    if tc and pool == 2:
         assert both.tensor_cores
-        assert smem - both.smem_bytes == 2 * 16 * 2 * (D + 8)
+        assert smem - both.smem_bytes == 2 * 16 * 2 * (D + 8) * (qb // 4)
+
+
+@pytest.mark.parametrize("qb", [2, 4])
+def test_float32_pool_keeps_two_blocks_an_sm_at_llama3_8b(qb):
+    """Over a float32 pool at D 128 and 16-token pages the tensor-core
+    block takes at most ~113 KB, so two fit an SM's 228 KB (1 KB reserved
+    a block): the ring holds 2 steps of float32 pages; 3 would take one
+    block an SM."""
+    plan = split_plan(S=8, K=1, H=32, Hkv=8, D=128, T=16, P=128,
+                      elem_bytes=4, q_bytes=qb)
+    assert plan.tensor_cores
+    assert 2 * (plan.smem_bytes + 1024) <= 228 * 1024
+    assert plan.smem_bytes <= 113 * 1024
+    three_steps = plan.smem_bytes + 4 * 16 * (128 + 8) * 4
+    assert 2 * (three_steps + 1024) > 228 * 1024
 
 
 @pytest.mark.parametrize("qd,kd,vd", [
@@ -293,3 +313,144 @@ def test_unsupported_dtype_pair_raises_before_any_launch(qd, kd, vd):
         _paged_attention_cuda(q.to(qd), kp.to(kd), vp.to(vd), tables,
                               lengths, 1.0)
     assert paged_attention.launches == n0
+
+
+# --------------------------------- the float32-pool tensor-core arithmetic
+
+
+def _parts(x):
+    """x (float32) as its hi, mid and lo bf16 parts, held in float32, as
+    ``split3`` in ``csrc/paged_attention.cu`` splits q, K, V and P."""
+    hi = x.to(torch.bfloat16).float()
+    mid = (x - hi).to(torch.bfloat16).float()
+    lo = (x - hi - mid).to(torch.bfloat16).float()
+    return hi, mid, lo
+
+
+def _mma(c, a, b):
+    """One mma.sync per 16-deep slice: c + a . b, the slice's products of
+    bf16 parts summed exactly, the sum rounded once to float32 (the card
+    rounds it toward zero; this rounds to nearest)."""
+    for k0 in range(0, a.shape[-1], 16):
+        c = (c.double() + a[:, k0:k0 + 16].double()
+             @ b[k0:k0 + 16].double()).float()
+    return c
+
+
+# the small products, smallest first, in the kernel's order (q or P's
+# part, K or V's part; 0 hi, 1 mid, 2 lo); hi . hi comes last
+SMALL_SIX = ((2, 0), (1, 1), (0, 2), (1, 0), (0, 1))
+SMALL_THREE = ((0, 2), (0, 1))  # bf16 q (one part) over K's lo, then mid
+
+
+def _split_mma_emulation(q, kp, vp, tables, lengths, f32_q):
+    """The tensor-core split kernel over a float32 pool, in torch, for
+    float32 q (``f32_q``: six products each way) or bf16 q (three for S,
+    six for P.V): per (slot, kv head) and split of SPLIT_KEYS keys, S with
+    the small products over every 16-wide k-step first and hi . hi last,
+    scaled and masked to -1e30; the split's exact softmax; P.V per warp
+    (pages w, w + 4, ...), each page's sum from zero with the small
+    products over its 16-key tiles first, then added to the warp's sum;
+    the warps' sums added in order; the merge of a row's splits up to its
+    own. Returns float32 [S, K, H, D]."""
+    S, K, H, D = q.shape
+    _, T, Hkv, _ = kp.shape
+    P = tables.shape[1]
+    G = H // Hkv
+    pps = max(1, SPLIT_KEYS // T)
+    scale = torch.tensor(1.0 / np.sqrt(D), dtype=torch.float32)
+    neg = torch.tensor(-1e30, dtype=torch.float32)
+    small_s = SMALL_SIX if f32_q else SMALL_THREE
+    out = torch.zeros((S, K, H, D), dtype=torch.float32)
+    for s in range(S):
+        L = int(lengths[s])
+        live = min(-(-(L + K) // T), P)
+        pos = L + torch.arange(K).repeat_interleave(G)  # row r = i G + g
+        for kvh in range(Hkv):
+            rows = q[s, :, kvh * G:(kvh + 1) * G].reshape(K * G, D).float()
+            qp = _parts(rows) if f32_q else (rows,)
+            splits = []
+            for first in range(0, live, pps):
+                pages = [int(x) for x in tables[s, first:min(first + pps,
+                                                             live)]]
+                keys = torch.cat([kp[p, :, kvh] for p in pages])
+                kparts = _parts(keys)
+                sc = torch.zeros((K * G, len(keys)), dtype=torch.float32)
+                for k0 in range(0, D, 16):
+                    for i, j in small_s:
+                        sc = _mma(sc, qp[i][:, k0:k0 + 16],
+                                  kparts[j][:, k0:k0 + 16].T)
+                for k0 in range(0, D, 16):
+                    sc = _mma(sc, qp[0][:, k0:k0 + 16],
+                              kparts[0][:, k0:k0 + 16].T)
+                key = first * T + torch.arange(len(keys))
+                sc = torch.where(key[None] <= pos[:, None], sc * scale, neg)
+                m = sc.max(dim=1).values
+                pr = torch.exp(sc - m[:, None])
+                acc = torch.zeros((K * G, D), dtype=torch.float32)
+                for w in range(4):
+                    warp = torch.zeros((K * G, D), dtype=torch.float32)
+                    for pg in range(w, len(pages), 4):
+                        pparts = _parts(pr[:, pg * T:(pg + 1) * T])
+                        vparts = _parts(vp[pages[pg], :, kvh])
+                        pv = torch.zeros((K * G, D), dtype=torch.float32)
+                        for pair in SMALL_SIX + ((0, 0),):
+                            pv = _mma(pv, pparts[pair[0]], vparts[pair[1]])
+                        warp = warp + pv
+                    acc = acc + warp
+                splits.append((m, pr.sum(dim=1), acc))
+            for r in range(K * G):
+                last = min(int(pos[r]), P * T - 1) // (pps * T)
+                m = max(float(splits[j][0][r]) for j in range(last + 1))
+                m = torch.tensor(m, dtype=torch.float32)
+                l = torch.zeros((), dtype=torch.float32)
+                acc = torch.zeros(D, dtype=torch.float32)
+                for j in range(last + 1):
+                    w = torch.exp(splits[j][0][r] - m)
+                    l = (w.double() * splits[j][1][r].double()
+                         + l.double()).float()
+                    acc = (w.double() * splits[j][2][r].double()
+                           + acc.double()).float()
+                i, g = divmod(r, G)
+                out[s, i, kvh * G + g] = acc / (l if l != 0 else 1.0)
+    return out
+
+
+# (K, lengths, H, Hkv, D, P): llama_debug's decode shape in the harness
+# serve probe (D 16) and llama3_8b's group of 4 at D 128, at decode and in
+# a verify window of SPEC_K + 1 = 5 rows whose positions cross the first
+# split boundary (256 keys)
+EMULATED = {"decode_d16": (1, [10, 16], 4, 2, 16, 8),
+            "verify_d16": (5, [0, 37], 4, 2, 16, 8),
+            "decode_d128": (1, [37, 300], 8, 2, 128, 24),
+            "verify_d128": (5, [16, 252], 8, 2, 128, 24)}
+
+
+@pytest.mark.parametrize("f32_q", [True, False], ids=["f32_q", "bf16_q"])
+@pytest.mark.parametrize("case", sorted(EMULATED))
+def test_float32_pool_tensor_core_arithmetic_matches_jax(case, f32_q):
+    """The float32-pool tensor-core kernel's arithmetic (split3 parts in
+    bf16, three or six products in float32, its order of sums), emulated
+    in torch, against JAX's reference on the same seeded numpy inputs
+    within float32's TOL. Under bf16 q both sides widen q's bf16 values
+    to float32 (as the TPU kernel does), and the kernel's bf16 output is
+    one rounding of that within one bf16 step of JAX's bf16 output."""
+    K, lengths, H, Hkv, D, P = EMULATED[case]
+    rng = np.random.default_rng(len(case) + 7 * K + D)
+    q, kp, vp, tables, lens = _mk_pools(
+        rng, S=2, K=K, H=H, Hkv=Hkv, D=D, T=16, P=P, lengths=lengths,
+        garbage_fill=1e4)
+    if not f32_q:  # q's values as bf16 holds them
+        q = torch.from_numpy(q).to(torch.bfloat16).float().numpy()
+    got = _split_mma_emulation(torch.from_numpy(q), torch.from_numpy(kp),
+                               torch.from_numpy(vp), torch.from_numpy(tables),
+                               torch.from_numpy(lens), f32_q)
+    np.testing.assert_allclose(got.numpy(), _jax((q, kp, vp, tables, lens)),
+                               **TOL)
+    if not f32_q:
+        want = jax_paged_attention(
+            jnp.asarray(q, jnp.bfloat16), jnp.asarray(kp), jnp.asarray(vp),
+            jnp.asarray(tables), jnp.asarray(lens), impl="reference")
+        np.testing.assert_allclose(
+            got.to(torch.bfloat16).float().numpy(),
+            np.asarray(want, np.float32), atol=1e-5, rtol=2.0 ** -7)
