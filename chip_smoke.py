@@ -13,10 +13,11 @@ of its checks fails:
      ``build/kernels/``, one nvcc each, started together; ptxas lines;
      ``cuobjdump -sass`` counts the HMMA (tensor-core) instructions of each
      kernel, and the run fails if the bf16 K1, K2 or K3 or the float32 K1
-     at D=64 or 128, or K4's split kernel for any q/pool dtype pair at any
-     of its head widths (16-256), has none, or if the float32 K1 or a
-     float32-pool K4 a main path launches (D 128, and D 16 under float32
-     q) spills.
+     at D=64 or 128, the float32 K2 or K3 at D=16, 64 or 128, or K4's
+     split kernel for any q/pool dtype pair at any of its head widths
+     (16-256), has none, or if the float32 K1, the float32 K2 or K3 at
+     D=16 or 64 (their D=128 ptxas line is printed) or a float32-pool K4 a
+     main path launches (D 128, and D 16 under float32 q) spills.
   3. kernel: the paged-attention kernel (split over pages, then merged;
      the split kernel on the tensor cores for every dtype pair, each
      float32 operand split into three bf16 parts) against
@@ -45,16 +46,18 @@ of its checks fails:
      gpt2_small (B16 S1024 H12 D64), gpt_1b (B4 S1024 H16/8 D128), a
      group-4 case (B1 S2048 H32/8 D128), a ragged S=1000 and a non-causal
      case: O, lse, dQ, dK, dV within the stated tolerances, an O, a dQ, a
-     dK and a dV 2% off refused, two runs of K2 and of K3 bitwise equal;
+     dK and a dV 2% off refused, the plain dQ, dK and dV with their float32
+     steps in float64 admitted, two runs of K2 and of K3 bitwise equal;
      times of each kernel, its plain version, the library yardstick (SDPA
      forward for K1; the autograd backward of that same call for K2 and K3
      together) and the bound. At D=64 and 128, K1, K2 and K3 in bf16 and K1
-     in float32 run on the tensor cores (mma.sync; the float32 K1 as six
+     in float32 run on the tensor cores (mma.sync; a float32 kernel as six
      bf16 products of its operands' split parts, held to the float32
-     gate); the float32 K2 and K3 run float32 FMA; each case prints the
+     gate), and the float32 K2 and K3 at every width; each case prints the
      route of each kernel. Then K1-K3 in float32 at train parity's shape
-     (B2 S48 H4/2 D16, FMA) against their plain versions, timed for the
-     kernels line's float32 K1-K3 entries.
+     (B2 S48 H4/2 D16: K1 on FMA, K2 and K3 on the tensor cores) against
+     their plain versions under the same checks, timed for the kernels
+     line's float32 K1-K3 entries.
   5. serve: ``LLMServerImpl(preset="llama3_8b")`` at full width and depth
      (32 layers), random bf16 weights from a seeded torch.Generator,
      answers 12 streamed requests that share a prefix (8 slots, one request
@@ -554,21 +557,28 @@ PEAK_FLOPS.update({"float32_bf16x6": PEAK_FLOPS["bfloat16"] / 6,
 SOURCES = ("paged_attention", "flash_attention")
 # the kernel instantiations that must run on the tensor cores
 SPLIT_BF16_K1 = tuple(f"flash_fwd_f32_mma_kernel<f32, {d}>" for d in (64, 128))
+# the float32 K2 and K3 (split-bf16, every head width)
+SPLIT_BF16_BWD = {d: tuple(f"{name}_f32_mma_kernel<f32, {d}>"
+                           for name in ("flash_dq", "flash_dkv"))
+                  for d in (16, 64, 128)}
 TENSOR_CORE_KERNELS = (
     tuple(f"{name}_mma_kernel<bf16, {d}>"
           for name in ("flash_fwd", "flash_dq", "flash_dkv")
           for d in (64, 128))
-    + SPLIT_BF16_K1
+    + SPLIT_BF16_K1 + sum(SPLIT_BF16_BWD.values(), ())
     + tuple(f"paged_attention_split_mma_kernel<{tq}, {tp}, {d}>"
             for tq in ("bf16", "f32") for tp in ("bf16", "f32")
             for d in (16, 32, 64, 128, 256)))
 # the instantiations whose ptxas report must show no spill: the float32 K1
-# (three planes of fragments), and K4 over a float32 pool where a main path
-# launches it (llama3_8b's D 128 under either q; llama_debug's D 16, float32
-# in the harness and bf16 over a float32 cache in the parity phase)
-NO_SPILL_KERNELS = SPLIT_BF16_K1 + tuple(
+# (three planes of fragments), the float32 K2 and K3 at D 16 (train
+# parity's) and 64 (at 128 their ptxas line is printed), and K4 over a
+# float32 pool where a main path launches it (llama3_8b's D 128 under
+# either q; llama_debug's D 16, float32 in the harness and bf16 over a
+# float32 cache in the parity phase)
+NO_SPILL_KERNELS = (SPLIT_BF16_K1 + SPLIT_BF16_BWD[16] + SPLIT_BF16_BWD[64]
+                    + tuple(
     f"paged_attention_split_mma_kernel<{tq}, f32, {d}>"
-    for tq, d in (("bf16", 128), ("f32", 128), ("f32", 16), ("bf16", 16)))
+    for tq, d in (("bf16", 128), ("f32", 128), ("f32", 16), ("bf16", 16))))
 ARENA_LEN = 2048          # serve arena per slot: 128 pages of 16 tokens
 SERVE_NEW_TOKENS = 32
 SPEC_K = 4                # draft tokens per speculative round
@@ -709,7 +719,12 @@ def build_phase() -> dict:
             raise AssertionError(f"{key}: no HMMA instruction in the built "
                                  "library: the kernel is off the tensor "
                                  "cores")
-    # the float32 K1 and the main path's float32-pool K4: nothing may spill
+    for key in SPLIT_BF16_BWD[128]:
+        line = next((ln for ln in out["flash_attention"]["ptxas"]
+                     if ln.startswith(f"{key}:")), "(reused build)")
+        print(f"build: the float32 K2/K3 at D 128, ptxas: {line}", flush=True)
+    # the float32 K1, K2 and K3 and the main path's float32-pool K4: nothing
+    # may spill
     for key in NO_SPILL_KERNELS:
         name = "flash_attention" if key.startswith("flash") else (
             "paged_attention")
@@ -1106,11 +1121,15 @@ FLASH_CASES = {
 #    of the plain one in relative L2 norm, which a bias of 2% (2e-2) breaks
 #    tenfold; PERF.md has the measured shares.
 #  * O, dQ, dK and dV in float32: the float32 gate, 1e-5 x RMS and 1e-5.
-#    In O only the order of the sums differs (at D=64 and 128 the float32
-#    K1 runs six bf16 products of split parts on the tensor cores, whose
-#    sums round toward zero); the float32 K2 and K3 run the same
-#    sequential float32 FMA chains as their plain versions and agree with
-#    them bit for bit.
+#    Only the order of the sums differs (at D=64 and 128 the float32 K1,
+#    and at every width the float32 K2 and K3, run six bf16 products of
+#    split parts on the tensor cores, whose sums round toward zero). The
+#    plain K2 and K3 take each product (S, dP and the sums of dQ, dK and
+#    dV) in float64 and round it once (``fa._dot64``): taken in float32
+#    (cuBLAS's sequential sums) they lay up to 3.4x this gate from their
+#    float64 values at these shapes (``flash_compare.py``).
+#    Each run also computes the plain dQ, dK and dV with their float32
+#    steps in float64 and fails if the gate refuses them.
 # Each run also checks that the gates refuse an O 2% off on the rows past
 # the first key tile, and a dQ, a dK and a dV 2% off.
 # lse is float32 on both sides, from the same scores: an absolute tolerance.
@@ -1140,9 +1159,9 @@ def flash_bounds(case, dtype_name, item):
     every output written once, against the memory rate; 4 B H D flops per
     visible (query, key) pair for K1 (q.k and p.v), 1.5x that for K2 and 2x
     for K3, against the peak rate of the kernel's route: the inputs' type,
-    or for the float32 K1 on the tensor cores six bf16 products a float32
+    or for a float32 kernel on the tensor cores six bf16 products a float32
     one (``float32_bf16x6``), with its bound at the float32 FMA peak beside
-    it (``fwd_fma``)."""
+    it (``fwd_fma``, ``dq_fma``, ``dkv_fma``)."""
     import torch
 
     from ray_tpu_torch.ops.flash_attention import kernel_route
@@ -1155,11 +1174,12 @@ def flash_bounds(case, dtype_name, item):
             "dq": (1.5 * fwd_flops, 3 * qb + 2 * kvb + 2 * rows),
             "dkv": (2 * fwd_flops, 2 * qb + 4 * kvb + 2 * rows)}
     peaks = {name: dtype_name for name in work}
-    if dtype_name == "float32" and kernel_route(
-            "flash_fwd", torch.float32, D) == "tensor cores":
-        peaks["fwd"] = "float32_bf16x6"
-        work["fwd_fma"] = work["fwd"]
-        peaks["fwd_fma"] = "float32"
+    for name in ("fwd", "dq", "dkv"):
+        if dtype_name == "float32" and kernel_route(
+                f"flash_{name}", torch.float32, D) == "tensor cores":
+            peaks[name] = "float32_bf16x6"
+            work[f"{name}_fma"] = work[name]
+            peaks[f"{name}_fma"] = "float32"
     out = {}
     for name, (flops, nbytes) in work.items():
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -1272,116 +1292,22 @@ def _dkv_float64(torch, fa, q, k, v, do, lse, delta, causal):
 
 def flash_kernel_phase(torch, cases=None, timed=True) -> dict:
     """K1, K2 and K3 against their plain versions on the card, bf16 and
-    float32; K2 and K3 twice, bit for bit; times of each kernel, its plain
-    version, the library yardstick (SDPA forward for K1; the autograd
-    backward of that same call for K2 and K3 together) and the bound."""
+    float32 (``_flash_case``); times of each kernel, its plain version, the
+    library yardstick (SDPA forward for K1; the autograd backward of that
+    same call for K2 and K3 together) and the bound."""
     import torch.nn.functional as F
 
     from ray_tpu_torch.ops import flash_attention as fa
 
     results = {}
     for dtype_name in ("bfloat16", "float32"):
-        dtype = getattr(torch, dtype_name)
         for name in cases or FLASH_CASES:
             case = FLASH_CASES[name]
-            causal = case["causal"]
-            q, k, v, do = flash_inputs(torch, case, dtype)
-            n0 = [f.launches for f in fa.KERNELS]
-            o, lse = fa.flash_forward(q, k, v, causal=causal)
-            delta = fa.delta_rows(do, o)
-            dq = fa.flash_dq(q, k, v, do, lse, delta, causal=causal)
-            dq2 = fa.flash_dq(q, k, v, do, lse, delta, causal=causal)
-            dk, dv = fa.flash_dkv(q, k, v, do, lse, delta, causal=causal)
-            dk2, dv2 = fa.flash_dkv(q, k, v, do, lse, delta, causal=causal)
-            torch.cuda.synchronize()
-            if [f.launches - n for f, n in zip(fa.KERNELS, n0)] != [1, 2, 2]:
-                raise AssertionError("the flash launch counters did not move")
-            if not torch.equal(dq, dq2):
-                raise AssertionError(f"{name} {dtype_name}: two runs of K2 "
-                                     "differ")
-            if not (torch.equal(dk, dk2) and torch.equal(dv, dv2)):
-                raise AssertionError(f"{name} {dtype_name}: two runs of K3 "
-                                     "differ")
-            o_ref, lse_ref = fa.flash_forward_reference(q, k, v,
-                                                        causal=causal)
-            dq_ref = fa.flash_dq_reference(q, k, v, do, lse, delta,
-                                           causal=causal)
-            dk_ref, dv_ref = fa.flash_dkv_reference(q, k, v, do, lse, delta,
-                                                    causal=causal)
-            r = {"lse_atol": LSE_ATOL,
-                 "routes": flash_routes(dtype, case["D"])}
-            for key, got, ref in (("o", o, o_ref), ("dq", dq, dq_ref),
-                                  ("dk", dk, dk_ref), ("dv", dv, dv_ref)):
-                if not torch.isfinite(got).all():
-                    raise AssertionError(f"{name} {dtype_name}: {key} is "
-                                         "not finite")
-                r.update(_gate(key, dtype_name))
-                err, rel_l2, used = _gate_err(got, ref, key, r)
-                r[f"{key}_max_abs_err"], r[f"{key}_gate_used"] = err, used
-                r[f"{key}_rel_l2"] = rel_l2
-                if not used <= 1.0:
-                    raise AssertionError(
-                        f"{name} {dtype_name}: {key} kernel disagrees with "
-                        f"its plain version: it uses {used:.3g} x its "
-                        f"tolerance {r[f'{key}_atol_rms']:g} x RMS + "
-                        f"{r[f'{key}_rtol']:g} x |ref| per element (max "
-                        f"|err| {err:.3e}), relative L2 {rel_l2:.2e} (gate "
-                        f"{r[f'{key}_l2']})")
-            for key, got, ref in (("o", o, o_ref), ("dq", dq, dq_ref),
-                                  ("dk", dk, dk_ref), ("dv", dv, dv_ref)):
-                used = _off_gate_used(got, ref, key, r)
-                r[f"{key}_2pct_off_gate_used"] = used
-                if not used > 1.0:
-                    raise AssertionError(f"{name} {dtype_name}: the {key} "
-                                         f"tolerance lets a {key} 2% off "
-                                         "pass")
-            if ("dk", dtype_name) in FLASH_L2:
-                # the gate must admit a second correct version: the plain
-                # one with its float32 steps in float64
-                alts = ((_dq_float64(torch, fa, q, k, v, do, lse, delta,
-                                     causal),)
-                        + _dkv_float64(torch, fa, q, k, v, do, lse, delta,
-                                       causal))
-                for key, alt, ref in zip(("dq", "dk", "dv"), alts,
-                                         (dq_ref, dk_ref, dv_ref)):
-                    r.update(_plain64_shares(key, alt, ref, r))
-                    if not r[f"{key}_plain64_gate_used"] <= 1.0:
-                        raise AssertionError(
-                            f"{name} {dtype_name}: the {key} gate refuses "
-                            "the plain version run in float64")
-                del alts
-            r["lse_max_abs_err"] = float((lse - lse_ref).abs().max())
-            if not r["lse_max_abs_err"] <= LSE_ATOL:
-                raise AssertionError(f"{name} {dtype_name}: lse differs by "
-                                     f"{r['lse_max_abs_err']:.3e}")
-            print(f"flash {name} {dtype_name}: max|err| (share of its "
-                  f"tolerance) o {r['o_max_abs_err']:.2e} "
-                  f"({r['o_gate_used']:.2f}), dq {r['dq_max_abs_err']:.2e} "
-                  f"({r['dq_gate_used']:.2f}), dk {r['dk_max_abs_err']:.2e} "
-                  f"({r['dk_gate_used']:.2f}), dv {r['dv_max_abs_err']:.2e} "
-                  f"({r['dv_gate_used']:.2f}), lse "
-                  f"{r['lse_max_abs_err']:.2e}; relative L2 dq "
-                  f"{r['dq_rel_l2']:.2e}, dk {r['dk_rel_l2']:.2e}, dv "
-                  f"{r['dv_rel_l2']:.2e}; 2% off uses o "
-                  f"{r['o_2pct_off_gate_used']:.1f}, dq "
-                  f"{r['dq_2pct_off_gate_used']:.1f}, dk "
-                  f"{r['dk_2pct_off_gate_used']:.1f}, dv "
-                  f"{r['dv_2pct_off_gate_used']:.1f}; K2 and K3 bitwise "
-                  "equal twice; routes K1 " + r["routes"]["fwd"] + ", K2 "
-                  + r["routes"]["dq"] + ", K3 " + r["routes"]["dkv"],
-                  flush=True)
-            if "dk_plain64_gate_used" in r:
-                print("  the plain version in float64 against float32: "
-                      + ", ".join(
-                          f"{key} max|err| "
-                          f"{r[f'{key}_plain64_max_err_rms']:.3f} x RMS, "
-                          f"relative L2 {r[f'{key}_plain64_rel_l2']:.2e}, "
-                          f"{r[f'{key}_plain64_gate_used']:.2f} of the gate"
-                          for key in ("dq", "dk", "dv")), flush=True)
-            del o_ref, lse_ref, dq_ref, dk_ref, dv_ref, dq2, dk2, dv2
+            r, inputs = _flash_case(torch, fa, f"flash {name} {dtype_name}",
+                                    case, dtype_name)
             if timed:
-                r.update(_flash_times(torch, F, fa, case, dtype_name,
-                                      (q, k, v, do, lse, delta)))
+                r.update(_flash_times(torch, F, fa, case, dtype_name, inputs))
+            del inputs
             results[f"{name}_{dtype_name}"] = r
             torch.cuda.empty_cache()
     if cases is None:
@@ -1389,47 +1315,114 @@ def flash_kernel_phase(torch, cases=None, timed=True) -> dict:
     return results
 
 
+def _flash_case(torch, fa, label, case, dtype_name):
+    """K1, K2 and K3 at ``case`` in ``dtype_name`` against their plain
+    versions: O, lse, dQ, dK and dV within their gates, K2 and K3 twice,
+    bit for bit; a dQ, a dK, a dV (and, past the first key tile, an O) 2%
+    off refused; the plain dQ, dK and dV with their float32 steps in
+    float64 admitted. Returns the record and the inputs (q, k, v, dO, lse,
+    delta)."""
+    dtype = getattr(torch, dtype_name)
+    causal = case["causal"]
+    q, k, v, do = flash_inputs(torch, case, dtype)
+    n0 = [f.launches for f in fa.KERNELS]
+    o, lse = fa.flash_forward(q, k, v, causal=causal)
+    delta = fa.delta_rows(do, o)
+    dq = fa.flash_dq(q, k, v, do, lse, delta, causal=causal)
+    dq2 = fa.flash_dq(q, k, v, do, lse, delta, causal=causal)
+    dk, dv = fa.flash_dkv(q, k, v, do, lse, delta, causal=causal)
+    dk2, dv2 = fa.flash_dkv(q, k, v, do, lse, delta, causal=causal)
+    torch.cuda.synchronize()
+    if [f.launches - n for f, n in zip(fa.KERNELS, n0)] != [1, 2, 2]:
+        raise AssertionError("the flash launch counters did not move")
+    if not torch.equal(dq, dq2):
+        raise AssertionError(f"{label}: two runs of K2 differ")
+    if not (torch.equal(dk, dk2) and torch.equal(dv, dv2)):
+        raise AssertionError(f"{label}: two runs of K3 differ")
+    del dq2, dk2, dv2
+    o_ref, lse_ref = fa.flash_forward_reference(q, k, v, causal=causal)
+    dq_ref = fa.flash_dq_reference(q, k, v, do, lse, delta, causal=causal)
+    dk_ref, dv_ref = fa.flash_dkv_reference(q, k, v, do, lse, delta,
+                                            causal=causal)
+    r = {"lse_atol": LSE_ATOL, "routes": flash_routes(dtype, case["D"])}
+    outs = (("o", o, o_ref), ("dq", dq, dq_ref), ("dk", dk, dk_ref),
+            ("dv", dv, dv_ref))
+    for key, got, ref in outs:
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"{label}: {key} is not finite")
+        r.update(_gate(key, dtype_name))
+        err, rel_l2, used = _gate_err(got, ref, key, r)
+        r[f"{key}_max_abs_err"], r[f"{key}_gate_used"] = err, used
+        r[f"{key}_rel_l2"] = rel_l2
+        if not used <= 1.0:
+            raise AssertionError(
+                f"{label}: {key} kernel disagrees with its plain version: "
+                f"it uses {used:.3g} x its tolerance "
+                f"{r[f'{key}_atol_rms']:g} x RMS + {r[f'{key}_rtol']:g} x "
+                f"|ref| per element (max |err| {err:.3e}), relative L2 "
+                f"{rel_l2:.2e} (gate {r[f'{key}_l2']})")
+    for key, got, ref in outs:
+        if got.shape[1] <= OFF_FROM_ROW[key]:
+            continue  # no row to scale (one key tile)
+        used = _off_gate_used(got, ref, key, r)
+        r[f"{key}_2pct_off_gate_used"] = used
+        if not used > 1.0:
+            raise AssertionError(f"{label}: the {key} tolerance lets a {key} "
+                                 "2% off pass")
+    # the gate must admit a second correct version: the plain one with its
+    # float32 steps in float64
+    alts = ((_dq_float64(torch, fa, q, k, v, do, lse, delta, causal),)
+            + _dkv_float64(torch, fa, q, k, v, do, lse, delta, causal))
+    for key, alt, ref in zip(("dq", "dk", "dv"), alts,
+                             (dq_ref, dk_ref, dv_ref)):
+        r.update(_plain64_shares(key, alt, ref, r))
+        if not r[f"{key}_plain64_gate_used"] <= 1.0:
+            raise AssertionError(f"{label}: the {key} gate refuses the plain "
+                                 "version run in float64")
+    del alts
+    r["lse_max_abs_err"] = float((lse - lse_ref).abs().max())
+    if not r["lse_max_abs_err"] <= LSE_ATOL:
+        raise AssertionError(f"{label}: lse differs by "
+                             f"{r['lse_max_abs_err']:.3e}")
+    off = ", ".join(f"{key} {r[f'{key}_2pct_off_gate_used']:.1f}"
+                    for key in ("o", "dq", "dk", "dv")
+                    if f"{key}_2pct_off_gate_used" in r)
+    print(f"{label}: max|err| (share of its tolerance) o "
+          f"{r['o_max_abs_err']:.2e} ({r['o_gate_used']:.2f}), dq "
+          f"{r['dq_max_abs_err']:.2e} ({r['dq_gate_used']:.2f}), dk "
+          f"{r['dk_max_abs_err']:.2e} ({r['dk_gate_used']:.2f}), dv "
+          f"{r['dv_max_abs_err']:.2e} ({r['dv_gate_used']:.2f}), lse "
+          f"{r['lse_max_abs_err']:.2e}; relative L2 dq {r['dq_rel_l2']:.2e}, "
+          f"dk {r['dk_rel_l2']:.2e}, dv {r['dv_rel_l2']:.2e}; 2% off uses "
+          f"{off}; K2 and K3 bitwise equal twice; routes K1 "
+          f"{r['routes']['fwd']}, K2 {r['routes']['dq']}, K3 "
+          f"{r['routes']['dkv']}", flush=True)
+    print("  the plain version in float64 against it: " + ", ".join(
+        f"{key} max|err| {r[f'{key}_plain64_max_err_rms']:.3g} x RMS, "
+        f"relative L2 {r[f'{key}_plain64_rel_l2']:.2e}, "
+        f"{r[f'{key}_plain64_gate_used']:.2f} of the gate"
+        for key in ("dq", "dk", "dv")), flush=True)
+    return r, (q, k, v, do, lse, delta)
+
+
 # the float32 K1-K3 of train parity's llama_debug and moe_debug (tokens
-# [2, 48], 4 heads over 2 kv heads of width 16): FMA
+# [2, 48], 4 heads over 2 kv heads of width 16): K1 on FMA, K2 and K3 on
+# the tensor cores
 TRAIN_PARITY_FLASH = dict(B=2, S=48, H=4, Hkv=2, D=16, causal=True)
 
 
 def _flash_f32_small(torch) -> dict:
-    """K1, K2 and K3 in float32 at ``TRAIN_PARITY_FLASH`` against their
-    plain versions under the float32 gate, with their times, their plain
-    versions', SDPA's forward and backward and their bounds."""
+    """K1, K2 and K3 in float32 at ``TRAIN_PARITY_FLASH`` under
+    ``_flash_case``'s checks, with their times, their plain versions',
+    SDPA's forward and backward and their bounds."""
     import torch.nn.functional as F
 
     from ray_tpu_torch.ops import flash_attention as fa
 
     case = TRAIN_PARITY_FLASH
-    q, k, v, do = flash_inputs(torch, case, torch.float32)
-    o, lse = fa.flash_forward(q, k, v, causal=True)
-    delta = fa.delta_rows(do, o)
-    dq = fa.flash_dq(q, k, v, do, lse, delta, causal=True)
-    dk, dv = fa.flash_dkv(q, k, v, do, lse, delta, causal=True)
-    o_ref, lse_ref = fa.flash_forward_reference(q, k, v, causal=True)
-    dq_ref = fa.flash_dq_reference(q, k, v, do, lse, delta, causal=True)
-    dk_ref, dv_ref = fa.flash_dkv_reference(q, k, v, do, lse, delta,
-                                            causal=True)
-    r = {"routes": flash_routes(torch.float32, case["D"]),
-         "lse_max_abs_err": float((lse - lse_ref).abs().max())}
-    for key, got, ref in (("o", o, o_ref), ("dq", dq, dq_ref),
-                          ("dk", dk, dk_ref), ("dv", dv, dv_ref)):
-        err, _, used = _gate_err(got, ref, key, _gate(key, "float32"))
-        r[f"{key}_max_abs_err"], r[f"{key}_gate_used"] = err, used
-        if not (torch.isfinite(got).all() and used <= 1.0):
-            raise AssertionError(f"flash f32 at {case}: {key} uses "
-                                 f"{used:.3g} x the float32 gate")
-    if not r["lse_max_abs_err"] <= LSE_ATOL:
-        raise AssertionError(f"flash f32 at {case}: lse differs by "
-                             f"{r['lse_max_abs_err']:.3e}")
-    r.update(_flash_times(torch, F, fa, case, "float32",
-                          (q, k, v, do, lse, delta)))
-    print(f"flash f32 at train parity's shape {case}: routes {r['routes']}; "
-          f"max|err| o {r['o_max_abs_err']:.2e}, dq {r['dq_max_abs_err']:.2e}"
-          f", dk {r['dk_max_abs_err']:.2e}, dv {r['dv_max_abs_err']:.2e} "
-          "(float32 gate)", flush=True)
+    r, inputs = _flash_case(torch, fa, f"flash f32 at train parity's shape "
+                            f"{case}", case, "float32")
+    r.update(_flash_times(torch, F, fa, case, "float32", inputs))
     return r
 
 
@@ -1462,8 +1455,9 @@ def _flash_times(torch, F, fa, case, dtype_name, inputs) -> dict:
         r[f"{name}_ms"] = time_ms(torch, kernel)
         r[f"{name}_plain_ms"] = time_ms(torch, plain, iters=5, warmup=1)
         r[f"{name}_bound_ms"], r[f"{name}_bound_by"] = bounds[name]
-    if "fwd_fma" in bounds:  # the float32 K1 on the tensor cores
-        r["fwd_fma_bound_ms"] = bounds["fwd_fma"][0]
+    for name in calls:  # a float32 kernel on the tensor cores
+        if f"{name}_fma" in bounds:
+            r[f"{name}_fma_bound_ms"] = bounds[f"{name}_fma"][0]
     r["fwd_library_ms"] = sdpa_fwd
     r["dq_library_ms"] = r["dkv_library_ms"] = sdpa_bwd  # one call, the pair
     print(f"  times: K1 {r['fwd_ms']:.3f} ms (plain {r['fwd_plain_ms']:.3f}, "
@@ -1742,15 +1736,17 @@ def train_parity_phase(torch) -> dict:
         rel = max(abs(a - b) / abs(b) for x, y in zip(runs["cuda"],
                                                       runs["cpu"])
                   for a, b in zip(x, y))
+        routes = flash_routes(torch.float32, cfg.head_dim)
         out[name] = dict(card=runs["cuda"], cpu=runs["cpu"], max_rel=rel,
-                         rtol=TRAIN_PARITY_RTOL, launches=launches)
+                         rtol=TRAIN_PARITY_RTOL, launches=launches,
+                         routes=routes)
         what = ("losses, grad norms and routing losses"
                 if len(runs["cpu"]) > 2 else "losses and grad norms")
         print(f"train parity {name}: float32, {TRAIN_STEPS} steps, {what} "
               f"card vs CPU within {rel:.2e} (rtol "
               f"{TRAIN_PARITY_RTOL:g}); losses "
               f"{[round(x, 5) for x in runs['cuda'][0]]}; K1-K3 launches "
-              f"on the card {launches}", flush=True)
+              f"on the card {launches}, routes {routes}", flush=True)
         if not rel <= TRAIN_PARITY_RTOL:
             raise AssertionError(f"{name}: card and CPU training differ: "
                                  f"{runs}")
@@ -7986,9 +7982,9 @@ def main() -> int:
                         for x in ("a", "b")),
         **{k: k1[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                               "bound_by", "library_ms")}})
-    # the float32 K1, K2 and K3 (FMA at D=16) that train parity's card runs
-    # launch, timed at that shape; SDPA's backward is K2's and K3's
-    # yardstick together
+    # the float32 K1 (FMA at D=16), K2 and K3 (tensor cores) that train
+    # parity's card runs launch, timed at that shape; SDPA's backward is
+    # K2's and K3's yardstick together
     small = flash["train_parity_shape_float32"]
     for key, line, err in (
             ("fwd", 103, small["o_max_abs_err"]),

@@ -11,7 +11,7 @@
 // lse and delta are [B, H, Sq] float32. Query head h reads kv head
 // h / (H / Hkv); no kv head is repeated in memory.
 //
-// Three designs share this file.
+// Four designs share this file.
 //
 // bf16 K1, K2 and K3 at D = 64 and 128 (the train path): tensor cores.
 //   What bounds them: at gpt2_small shapes the card's least time for K1 is
@@ -84,16 +84,43 @@
 //     way and added to O by one float32 FMA, rounded to nearest;
 //   * O and lse are written in float32 straight from the accumulators.
 //
-// float32 at other head widths (D = 16: the train-parity models), float32
-// K2 and K3, and bf16 at D = 16 (which nothing on the card runs): float32
-// FMA. What bounds them: operations. At training shapes a block does
-// about 2 * 64 * D flops for every key row it reads, far above the ~20
-// flops per byte where float32 arithmetic off the tensor cores stops being
-// memory-bound. So the design keeps every tile it multiplies in shared
-// memory as float32 and gives each thread a 4 x 4 register tile of scores
-// and a 4 x (D / 16) register tile of its output, so that each value read
-// from shared memory feeds four multiply-adds. The float32 K2 equals its
-// plain version bit for bit.
+// float32 K2 and K3 at D = 16, 64 and 128: flash_dq_f32_mma_kernel and
+//   flash_dkv_f32_mma_kernel, on the tensor cores with the float32 K1's
+//   split-bf16 products. What bounds them: operations (1.5x and 2x K1's
+//   flops), which the FMA kernels below came within 2.4x of. The designs
+//   are the bf16 K2's and K3's (4 warps of 16 query rows, or key rows in
+//   K3; the same masking rule and causal skips; no atomics, a fixed loop
+//   order, so two runs give the same bits), with the float32 K1's staging:
+//   the tiles that stream (K and V in K2, Q and dO in K3) land as float32
+//   by cp.async and are split once per tile into three bf16 planes, the
+//   block's own rows are split once from device memory; every operand is
+//   read from its planes with ldmatrix (.trans for K in dS.K, dO in
+//   P^T.dO and Q in dS^T.Q). At D = 64 and 128 the streamed tiles are 32
+//   rows (f32_bwd_rows): a block takes about 99 KB of shared memory at
+//   D = 64, so two blocks share an SM, and 187 KB at D = 128; the score
+//   fragments are then 32 registers, beside dQ (or dK and dV) and a
+//   tile's sum. P and dS are never rounded (in float32 the JAX
+//   kernels' casts change nothing): they go from the score fragments to
+//   three bf16 A fragments in registers. The order of the sums:
+//   * S and dP take each k-step's six products from zero (the five small
+//     ones, then hi.hi) and add them to the score by one float32 add,
+//     rounded to nearest; so no rounding of mma.sync, which truncates
+//     toward zero, falls on a whole score. A row whose dP is nearly its
+//     delta (a causal row's first keys) turns a score's rounding into dQ's
+//     error, and the float32 gate holds dQ to 1e-5 x its RMS;
+//   * each key tile's dS.K (K2), and each query tile's P^T.dO and dS^T.Q
+//     (K3), is summed from zero (the five small products over every
+//     k-step, then hi.hi), and added to dQ, dV or dK by one float32 add.
+//
+// float32 K1 at D = 16 (the train-parity models) and bf16 at D = 16
+// (which nothing on the card runs): float32 FMA. What bounds them:
+// operations. At training shapes a block does about 2 * 64 * D flops for
+// every key row it reads, far above the ~20 flops per byte where float32
+// arithmetic off the tensor cores stops being memory-bound. So the design
+// keeps every tile it multiplies in shared memory as float32 and gives
+// each thread a 4 x 4 register tile of scores and a 4 x (D / 16) register
+// tile of its output, so that each value read from shared memory feeds
+// four multiply-adds.
 //
 // FMA design (first, simple version):
 //   * 256 threads as a 16 x 16 grid (ty, tx); tiles of 64 query rows and 64
@@ -116,7 +143,9 @@
 //     heads and the query tiles: dK and dV sum in registers and are written
 //     once, with no atomics, so two runs give the same bits.
 //   * the tensor-core kernels above replace it for bf16 K1, K2 and K3 and
-//     float32 K1 at D = 64 and 128; wgmma and TMA are left for later work.
+//     float32 K1 at D = 64 and 128, and for float32 K2 and K3 at every
+//     width, so flash_dq_kernel and flash_dkv_kernel are built for bf16
+//     only; wgmma and TMA are left for later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -1557,6 +1586,391 @@ flash_fwd_f32_mma_kernel(const float* __restrict__ q,
   }
 }
 
+// The rows of the tiles that stream through the float32 K2 (key tiles) and
+// K3 (query tiles): 32 at D = 64 and 128, so a block's shared memory (about
+// 99 KB at D = 64) lets two blocks share an SM, and the score fragments
+// (2 x 16 registers) leave room for the sums; 64 at D = 16
+__host__ __device__ constexpr int f32_bwd_rows(int D) {
+  return D <= 16 ? 64 : 32;
+}
+
+// s += a . b for float32 a and b given as their bf16 parts: the six
+// products summed from zero (the five small ones, then hi . hi), then added
+// to s by one float32 add, rounded to nearest
+__device__ __forceinline__ void mma6_add(float (&s)[4],
+                                         const uint32_t (&a)[3][4],
+                                         const uint32_t (&b0)[3],
+                                         const uint32_t (&b1)[3]) {
+  float c[4] = {0.f, 0.f, 0.f, 0.f};
+  mma5(c, a, b0, b1);
+  mma(c, a[0], b0[0], b1[0]);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) s[e] += c[e];
+}
+
+// The scores of a warp's 16 rows against NT8 n-tiles of 8 rows of another
+// tile, both given as bf16 planes: s[n] += A . B^T over D, each k-step's
+// six products added to the scores by mma6_add. a_addr: the warp's A
+// fragments (a_off) in plane 0, a_plane bytes apart; b_addr: the B
+// fragments (b_off, non-trans) in plane 0, b_plane bytes apart.
+template <int D, int NT8>
+__device__ __forceinline__ void scores_f32(float (&s)[NT8][4], uint32_t a_addr,
+                                           uint32_t a_plane, uint32_t b_addr,
+                                           uint32_t b_plane) {
+  constexpr int ld = D + kPadH;
+#pragma unroll
+  for (int n = 0; n < NT8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+  for (int kd = 0; kd < D / 16; ++kd) {
+    uint32_t a[3][4];
+#pragma unroll
+    for (int p = 0; p < 3; ++p) ldsm_x4(a[p], a_addr + p * a_plane + kd * 32);
+#pragma unroll
+    for (int jj = 0; jj < NT8 / 2; ++jj) {
+      uint32_t bm[3][4];
+#pragma unroll
+      for (int p = 0; p < 3; ++p)
+        ldsm_x4(bm[p], b_addr + p * b_plane + (16 * jj * ld + 16 * kd) * 2);
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const uint32_t b0[3] = {bm[0][2 * hh], bm[1][2 * hh], bm[2][2 * hh]};
+        const uint32_t b1[3] = {bm[0][2 * hh + 1], bm[1][2 * hh + 1],
+                                bm[2][2 * hh + 1]};
+        mma6_add(s[2 * jj + hh], a, b0, b1);
+      }
+    }
+  }
+}
+
+// acc[c0 + n] += X . Y over the KN8 * 8 columns of the score fragments x
+// (16 rows, float32) and the rows of Y (bf16 planes, read .trans at
+// y_addr: a_off of plane 0, y_plane bytes apart), for the CN n-tiles of
+// the output from c0: the sum is taken from zero (the five small products
+// over every k-step, then hi . hi) and added to acc by one float32 add.
+template <int D, int KN8, int CN>
+__device__ __forceinline__ void tile_sum_f32(float (*acc)[4],
+                                             const float (&x)[KN8][4], int c0,
+                                             uint32_t y_addr,
+                                             uint32_t y_plane) {
+  constexpr int ld = D + kPadH;
+  float pv[CN][4];
+#pragma unroll
+  for (int n = 0; n < CN; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) pv[n][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < KN8 / 2; ++kk) {
+    uint32_t xa[3][4];
+    to_a_frags3(xa, x[2 * kk], x[2 * kk + 1]);
+#pragma unroll
+    for (int dd = 0; dd < CN / 2; ++dd) {
+      uint32_t yb[3][4];
+#pragma unroll
+      for (int p = 0; p < 3; ++p)
+        ldsm_x4_t(yb[p], y_addr + p * y_plane +
+                             (16 * kk * ld + 8 * c0 + 16 * dd) * 2);
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const uint32_t b0[3] = {yb[0][2 * hh], yb[1][2 * hh], yb[2][2 * hh]};
+        const uint32_t b1[3] = {yb[0][2 * hh + 1], yb[1][2 * hh + 1],
+                                yb[2][2 * hh + 1]};
+        mma5(pv[2 * dd + hh], xa, b0, b1);
+      }
+    }
+  }
+#pragma unroll
+  for (int kk = 0; kk < KN8 / 2; ++kk) {
+    uint32_t xh[4];  // the hi parts
+    to_a_frag(xh, x[2 * kk], x[2 * kk + 1]);
+#pragma unroll
+    for (int dd = 0; dd < CN / 2; ++dd) {
+      uint32_t yb[4];
+      ldsm_x4_t(yb, y_addr + (16 * kk * ld + 8 * c0 + 16 * dd) * 2);
+      mma(pv[2 * dd], xh, yb[0], yb[1]);
+      mma(pv[2 * dd + 1], xh, yb[2], yb[3]);
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < CN; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[c0 + n][e] += pv[n][e];
+}
+
+// A warp's 16 rows of a float32 [B, S, NH, D] output, rows r_lo and r_lo + 8
+// of its lanes, straight from the accumulators; rows at or past S skipped
+template <int D>
+__device__ __forceinline__ void store_acc_f32(float* __restrict__ dst,
+                                              const float (&acc)[D / 8][4],
+                                              int b, int head, int r_lo,
+                                              int S, int NH, int t) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r_lo + 8 * i;
+    if (row >= S) continue;
+    float* out = dst + ((static_cast<size_t>(b) * S + row) * NH + head) * D;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<float2*>(out + 8 * n + 2 * t) =
+          make_float2(acc[n][2 * i], acc[n][2 * i + 1]);
+  }
+}
+
+// K2 in float32 on tensor cores. The float32 K1's grid (H, B, query
+// tiles, the last query tiles first); warp w owns query rows
+// q0 + 16 w + [0, 16). Q and dO are split into planes once per block; per
+// key tile of KT rows, K and V land in the float32 staging (tile j + 1
+// while tile j is multiplied) and are split into planes; S = Q.K^T and
+// dP = dO.V^T (scores_f32), P = exp(S scale - lse) masked to exactly 0,
+// dS = P (dP - delta) scale, and the tile's dS.K (tile_sum_f32), CN
+// n-tiles of dQ at a time so the tile's sum fits beside dQ.
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_dq_f32_mma_kernel(const float* __restrict__ q,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v,
+                        const float* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        float* __restrict__ dq, int Sq, int Sk, int H,
+                        int Hkv, float sm_scale, int causal) {
+  constexpr int ld = D + kPadH;
+  constexpr int ldf = D + kPadF;
+  constexpr int DN = D / 8;       // n-tiles over D
+  constexpr int KT = f32_bwd_rows(D);  // key rows per tile
+  constexpr int KN = KT / 8;      // n-tiles over a key tile
+  constexpr int CN = DN <= 4 ? DN : 4;  // n-tiles of dQ a tile's sum holds
+  constexpr uint32_t kPlaneBytes = KT * ld * sizeof(bf16);
+  constexpr uint32_t kQPlaneBytes = kTile * ld * sizeof(bf16);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* kst = reinterpret_cast<float*>(smem_raw);  // [KT][ldf]
+  float* vst = kst + KT * ldf;                       // [KT][ldf]
+  float* lse_s = vst + KT * ldf;                     // [64]
+  float* delta_s = lse_s + kTile;                    // [64]
+  bf16* kp = reinterpret_cast<bf16*>(delta_s + kTile);  // [3][KT][ld]
+  bf16* vp = kp + 3 * KT * ld;                          // [3][KT][ld]
+  bf16* qp = vp + 3 * KT * ld;                          // [3][64][ld]
+  bf16* dop = qp + 3 * kTile * ld;                      // [3][64][ld]
+
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kTile;
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int kvh = h / (H / Hkv);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int row_lo = q0 + 16 * warp + g;  // and row_lo + 8
+  const int k_end = causal ? min(Sk, q0 + kTile) : Sk;
+  const int n_tiles = (k_end + KT - 1) / KT;
+
+  cp_tile_f32<D, KT>(kst, k, b, kvh, 0, Sk, Hkv);
+  cp_tile_f32<D, KT>(vst, v, b, kvh, 0, Sk, Hkv);
+  cp_rows<kTile>(lse_s, lse, b * H + h, q0, Sq);
+  cp_rows<kTile>(delta_s, delta, b * H + h, q0, Sq);
+  cp_async_commit();
+  split_rows<D>(qp, q, b, h, q0, Sq, H);  // while tile 0 lands
+  split_rows<D>(dop, dout, b, h, q0, Sq, H);
+
+  const uint32_t qs_a = smem_addr(qp + 16 * warp * ld + a_off(lane, ld));
+  const uint32_t dos_a = smem_addr(dop + 16 * warp * ld + a_off(lane, ld));
+  const uint32_t ks_b = smem_addr(kp + b_off(lane, ld));
+  const uint32_t vs_b = smem_addr(vp + b_off(lane, ld));
+  const uint32_t ks_t = smem_addr(kp + a_off(lane, ld));
+  float acc[DN][4];
+#pragma unroll
+  for (int n = 0; n < DN; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int k0 = j * KT;
+    cp_async_wait<0>();
+    // tile j is staged, and every warp is done with the planes of tile
+    // j - 1 (before the first tile: Q's and dO's planes are whole)
+    __syncthreads();
+    split_tile<D, KT>(kp, kst);
+    split_tile<D, KT>(vp, vst);
+    __syncthreads();  // the planes are whole, the staging is free
+    if (j + 1 < n_tiles) {  // tile j + 1 flies while tile j is multiplied
+      cp_tile_f32<D, KT>(kst, k, b, kvh, k0 + KT, Sk, Hkv);
+      cp_tile_f32<D, KT>(vst, v, b, kvh, k0 + KT, Sk, Hkv);
+      cp_async_commit();
+    }
+
+    float s[KN][4], dp[KN][4];
+    scores_f32<D, KN>(s, qs_a, kQPlaneBytes, ks_b, kPlaneBytes);
+    scores_f32<D, KN>(dp, dos_a, kQPlaneBytes, vs_b, kPlaneBytes);
+
+    // P = exp(S scale - lse), masked to exactly 0 (only the diagonal and
+    // the last tile have masked keys); dS = P (dP - delta) scale, in dp
+    const bool masked = k0 + KT > Sk || (causal && k0 + KT - 1 > q0);
+    float lse_r[2], delta_r[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      lse_r[i] = lse_s[16 * warp + g + 8 * i];
+      delta_r[i] = delta_s[16 * warp + g + 8 * i];
+    }
+#pragma unroll
+    for (int n = 0; n < KN; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[n][e] * sm_scale;
+        if (masked) {
+          const int key = k0 + 8 * n + 2 * t + (e & 1);
+          const int row = row_lo + 8 * (e >> 1);
+          if (!(key < Sk && (!causal || row >= key))) x = kNegInf;
+        }
+        const float p = expf(x - lse_r[e >> 1]);
+        dp[n][e] = p * (dp[n][e] - delta_r[e >> 1]) * sm_scale;
+      }
+
+    // dQ += dS . K, dS as three bf16 parts straight from the fragments
+#pragma unroll
+    for (int c0 = 0; c0 < DN; c0 += CN)
+      tile_sum_f32<D, KN, CN>(acc, dp, c0, ks_t, kPlaneBytes);
+  }
+
+  store_acc_f32<D>(dq, acc, b, h, row_lo, Sq, H, t);
+}
+
+// K3 in float32 on tensor cores. The bf16 K3's grid (key tiles, Hkv, B)
+// and loop over the group's query heads and the query tiles from the
+// causal start; warp w owns key rows k0 + 16 w + [0, 16), and the score
+// tiles are transposed (rows keys, columns queries). K and V are split
+// into planes once per block; per step, the query tile's Q and dO land in
+// the float32 staging (the next step's while this one multiplies), with
+// lse and delta in a ring of two, and are split into planes. S^T = K.Q^T
+// and dP^T = V.dO^T (scores_f32), P^T and dS^T as K2 forms them, then the
+// step's P^T.dO and dS^T.Q (tile_sum_f32), CN n-tiles of dV and dK at a
+// time. At D = 64 and 128 the query tiles are 32 rows (f32_bwd_rows).
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_dkv_f32_mma_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v,
+                         const float* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         float* __restrict__ dk, float* __restrict__ dv,
+                         int Sq, int Sk, int H, int Hkv, float sm_scale,
+                         int causal) {
+  constexpr int ld = D + kPadH;
+  constexpr int ldf = D + kPadF;
+  constexpr int QT = f32_bwd_rows(D);    // query rows per step
+  constexpr int DN = D / 8;
+  constexpr int QN = QT / 8;             // n-tiles over a query tile
+  constexpr int CN = DN <= 4 ? DN : 4;   // n-tiles of dV, dK a sum holds
+  constexpr uint32_t kPlaneBytes = QT * ld * sizeof(bf16);
+  constexpr uint32_t kKPlaneBytes = kTile * ld * sizeof(bf16);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* qst = reinterpret_cast<float*>(smem_raw);  // [QT][ldf]
+  float* dost = qst + QT * ldf;                      // [QT][ldf]
+  float* rows = dost + QT * ldf;  // [2] x {lse, delta [QT]}
+  bf16* kp = reinterpret_cast<bf16*>(rows + 4 * QT);  // [3][64][ld]
+  bf16* vp = kp + 3 * kTile * ld;                      // [3][64][ld]
+  bf16* qp = vp + 3 * kTile * ld;                      // [3][QT][ld]
+  bf16* dop = qp + 3 * QT * ld;                        // [3][QT][ld]
+
+  const int k0 = blockIdx.x * kTile;  // the first key tiles see most queries
+  const int kvh = blockIdx.y;
+  const int b = blockIdx.z;
+  const int G = H / Hkv;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int key_lo = k0 + 16 * warp;  // this warp's first key
+
+  // under a causal mask, query tiles before this key tile see none of it
+  const int q_begin = causal ? k0 : 0;
+  const int nq = q_begin < Sq ? (Sq - q_begin + QT - 1) / QT : 0;
+  const int total = G * nq;  // (query head, query tile) steps, in order
+
+  auto load_step = [&](int it) {
+    const int gi = it / nq;
+    const int h = kvh * G + gi;
+    const int q0 = q_begin + (it - gi * nq) * QT;
+    cp_tile_f32<D, QT>(qst, q, b, h, q0, Sq, H);
+    cp_tile_f32<D, QT>(dost, dout, b, h, q0, Sq, H);
+    float* r = rows + (it & 1) * 2 * QT;
+    cp_rows<QT>(r, lse, b * H + h, q0, Sq);
+    cp_rows<QT>(r + QT, delta, b * H + h, q0, Sq);
+  };
+
+  if (total > 0) {
+    load_step(0);
+    cp_async_commit();
+  }
+  split_rows<D>(kp, k, b, kvh, k0, Sk, Hkv);  // while step 0 lands
+  split_rows<D>(vp, v, b, kvh, k0, Sk, Hkv);
+
+  const uint32_t ks_a = smem_addr(kp + 16 * warp * ld + a_off(lane, ld));
+  const uint32_t vs_a = smem_addr(vp + 16 * warp * ld + a_off(lane, ld));
+  const uint32_t qs_b = smem_addr(qp + b_off(lane, ld));
+  const uint32_t dos_b = smem_addr(dop + b_off(lane, ld));
+  const uint32_t qs_t = smem_addr(qp + a_off(lane, ld));
+  const uint32_t dos_t = smem_addr(dop + a_off(lane, ld));
+  float dka[DN][4], dva[DN][4];
+#pragma unroll
+  for (int n = 0; n < DN; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      dka[n][e] = 0.f;
+      dva[n][e] = 0.f;
+    }
+
+  for (int it = 0; it < total; ++it) {
+    const int q0 = q_begin + (it % nq) * QT;
+    cp_async_wait<0>();
+    // step it is staged, and every warp is done with the planes of step
+    // it - 1 (before the first step: K's and V's planes are whole)
+    __syncthreads();
+    split_tile<D, QT>(qp, qst);
+    split_tile<D, QT>(dop, dost);
+    __syncthreads();  // the planes are whole, the staging is free
+    if (it + 1 < total) {  // the next step flies while this one multiplies
+      load_step(it + 1);
+      cp_async_commit();
+    }
+    const float* lse_s = rows + (it & 1) * 2 * QT;
+    const float* delta_s = lse_s + QT;
+    // a warp whose keys all lie after every query of the tile adds zeros
+    if (!causal || key_lo <= q0 + QT - 1) {
+      float s[QN][4], dp[QN][4];
+      scores_f32<D, QN>(s, ks_a, kKPlaneBytes, qs_b, kPlaneBytes);
+      scores_f32<D, QN>(dp, vs_a, kKPlaneBytes, dos_b, kPlaneBytes);
+      // P^T = exp(S^T scale - lse), masked to exactly 0; dS^T in dp
+      const bool masked = q0 + QT > Sq || k0 + kTile > Sk ||
+                          (causal && q0 < key_lo + 15);
+#pragma unroll
+      for (int n = 0; n < QN; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = 8 * n + 2 * t + (e & 1);  // query in the tile
+          float sv = s[n][e] * sm_scale;
+          if (masked && !visible(q0 + c, key_lo + g + 8 * (e >> 1), Sq, Sk,
+                                 causal))
+            sv = kNegInf;
+          const float p = expf(sv - lse_s[c]);
+          dp[n][e] = p * (dp[n][e] - delta_s[c]) * sm_scale;
+          s[n][e] = p;
+        }
+      // dV += P^T . dO, then dK += dS^T . Q
+#pragma unroll
+      for (int c0 = 0; c0 < DN; c0 += CN)
+        tile_sum_f32<D, QN, CN>(dva, s, c0, dos_t, kPlaneBytes);
+#pragma unroll
+      for (int c0 = 0; c0 < DN; c0 += CN)
+        tile_sum_f32<D, QN, CN>(dka, dp, c0, qs_t, kPlaneBytes);
+    }
+  }
+
+  store_acc_f32<D>(dk, dka, b, kvh, key_lo + g, Sk, Hkv, t);
+  store_acc_f32<D>(dv, dva, b, kvh, key_lo + g, Sk, Hkv, t);
+}
+
 template <int D>
 constexpr size_t fwd_mma_smem() {
   return 5 * static_cast<size_t>(kTile) * (D + kPadH) * sizeof(bf16);
@@ -1581,12 +1995,28 @@ constexpr size_t fwd_f32_mma_smem() {  // K, V staging; K, V (and Q) planes
              sizeof(bf16);
 }
 
+template <int D>
+constexpr size_t dq_f32_mma_smem() {  // K, V staging; lse, delta; planes
+  constexpr size_t kt = f32_bwd_rows(D);
+  return 2 * kt * (D + kPadF) * sizeof(float) + 2 * kTile * sizeof(float) +
+         (6 * kt + 6 * kTile) * (D + kPadH) * sizeof(bf16);
+}
+template <int D>
+constexpr size_t dkv_f32_mma_smem() {  // Q, dO staging; 2 x lse, delta
+  constexpr size_t qt = f32_bwd_rows(D);
+  return 2 * qt * (D + kPadF) * sizeof(float) + 4 * qt * sizeof(float) +
+         (6 * kTile + 6 * qt) * (D + kPadH) * sizeof(bf16);
+}
+
 // bf16 at D = 64 and 128 takes the tensor-core kernels
 template <typename T, int D>
 constexpr bool kTensorCores = std::is_same<T, bf16>::value && D >= 64;
 // and float32 K1 at those widths the split-bf16 tensor-core forward
 template <typename T, int D>
 constexpr bool kF32TensorCores = std::is_same<T, float>::value && D >= 64;
+// float32 K2 and K3 take the split-bf16 tensor-core kernels at every width
+template <typename T>
+constexpr bool kF32BwdTensorCores = std::is_same<T, float>::value;
 
 // ------------------------------------------------------------------ launch
 
@@ -1657,6 +2087,18 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* d
         static_cast<const T*>(v), static_cast<const T*>(dout),
         static_cast<const float*>(lse), static_cast<const float*>(delta),
         static_cast<T*>(dqp), Sq, Sk, H, Hkv, sm_scale, causal);
+  } else if constexpr (kF32BwdTensorCores<T>) {
+    constexpr size_t smem = dq_f32_mma_smem<D>();
+    auto kernel = flash_dq_f32_mma_kernel<D>;
+    cudaError_t err = set_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    if ((Sq + kTile - 1) / kTile > 65535) return cudaErrorInvalidValue;
+    dim3 grid_f32(H, B, (Sq + kTile - 1) / kTile);  // K1 f32's order
+    kernel<<<grid_f32, kMmaThreads, smem, st>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<const float*>(dout),
+        static_cast<const float*>(lse), static_cast<const float*>(delta),
+        static_cast<float*>(dqp), Sq, Sk, H, Hkv, sm_scale, causal);
   } else {
     const size_t smem =
         (4 * tile_floats(D) + kTile * kLdP + 2 * kTile) * sizeof(float);
@@ -1689,6 +2131,17 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
         static_cast<const float*>(lse), static_cast<const float*>(delta),
         static_cast<T*>(dkp), static_cast<T*>(dvp), Sq, Sk, H, Hkv, sm_scale,
         causal);
+  } else if constexpr (kF32BwdTensorCores<T>) {
+    constexpr size_t smem = dkv_f32_mma_smem<D>();
+    auto kernel = flash_dkv_f32_mma_kernel<D>;
+    cudaError_t err = set_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, kMmaThreads, smem, st>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<const float*>(dout),
+        static_cast<const float*>(lse), static_cast<const float*>(delta),
+        static_cast<float*>(dkp), static_cast<float*>(dvp), Sq, Sk, H, Hkv,
+        sm_scale, causal);
   } else {
     const size_t smem =
         (4 * tile_floats(D) + 2 * kTile * kLdP + 2 * kTile) * sizeof(float);

@@ -17,14 +17,19 @@ On a CUDA tensor each wrapper launches its hand-written Hopper kernel in
 ``ray_tpu_torch/csrc/flash_attention.cu`` (built by ``ops/_build.py``), or
 raises; ``<wrapper>.launches`` counts its launches. At head widths 64 and
 128, K1, K2 and K3 in bf16 and K1 in float32 run on the tensor cores
-(``mma.sync``, float32 sums); the float32 K1 splits each operand into three
-bf16 parts, whose six cross products above 2^-24 keep float32's product
-precision. The float32 K2 and K3, and every kernel at head width 16, run
-float32 FMA (``kernel_route`` says which). On a CPU tensor each
+(``mma.sync``, float32 sums), and so do the float32 K2 and K3 at every
+width (16 too); a float32 kernel splits each operand into three bf16
+parts, whose six cross products above 2^-24 keep float32's product
+precision. K1 in float32 at head width 16, and bf16 at 16, run float32
+FMA (``kernel_route`` says which). On a CPU tensor each
 wrapper runs its plain PyTorch version (``flash_forward_reference``,
 ``flash_dq_reference``, ``flash_dkv_reference``), with the same math in
 float32 and the same casts: P is cast to v's dtype before P.V, and P and dS
-to the dtype of the operand they multiply in the backward products.
+to the dtype of the operand they multiply in the backward products. The
+plain backward takes each of its products (S, dP, and the sums of dQ, dK
+and dV) in float64 and rounds it to float32 once, so it does not rest on
+any order of sums: in float32, a long sum in another order lands further
+from the exact one than the float32 gate the kernels are held to.
 
 ``flash_attention`` is the differentiable op: a ``torch.autograd.Function``
 that saves q, k, v, O and lse and runs K2 and K3 in its backward. Delta =
@@ -48,11 +53,14 @@ from ray_tpu_torch.ops import _build
 NEG_INF = -1e30
 HEAD_DIMS = (16, 64, 128)  # head widths the kernels are built for
 # the head widths at which a kernel runs on the tensor cores, per dtype
-# (``csrc/flash_attention.cu``: kTensorCores, kF32TensorCores)
+# (``csrc/flash_attention.cu``: kTensorCores, kF32TensorCores,
+# kF32BwdTensorCores)
 MMA_HEAD_DIMS = {("flash_fwd", torch.bfloat16): (64, 128),
                  ("flash_dq", torch.bfloat16): (64, 128),
                  ("flash_dkv", torch.bfloat16): (64, 128),
-                 ("flash_fwd", torch.float32): (64, 128)}
+                 ("flash_fwd", torch.float32): (64, 128),
+                 ("flash_dq", torch.float32): HEAD_DIMS,
+                 ("flash_dkv", torch.float32): HEAD_DIMS}
 
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _ARGTYPES = {
@@ -77,18 +85,31 @@ def _scale(q: torch.Tensor, sm_scale: Optional[float]) -> float:
 # ---------------------------------------------------------------- plain
 
 
+def _mask(s, causal):
+    """Scores [..., Sq, Sk] with the keys after each query at NEG_INF."""
+    if not causal:
+        return s
+    Sq, Sk = s.shape[-2:]
+    allowed = (torch.arange(Sq, device=s.device)[:, None]
+               >= torch.arange(Sk, device=s.device)[None, :])
+    return torch.where(allowed, s, torch.tensor(NEG_INF, device=s.device))
+
+
 def _scores(q, k, sm_scale, causal):
     """Masked, scaled scores [B, Hkv, G, Sq, Sk] in float32; the scale is
     applied before the mask, as the kernels do."""
     B, Sq, H, D = q.shape
-    Sk, Hkv = k.shape[1], k.shape[2]
+    Hkv = k.shape[2]
     qg = q.reshape(B, Sq, Hkv, H // Hkv, D).float()
-    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * sm_scale
-    if causal:
-        allowed = (torch.arange(Sq, device=q.device)[:, None]
-                   >= torch.arange(Sk, device=q.device)[None, :])
-        s = torch.where(allowed, s, torch.tensor(NEG_INF, device=q.device))
-    return s
+    return _mask(torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * sm_scale,
+                 causal)
+
+
+def _dot64(eq, a, b):
+    """``einsum(eq, a, b)`` taken in float64 and rounded to float32 once:
+    a float32 product whose every element is as near the exact one as
+    float32 allows, whatever order a kernel sums it in."""
+    return torch.einsum(eq, a.double(), b.double()).float()
 
 
 def _heads(t, B, Hkv, G, Sq):
@@ -114,37 +135,41 @@ def flash_forward_reference(q, k, v, sm_scale=None, causal=True
 
 
 def _p_and_ds(q, k, v, do, lse, delta, sm_scale, causal):
+    """P and dS [B, Hkv, G, Sq, Sk] in float32, S and dP by ``_dot64``;
+    and dO as [B, Sq, Hkv, G, D]."""
     B, Sq, H, D = q.shape
     Hkv = k.shape[2]
     G = H // Hkv
-    s = _scores(q, k, sm_scale, causal)
+    qg = q.reshape(B, Sq, Hkv, G, D)
+    s = _mask(_dot64("bqhgd,bkhd->bhgqk", qg, k) * sm_scale, causal)
     p = torch.exp(s - _heads(lse, B, Hkv, G, Sq))  # masked -> exactly 0
-    dog = do.reshape(B, Sq, Hkv, G, D).float()
-    dp = torch.einsum("bqhgd,bkhd->bhgqk", dog, v.float())
+    dog = do.reshape(B, Sq, Hkv, G, D)
+    dp = _dot64("bqhgd,bkhd->bhgqk", dog, v)
     ds = p * (dp - _heads(delta, B, Hkv, G, Sq)) * sm_scale
     return p, ds, dog
 
 
 def flash_dq_reference(q, k, v, do, lse, delta, sm_scale=None, causal=True):
     """Plain version of K2: dQ = scale * sum_k P * (dO.V^T - delta) . K, in
-    q's dtype. lse, delta: [B, H, Sq] float32."""
+    q's dtype. lse, delta: [B, H, Sq] float32. Its products by ``_dot64``."""
     sm_scale = _scale(q, sm_scale)
     _, ds, _ = _p_and_ds(q, k, v, do, lse, delta, sm_scale, causal)
-    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds.to(k.dtype).float(), k.float())
+    dq = _dot64("bhgqk,bkhd->bqhgd", ds.to(k.dtype), k)
     return dq.reshape(q.shape).to(q.dtype)
 
 
 def flash_dkv_reference(q, k, v, do, lse, delta, sm_scale=None, causal=True
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of K3: (dK, dV) [B, Sk, Hkv, D] in k's and v's dtypes,
-    each query head's share summed into its kv head."""
+    each query head's share summed into its kv head. Its products by
+    ``_dot64``."""
     sm_scale = _scale(q, sm_scale)
     B, Sq, H, D = q.shape
     Hkv = k.shape[2]
     p, ds, dog = _p_and_ds(q, k, v, do, lse, delta, sm_scale, causal)
-    qg = q.reshape(B, Sq, Hkv, H // Hkv, D).float()
-    dv = torch.einsum("bhgqk,bqhgd->bkhd", p.to(do.dtype).float(), dog)
-    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds.to(q.dtype).float(), qg)
+    qg = q.reshape(B, Sq, Hkv, H // Hkv, D)
+    dv = _dot64("bhgqk,bqhgd->bkhd", p.to(do.dtype), dog)
+    dk = _dot64("bhgqk,bqhgd->bkhd", ds.to(q.dtype), qg)
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -245,9 +270,9 @@ def flash_forward(q, k, v, sm_scale=None, causal=True
 def flash_dq(q, k, v, do, lse, delta, sm_scale=None, causal=True):
     """K2: dQ in q's dtype. lse, delta: [B, H, Sq] float32. No atomics:
     each block owns one query tile of one head and walks the key tiles in a
-    fixed order, so two runs give the same bits. In bf16 the tensor-core
-    sums run in another order than the plain version's: dQ may land on the
-    neighbouring bf16 value."""
+    fixed order, so two runs give the same bits. The tensor-core sums run
+    in another order than the plain version's: in bf16 dQ may land on the
+    neighbouring bf16 value, in float32 a few float32 roundings away."""
     sm_scale = _scale(q, sm_scale)
     if q.device.type == "cpu":
         return flash_dq_reference(q, k, v, do, lse, delta, sm_scale, causal)
@@ -265,9 +290,9 @@ def flash_dkv(q, k, v, do, lse, delta, sm_scale=None, causal=True
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K3: (dK, dV) [B, Sk, Hkv, D] in k's dtype. No atomics: each block
     owns one key tile of one kv head and walks the query tiles in a fixed
-    order, so two runs give the same bits. In bf16 the tensor-core sums run
-    in another order than the plain version's: dK and dV may land on the
-    neighbouring bf16 value."""
+    order, so two runs give the same bits. The tensor-core sums run in
+    another order than the plain version's: in bf16 dK and dV may land on
+    the neighbouring bf16 value, in float32 a few float32 roundings away."""
     sm_scale = _scale(q, sm_scale)
     if q.device.type == "cpu":
         return flash_dkv_reference(q, k, v, do, lse, delta, sm_scale, causal)

@@ -190,6 +190,128 @@ def test_bf16_dq_gate_admits_float64_plain_and_refuses_2pct_off(d, causal):
     assert chip_smoke._off_gate_used(alt, ref, "dq", gate) > 1.0
 
 
+# the float32 gate's cases: train parity's shape (D 16) and GQA 4/2 at D 64
+F32_GATE_CASES = {"d16": dict(b=2, s=48, h=4, hkv=2, d=16),
+                  "d64": dict(b=1, s=128, h=4, hkv=2, d=64)}
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("shape", sorted(F32_GATE_CASES))
+@pytest.mark.parametrize("key", ["dq", "dk", "dv"])
+def test_f32_grad_gate_admits_float64_plain_and_refuses_2pct_off(key, shape,
+                                                                 causal):
+    """The card's float32 gate (``chip_smoke.F32_GATE``: 1e-5 x RMS + 1e-5
+    |plain| per element), through ``chip_smoke``'s own helpers on CPU
+    tensors: the plain dQ, dK and dV with their float32 steps in float64
+    (a second correct version) pass it, and the same 2% off do not."""
+    import chip_smoke
+
+    q, k, v, do = (_t(a) for a in _inputs(**F32_GATE_CASES[shape], seed=12))
+    o, lse = fa.flash_forward_reference(q, k, v, causal=causal)
+    delta = fa.delta_rows(do, o)
+    dq = fa.flash_dq_reference(q, k, v, do, lse, delta, causal=causal)
+    dk, dv = fa.flash_dkv_reference(q, k, v, do, lse, delta, causal=causal)
+    ref = {"dq": dq, "dk": dk, "dv": dv}[key]
+    alts = dict(zip(("dq", "dk", "dv"), (
+        chip_smoke._dq_float64(torch, fa, q, k, v, do, lse, delta, causal),)
+        + chip_smoke._dkv_float64(torch, fa, q, k, v, do, lse, delta,
+                                  causal)))
+    alt = alts[key]
+    assert alt.dtype == torch.float32 and alt.shape == ref.shape
+    gate = chip_smoke._gate(key, "float32")
+    assert (gate[f"{key}_atol_rms"], gate[f"{key}_rtol"], gate[f"{key}_l2"]
+            ) == (*chip_smoke.F32_GATE, None) == (1e-5, 1e-5, None)
+    shares = chip_smoke._plain64_shares(key, alt, ref, gate)
+    assert shares[f"{key}_plain64_gate_used"] <= 1.0, shares
+    assert chip_smoke._off_gate_used(alt, ref, key, gate) > 1.0
+
+
+def _parts64(x):
+    return tuple(p.double() for p in _bf16_parts(x.float()))
+
+
+def _six(eq, a, b):
+    """``einsum(eq, a, b)`` of float32 a and b as the six cross products of
+    their bf16 parts above 2^-24, each exact, summed in float64."""
+    pa, pb = _parts64(a), _parts64(b)
+    return sum(torch.einsum(eq, pa[i], pb[j])
+               for i, j in ((2, 0), (1, 1), (0, 2), (1, 0), (0, 1), (0, 0)))
+
+
+def _split_bf16_dq_dkv(q, k, v, do, lse, delta, causal):
+    """The float32 K2 and K3 of ``csrc/flash_attention.cu`` modelled in
+    float64 on the CPU: S and dP as each 16-deep k-step's six products,
+    rounded to float32 and added in float32; P and dS in float32; dQ as
+    each key tile's dS.K (64 keys, 32 at D 128), dV and dK as each query
+    tile's P^T.dO and dS^T.Q, the query heads of a group and their tiles
+    in the kernel's order, each tile's six products rounded to float32 and
+    added in float32. (The kernels' sums of products round toward zero
+    inside the tensor cores; the model rounds to nearest.)"""
+    B, S, H, D = q.shape
+    Hkv = k.shape[2]
+    G = H // Hkv
+    scale = 1.0 / np.sqrt(D)
+    tile = 64 if D <= 64 else 32
+    qg, dog = (t.reshape(B, S, Hkv, G, D) for t in (q, do))
+    s = dp = torch.zeros((B, Hkv, G, S, S))
+    for d0 in range(0, D, 16):
+        cut = slice(d0, d0 + 16)
+        s = s + _six("bqhgd,bkhd->bhgqk", qg[..., cut], k[..., cut]).float()
+        dp = dp + _six("bqhgd,bkhd->bhgqk", dog[..., cut], v[..., cut]).float()
+    s = s * scale
+    if causal:
+        s = s.masked_fill(torch.ones(S, S, dtype=torch.bool).triu(1),
+                          fa.NEG_INF)
+    rows = (lse.reshape(B, Hkv, G, S, 1), delta.reshape(B, Hkv, G, S, 1))
+    p = torch.exp(s - rows[0])
+    ds = p * (dp - rows[1]) * scale
+    dq = torch.zeros((B, S, Hkv, G, D))
+    for k0 in range(0, S, tile):
+        dq = dq + _six("bhgqk,bkhd->bqhgd", ds[..., k0:k0 + tile],
+                       k[:, k0:k0 + tile]).float()
+    dk = dv = torch.zeros((B, S, Hkv, D))
+    for g in range(G):
+        for q0 in range(0, S, tile):
+            cut = slice(q0, q0 + tile)
+            dv = dv + _six("bhqk,bqhd->bkhd", p[:, :, g, cut],
+                           dog[:, cut, :, g]).float()
+            dk = dk + _six("bhqk,bqhd->bkhd", ds[:, :, g, cut],
+                           qg[:, cut, :, g]).float()
+    return dq.reshape(q.shape), dk, dv
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("shape", ["d16", "d64", "d128"])
+def test_split_bf16_backward_model_lies_within_f32_gate(shape, causal):
+    """The arithmetic of the float32 tensor-core K2 and K3, modelled on the
+    CPU (``_split_bf16_dq_dkv``), on inputs made with numpy whose O and lse
+    come from JAX's ``_flash_fwd`` in interpret mode: dQ, dK and dV lie
+    within the card's float32 gate of ``flash_dq_reference`` and
+    ``flash_dkv_reference``."""
+    import chip_smoke
+
+    dims = dict(F32_GATE_CASES, d128=dict(b=1, s=64, h=4, hkv=2, d=128))
+    q, k, v, do = _inputs(**dims[shape], seed=13)
+    block = 16 if q.shape[1] % 64 else 64
+    jo, jlse = jflash._flash_fwd(_head_major(q), _head_major(k),
+                                 _head_major(v), 1.0 / np.sqrt(q.shape[-1]),
+                                 causal, block, block, None, True)
+    tq, tk, tv, tdo = (_t(a) for a in (q, k, v, do))
+    o = _t(np.asarray(jo).transpose(0, 2, 1, 3))
+    lse = _t(np.asarray(jlse)[..., 0])
+    delta = fa.delta_rows(tdo, o)
+    want = (fa.flash_dq_reference(tq, tk, tv, tdo, lse, delta,
+                                  causal=causal),
+            *fa.flash_dkv_reference(tq, tk, tv, tdo, lse, delta,
+                                    causal=causal))
+    got = _split_bf16_dq_dkv(tq, tk, tv, tdo, lse, delta, causal)
+    for key, g, w in zip(("dq", "dk", "dv"), got, want):
+        used = chip_smoke._gate_err(g, w, key,
+                                    chip_smoke._gate(key, "float32"))[2]
+        assert used <= 1.0, (key, used)
+        assert not torch.equal(g, w)  # another order of sums
+
+
 def test_launch_counters_only_count_kernels():
     """The CPU path runs the plain versions and launches nothing."""
     q, k, v, do = (_t(a) for a in _inputs(s=32))
@@ -216,8 +338,10 @@ def test_wrappers_never_fall_back_off_the_cpu(wrapper):
     ("flash_fwd", torch.float32, 64, "tensor cores"),
     ("flash_fwd", torch.float32, 128, "tensor cores"),
     ("flash_fwd", torch.float32, 16, "FMA"),
-    ("flash_dq", torch.float32, 64, "FMA"),
-    ("flash_dkv", torch.float32, 128, "FMA"),
+    ("flash_dq", torch.float32, 64, "tensor cores"),
+    ("flash_dkv", torch.float32, 128, "tensor cores"),
+    ("flash_dq", torch.float32, 16, "tensor cores"),
+    ("flash_dkv", torch.float32, 16, "tensor cores"),
     ("flash_fwd", torch.bfloat16, 64, "tensor cores"),
     ("flash_dkv", torch.bfloat16, 128, "tensor cores"),
     ("flash_dq", torch.bfloat16, 16, "FMA")])
@@ -236,6 +360,12 @@ PA = "_ZN51_GLOBAL__N__c4fc24a1_18_paged_attention_cu_104c41dd"
      "flash_fwd_mma_kernel<bf16, 128>"),
     (NS + "16flash_dkv_kernelIfLi16EEEvPKT_S3_S3_S3_PKfS5_PS1_S6_iiiifi",
      "flash_dkv_kernel<f32, 16>"),
+    (NS + "23flash_dq_f32_mma_kernelILi64EEEvPKfS2_S2_S2_S2_S2_Pfiiiifi",
+     "flash_dq_f32_mma_kernel<f32, 64>"),
+    (NS + "24flash_dkv_f32_mma_kernelILi16EEEvPKfS2_S2_S2_S2_S2_PfS3_iiiifi",
+     "flash_dkv_f32_mma_kernel<f32, 16>"),
+    (NS + "24flash_dkv_f32_mma_kernelILi128EEEvPKfS2_S2_S2_S2_S2_PfS3_iiiifi",
+     "flash_dkv_f32_mma_kernel<f32, 128>"),
     (PA + "32paged_attention_split_mma_kernelIf13__nv_bfloat16Li128EEEvPKT_"
      "PKT0_S7_PKiS9_PfSA_iiiiiiif",
      "paged_attention_split_mma_kernel<f32, bf16, 128>"),
